@@ -1,0 +1,437 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port of Deal on one NVIDIA GPU, and hold each of its
+hand-written CUDA kernels against the kernel's plain PyTorch version.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure ends the run with a non-zero exit code:
+
+1. card:   the card's name and power limit; build the kernels with nvcc.
+2. kernels: each kernel at the main path's shapes (ogbn-papers100M
+   stand-in, N = 1,048,576, fanout 8, D = 128, 4 heads) against its plain
+   version on the card: quantized f32 (< 5e-7), random f32 and bf16 at
+   the tolerances of tests/test_kernels.py, attention on random f32
+   (< 5e-7); spmm and gather_spmm bitwise across two tilings.  Times
+   with CUDA events (median of 20 after warm-up): the kernel, the plain
+   version, one PyTorch library call where there is one, and the least
+   time the card could take (bytes over 3.35 TB/s or flops over the
+   f32 peak, whichever is larger, counting what this run's data needs).
+3. slice:  ``Session.build(cfg, device="cuda").infer_all()`` for gcn,
+   sage and gat (4 heads; fused and unfused attention), each against
+   the "ref" executor on the card with the same params (atol 1e-4,
+   rtol 3e-3), with each kernel's launches counted over that run.
+4. fused feature prep: ``fused_load_spmm`` through the cuda executor
+   against "ref", counting the gather_spmm launches.
+
+The line before the last is a JSON object with every kernel's numbers;
+the last line is ``{"ok": true, "device": {...}}``.  Needs the repo's
+``src/`` beside this file and a CUDA card; exits non-zero without them.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
+N_NODES_SCALE = 64               # ogbn-papers100M stand-in: 16384 * 64
+FANOUT, D, HEADS, LAYERS = 8, 128, 4, 3
+ATOL = {"float32": 2e-5, "bfloat16": 3e-2}      # tests/test_kernels.py:19
+DEVICE = "cuda"
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeError(msg)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(torch, fn, reps=20, warmup=3):
+    """Median device time of ``fn`` in ms, from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def bound(bytes_, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate
+    and flops over the f32 peak."""
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_row(name, mod, err, ms, plain_ms, need_bytes, flops,
+               library_ms=None):
+    """One entry of the kernels JSON line (launches are added later)."""
+    bms, by = bound(need_bytes, flops)
+    return {"name": name, "route": "cuda", "source": mod.SOURCE,
+            "replaces": mod.REPLACES, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms}
+
+
+def max_err(torch, a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def assert_close(torch, got, want, atol, rtol, what):
+    err = (got.float() - want.float()).abs()
+    lim = atol + rtol * want.float().abs()
+    bad = int((err > lim).sum())
+    check(bad == 0 and bool(torch.isfinite(got.float()).all()),
+          f"{what}: {bad} elements outside atol={atol} rtol={rtol} "
+          f"(max err {float(err.max()):.3e})")
+    return float(err.max())
+
+
+# ----------------------------------------------------------------------
+# phase 2: kernels
+# ----------------------------------------------------------------------
+
+def kernel_phase(torch, kops, lg):
+    """Every kernel against its plain version at the main path's shapes;
+    returns {name: row of the kernels JSON line, without launches}."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    nbr = torch.as_tensor(lg.nbr, device=dev)
+    mask = torch.as_tensor(lg.mask, device=dev)
+    R, F = nbr.shape
+    N = R
+    dh = D // HEADS
+    live = mask.reshape(-1)
+    nnz = int(live.sum())
+    uniq = int(torch.unique(nbr.reshape(-1)[live]).numel())
+    live_rows = int(mask.any(dim=1).sum())
+    log(f"[kernels] R=N={N} F={F} D={D} heads={HEADS}: {nnz} unmasked "
+        f"slots of {R * F}, {uniq} distinct source rows")
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def quant(*shape):
+        return (torch.randint(-32, 32, shape, generator=gen, device=dev)
+                * 2.0 ** -6).float()
+
+    table = torch.randperm(N, generator=gen, device=dev).to(torch.int32)
+    rows = {}
+
+    # -- spmm and gather_spmm (one template) ----------------------------
+    for name in ("spmm", "gather_spmm"):
+        fn, plain, mod = kops.KERNELS[name]
+        tbl = (table,) if name == "gather_spmm" else ()
+
+        def call(h, w, use_plain=False, fn=fn, plain=plain, **kw):
+            if use_plain:
+                return plain(h, *tbl, w, nbr, mask)
+            return fn(h, *tbl, w, nbr, mask, **kw)
+
+        hq, wq = quant(N, D), quant(R, F)
+        e_q = max_err(torch, call(hq, wq), call(hq, wq, use_plain=True))
+        check(e_q < 5e-7, f"{name} quantized f32: max err {e_q:.3e}")
+        h, w = randn(N, D), randn(R, F)
+        out = call(h, w)
+        err = assert_close(torch, out, call(h, w, use_plain=True),
+                           ATOL["float32"] * F, 3e-2, f"{name} f32")
+        hb = h.to(torch.bfloat16)
+        assert_close(torch, call(hb, w), call(hb, w, use_plain=True),
+                     ATOL["bfloat16"] * F, 3e-2, f"{name} bf16")
+        other = call(h, w, block_rows=2, block_cols=16)
+        check(torch.equal(out, other), f"{name}: tilings (default) and "
+              "(2, 16) differ")
+        # per-head shape of GAT's attend: (N, dh) values, alpha weights
+        vh = randn(N, dh)
+        assert_close(torch, call(vh, w), call(vh, w, use_plain=True),
+                     ATOL["float32"] * F, 3e-2, f"{name} f32 D={dh}")
+        ms = time_ms(torch, lambda: call(h, w))
+        ms_head = time_ms(torch, lambda: call(vh, w))
+        plain_ms = time_ms(torch, lambda: call(h, w, use_plain=True))
+        # the library yardstick: cuSPARSE through torch.sparse.mm
+        cols = (table.long()[nbr.long()] if tbl else nbr.long()).reshape(-1)
+        coo = torch.sparse_coo_tensor(
+            torch.stack([torch.arange(R, device=dev).repeat_interleave(F),
+                         cols]), (w * mask).reshape(-1), (R, N),
+            check_invariants=False)
+        csr = coo.coalesce().to_sparse_csr()
+        lib_err = max_err(torch, torch.sparse.mm(csr, h), out)
+        lib_ms = time_ms(torch, lambda: torch.sparse.mm(csr, h))
+        del coo, csr
+        need = R * F * 9 + uniq * D * 4 + R * D * 4      # nbr, w, mask, h, out
+        if tbl:
+            need += uniq * 4                             # table entries
+        rows[name] = kernel_row(name, mod, err, ms, plain_ms, need,
+                                2 * nnz * D, lib_ms)
+        r = rows[name]
+        log(f"[kernels] {name}: quantized err {e_q:.1e} (< 5e-7), f32 err "
+            f"{err:.3e} (atol {ATOL['float32'] * F:.1e}, rtol 3e-2), bf16 "
+            f"within atol {ATOL['bfloat16'] * F:.2f}, tilings bitwise "
+            f"equal; {ms:.4f} ms (D={dh}: "
+            f"{ms_head:.4f} ms), plain {plain_ms:.4f} ms, torch.sparse.mm "
+            f"{lib_ms:.4f} ms (err {lib_err:.1e}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    # -- gat_attention ----------------------------------------------------
+    fn, plain, mod = kops.KERNELS["gat_attention"]
+    q, k = quant(N, D), quant(N, D)
+    e_q = max_err(torch, fn(q, k, nbr, mask, heads=HEADS),
+                  plain(q, k, nbr, mask, HEADS))
+    check(e_q < 5e-7, f"gat_attention quantized f32: max err {e_q:.3e}")
+    q, k = randn(N, D), randn(N, D)
+    out = fn(q, k, nbr, mask, heads=HEADS)
+    err = max_err(torch, out, plain(q, k, nbr, mask, HEADS))
+    check(err < 5e-7, f"gat_attention random f32: max err {err:.3e}")
+    check(bool((out[~mask] == 0).all()), "gat_attention: masked slot != 0")
+    qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    assert_close(torch, fn(qb, kb, nbr, mask, heads=HEADS),
+                 plain(qb, kb, nbr, mask, HEADS), ATOL["bfloat16"], 3e-2,
+                 "gat_attention bf16")
+    ms = time_ms(torch, lambda: fn(q, k, nbr, mask, heads=HEADS))
+    plain_ms = time_ms(torch, lambda: plain(q, k, nbr, mask, HEADS))
+    need = live_rows * D * 4 + uniq * D * 4 + R * F * 5 + R * F * HEADS * 4
+    rows["gat_attention"] = kernel_row("gat_attention", mod, err, ms,
+                                       plain_ms, need, 2 * nnz * D)
+    r = rows["gat_attention"]
+    log(f"[kernels] gat_attention: quantized err {e_q:.1e} (< 5e-7), f32 "
+        f"err {err:.3e} (< 5e-7), bf16 within atol {ATOL['bfloat16']}; "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    # -- sddmm: per-head column slices (N, dh), as CudaExecutor passes --
+    fn, plain, mod = kops.KERNELS["sddmm"]
+    q, k = quant(N, dh), quant(N, dh)
+    e_q = max_err(torch, fn(q, k, nbr, mask), plain(q, k, nbr, mask))
+    check(e_q < 5e-7, f"sddmm quantized f32: max err {e_q:.3e}")
+    q, k = randn(N, dh), randn(N, dh)
+    err = assert_close(torch, fn(q, k, nbr, mask), plain(q, k, nbr, mask),
+                       ATOL["float32"] * dh ** 0.5, 3e-2, "sddmm f32")
+    qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    assert_close(torch, fn(qb, kb, nbr, mask), plain(qb, kb, nbr, mask),
+                 ATOL["bfloat16"] * dh ** 0.5, 3e-2, "sddmm bf16")
+    ms = time_ms(torch, lambda: fn(q, k, nbr, mask))
+    plain_ms = time_ms(torch, lambda: plain(q, k, nbr, mask))
+    # the library yardstick: cuSPARSE SDDMM through sampled_addmm, over a
+    # CSR of the distinct live (i, nbr[i, f]) pairs; `inv` maps each live
+    # slot onto its pair (sorted keys are the CSR's order)
+    keys = (torch.arange(R, device=dev).repeat_interleave(F) * N
+            + nbr.reshape(-1).long())[live]
+    pairs, inv = torch.unique(keys, return_inverse=True)
+    crow = torch.zeros(R + 1, dtype=torch.long, device=dev)
+    crow[1:] = torch.cumsum(torch.bincount(pairs // N, minlength=R), 0)
+    pattern = torch.sparse_csr_tensor(
+        crow, pairs % N, torch.ones(pairs.numel(), device=dev), (R, N),
+        check_invariants=False)
+    kt = k.t()
+    lib = torch.sparse.sampled_addmm(pattern, q, kt, beta=0.0)
+    assert_close(torch, lib.values()[inv],
+                 plain(q, k, nbr, mask).reshape(-1)[live],
+                 ATOL["float32"] * dh ** 0.5, 3e-2, "sampled_addmm")
+    lib_ms = time_ms(torch, lambda: torch.sparse.sampled_addmm(
+        pattern, q, kt, beta=0.0))
+    pairs_n = pairs.numel()
+    del keys, pairs, inv, crow, pattern, lib
+    need = live_rows * dh * 4 + uniq * dh * 4 + R * F * 5 + R * F * 4
+    rows["sddmm"] = kernel_row("sddmm", mod, err, ms, plain_ms, need,
+                               2 * nnz * dh, lib_ms)
+    r = rows["sddmm"]
+    log(f"[kernels] sddmm (D={dh}): quantized err {e_q:.1e} (< 5e-7), f32 "
+        f"err {err:.3e} (atol {ATOL['float32'] * dh ** 0.5:.1e}, rtol "
+        f"3e-2); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.sparse.sampled_addmm {lib_ms:.4f} ms ({pairs_n} distinct "
+        f"pairs), bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    torch.cuda.synchronize()
+    return rows
+
+
+# ----------------------------------------------------------------------
+# phase 3: the slice through Session.infer_all
+# ----------------------------------------------------------------------
+
+EXPECTED = {
+    "gcn": {"spmm": LAYERS},
+    "sage": {"spmm": LAYERS},
+    "gat": {"gat_attention": LAYERS, "spmm": LAYERS * HEADS},
+    "gat_unfused": {"sddmm": LAYERS * HEADS, "spmm": LAYERS * HEADS},
+}
+
+
+def slice_phase(torch, kops, launches):
+    from repro_torch.api import (DealConfig, ExecutorSpec, GraphSpec,
+                                 ModelSpec, Session)
+    from repro_torch.core.gnn_models import model_spec
+    from repro_torch.core.ops import DenseIO, RefExecutor, run_model
+
+    runs = [("gcn", "gcn", 1, True), ("sage", "sage", 1, True),
+            ("gat", "gat", HEADS, True), ("gat_unfused", "gat", HEADS, False)]
+    for label, model, heads, fused in runs:
+        cfg = DealConfig(
+            graph=GraphSpec(dataset="ogbn-papers100M", scale=N_NODES_SCALE,
+                            fanout=FANOUT, seed=0),
+            model=ModelSpec(name=model, n_layers=LAYERS, d_feature=D,
+                            heads=heads),
+            executor=ExecutorSpec(name="cuda",
+                                  options={"fused_attention": fused}))
+        t0 = time.perf_counter()
+        with Session.build(cfg, device=DEVICE) as s:
+            t_build = time.perf_counter() - t0
+            kops.reset_launch_counts()
+            H = s.infer_all()
+            counts = kops.launch_counts()
+            cold = s.timings["infer_s"]
+            want = {k: EXPECTED[label].get(k, 0) for k in counts}
+            check(counts == want, f"{label}: launches {counts}, expected "
+                  f"{want}")
+            for k, v in counts.items():
+                launches[k] += v
+            check(tuple(H.shape) == (s.n_nodes, D)
+                  and H.device.type == DEVICE,
+                  f"{label}: output {tuple(H.shape)} on {H.device}")
+            check(bool(torch.isfinite(H).all()), f"{label}: non-finite")
+            # the epoch again, warm, over infer_all's own scope: the
+            # DenseIO build (host-to-device copies) and run_model
+            spec = model_spec(model, s.params)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ios = [DenseIO.from_layer_graph(lg, s.device)
+                   for lg in s.layer_graphs]
+            run_model(s.executor, spec, ios, s.X)
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t1
+            H_ref = run_model(RefExecutor(DEVICE), spec, ios, s.X)
+            err = assert_close(torch, H, H_ref, 1e-4, 3e-3,
+                               f"{label} cuda vs ref")
+            log(f"[slice] {label}: N={s.n_nodes} E={s.graph.n_edges} "
+                f"built in {t_build:.1f} s; infer_all {cold:.4f} s "
+                f"(again, warm: {warm:.4f} s); launches "
+                f"{ {k: v for k, v in counts.items() if v} }; max err vs "
+                f"ref {err:.3e}")
+            lg0 = s.layer_graphs[0]
+        del H, H_ref, ios
+        torch.cuda.empty_cache()
+    return lg0
+
+
+# ----------------------------------------------------------------------
+# phase 4: fused feature prep
+# ----------------------------------------------------------------------
+
+def featprep_phase(torch, kops, lg, launches):
+    import numpy as np
+
+    from repro_torch.core.feature_prep import (fused_load_spmm,
+                                               write_feature_files)
+    from repro_torch.core.ops import CudaExecutor, RefExecutor
+    N = lg.n_nodes
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        files, _ = write_feature_files(tmp, N, D, n_files=8, seed=0)
+        w = np.random.default_rng(1).standard_normal((D, D)).astype(
+            np.float32) * D ** -0.5
+        kops.reset_launch_counts()
+        got, stats = fused_load_spmm(files, 4, N, D, w, lg,
+                                     CudaExecutor(DEVICE))
+        torch.cuda.synchronize()
+        counts = kops.launch_counts()
+        want, _ = fused_load_spmm(files, 4, N, D, w, lg,
+                                  RefExecutor(DEVICE))
+    check(counts["gather_spmm"] >= 1 and counts["spmm"] == 0,
+          f"fused feature prep: launches {counts}")
+    for k, v in counts.items():
+        launches[k] += v
+    err = assert_close(torch, got, want, 1e-4, 3e-3, "fused_load_spmm")
+    log(f"[featprep] fused_load_spmm N={N} D={D}: {stats['seconds']:.2f} s "
+        f"host+device, launches {counts['gather_spmm']} gather_spmm, max "
+        f"err vs ref {err:.3e}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: no port package under {src}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(src))
+    from repro_torch.core.graph import csr_from_edges_distributed, \
+        make_dataset
+    from repro_torch.core.ops import resolve_device
+    from repro_torch.core.sampler import sample_layer_graphs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops as kops
+
+    t_start = time.perf_counter()
+    resolve_device(DEVICE)               # TF32 off for the f32 GEMMs
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    for name in build.SOURCES:
+        build.library(name)
+    log(f"[build] {len(logs)} nvcc builds in {time.perf_counter() - t0:.1f}"
+        " s (sm_90a)")
+    for name, text in logs.items():      # ptxas: registers, any spills
+        regs = [int(line.split("Used ")[1].split()[0])
+                for line in text.splitlines() if "registers" in line]
+        spills = [line.strip() for line in text.splitlines()
+                  if "spill" in line and not line.strip().startswith(
+                      "0 bytes stack frame, 0 bytes spill stores, 0 bytes")]
+        log(f"[build] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)}"
+            f" registers; spills: {spills or 'none'}")
+
+    t0 = time.perf_counter()
+    src_e, dst_e, n = make_dataset("ogbn-papers100M", seed=0,
+                                   scale=N_NODES_SCALE)
+    g, _ = csr_from_edges_distributed(src_e, dst_e, n)
+    lg = sample_layer_graphs(g, FANOUT, 1, seed=0)[0]
+    log(f"[kernels] layer graph of {n} nodes, {g.n_edges} edges in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rows = kernel_phase(torch, kops, lg)
+    del src_e, dst_e, g
+    torch.cuda.empty_cache()
+
+    launches = {name: 0 for name in kops.KERNELS}
+    lg0 = slice_phase(torch, kops, launches)
+    featprep_phase(torch, kops, lg0, launches)
+    for name, v in launches.items():
+        check(v > 0, f"{name}: never launched on the main path")
+        rows[name]["launches"] = v
+    log(f"[done] launches on the main path: {launches}; "
+        f"{time.perf_counter() - t_start:.1f} s in all")
+    log(json.dumps({"kernels": [rows[n] for n in kops.KERNELS]}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,44 @@
+"""The kernel layer the executors import — the port's twin of
+``repro.kernels.ops``.
+
+Dispatch is on the tensors' device, inside each wrapper: a CUDA tensor
+goes to the hand-written kernel (or raises), a CPU tensor to the plain
+version in ``kernels.ref``.  There is no backend probe and no fallback.
+(GEMM has no kernel: the executors call ``ref.gemm_ref``, that is
+``torch.matmul``, as the JAX package leaves GEMM to XLA.)
+
+``KERNELS`` lists the four kernels with their plain versions, sources
+and the TPU kernels they replace; ``launch_counts`` and
+``reset_launch_counts`` read and zero their launch counters.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels import gat_attention as _gat
+from repro_torch.kernels import gather_spmm as _gather
+from repro_torch.kernels import ref
+from repro_torch.kernels import sddmm as _sddmm
+from repro_torch.kernels import spmm as _spmm
+
+spmm = _spmm.spmm
+gather_spmm = _gather.gather_spmm
+gat_attention = _gat.gat_attention
+sddmm = _sddmm.sddmm
+
+# name -> (wrapper, plain version, module with SOURCE / REPLACES)
+KERNELS = {
+    "spmm": (spmm, ref.spmm_ref, _spmm),
+    "gather_spmm": (gather_spmm, ref.gather_spmm_ref, _gather),
+    "gat_attention": (gat_attention, ref.gat_attention_ref, _gat),
+    "sddmm": (sddmm, ref.sddmm_ref, _sddmm),
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn, _, _ in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,39 @@
+"""``sddmm``: sampled dense-dense products over the fanout (GAT scoring
+on the unfused path).
+
+    e[i,f] = <q[i], k[nbr[i,f]]> * mask[i,f]
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/sddmm.py::sddmm``
+(``pallas_call`` at line 48) with the scoring half of the warp-per-row
+kernel in ``csrc/gat_attention.cu``.  On a CPU tensor the wrapper
+returns the plain version, ``ref.sddmm_ref``.  ``sddmm.launches``
+counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.gat_attention import check_qk, launch_rows
+
+SOURCE = "src/repro_torch/kernels/csrc/gat_attention.cu"
+REPLACES = "src/repro/kernels/sddmm.py:48"
+
+
+def sddmm(q, k, nbr, mask):
+    """q: (N, D); k: (U, D) source rows, same dtype (f32 or bf16); nbr
+    (int32, ids in [0, U)) and mask (bool): (N, F).  Returns (N, F)
+    f32 scores."""
+    check_qk(q, k, nbr, mask)
+    if q.device.type == "cpu":
+        return ref.sddmm_ref(q, k, nbr, mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"sddmm: no kernel for device {q.device}")
+    out = torch.empty(nbr.shape, dtype=torch.float32, device=q.device)
+    launched = launch_rows("sddmm", "deal_sddmm", q, k, nbr, mask, out, 1,
+                           ())
+    sddmm.launches += launched
+    return out
+
+
+sddmm.launches = 0

@@ -1,0 +1,95 @@
+"""``spmm``: fanout-gather SPMM, the layer-graph aggregation.
+
+    out[i] = sum_f w[i,f] * mask[i,f] * h[nbr[i,f]]
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/spmm.py::spmm``
+(``pallas_call`` at line 78) with the CUDA kernel in ``csrc/spmm.cu``,
+which says what bounds it (bytes) and how it is laid out.  On a CUDA
+tensor the wrapper launches the kernel or raises; on a CPU tensor it
+returns the plain version, ``ref.spmm_ref``.  ``spmm.launches`` counts
+kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+SOURCE = "src/repro_torch/kernels/csrc/spmm.cu"
+REPLACES = "src/repro/kernels/spmm.py:78"
+
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {"h": tuple(FLOAT_CODES), "w": (torch.float32,),
+           "nbr": (torch.int32,), "mask": (torch.bool,),
+           "table": (torch.int32,)}
+
+
+def check_shapes(h, nbr, mask, w=None):
+    """h is (N, D); nbr and mask are (R, F), and so is w if given."""
+    if h.dim() != 2:
+        raise ValueError(f"features must be (N, D), got {tuple(h.shape)}")
+    if nbr.dim() != 2 or mask.shape != nbr.shape:
+        raise ValueError(f"nbr and mask must both be (R, F); got "
+                         f"{tuple(nbr.shape)} and {tuple(mask.shape)}")
+    if w is not None and w.shape != nbr.shape:
+        raise ValueError(f"w must be (R, F) = {tuple(nbr.shape)}; got "
+                         f"{tuple(w.shape)}")
+
+
+def default_tiling(D: int, vec: int):
+    """(block_rows, block_cols): block_cols threads over a row's
+    vec-wide column vectors (at most a warp), rows filling 256 threads."""
+    nvec = -(-D // vec)
+    block_cols = 1
+    while block_cols < min(nvec, 32):
+        block_cols *= 2
+    return 256 // block_cols, block_cols
+
+
+def launch_spmm(what, h, table, w, nbr, mask, block_rows, block_cols):
+    """Launch ``deal_spmm`` (``table`` None for plain spmm) on the
+    current stream of h's device.  Returns (out (R, D), launched)."""
+    named = {"h": h, "w": w, "nbr": nbr, "mask": mask}
+    if table is not None:
+        named["table"] = table
+    build.check_args(what, named, _DTYPES)
+    R, F = nbr.shape
+    D = h.shape[1]
+    out = torch.empty((R, D), dtype=h.dtype, device=h.device)
+    if R == 0 or D == 0:
+        return out, False
+    vec = 16 // h.element_size()          # 16-byte column vectors ...
+    if D % vec or h.data_ptr() % 16 or out.data_ptr() % 16:
+        vec = 1                           # ... where rows are aligned
+    dr, dc = default_tiling(D, vec)
+    lib = build.library("spmm")
+    with torch.cuda.device(h.device):
+        err = lib.deal_spmm(
+            h.data_ptr(), None if table is None else table.data_ptr(),
+            w.data_ptr(), mask.data_ptr(), nbr.data_ptr(), out.data_ptr(),
+            R, F, D, FLOAT_CODES[h.dtype], vec,
+            block_rows or dr, block_cols or dc,
+            torch.cuda.current_stream(h.device).cuda_stream)
+    build.check(err, what)
+    return out, True
+
+
+def spmm(h, w, nbr, mask, *, block_rows=None, block_cols=None):
+    """out[i] = sum_f w[i,f]*mask[i,f]*h[nbr[i,f]].
+
+    h: (N, D) f32/bf16 source rows; w (f32), mask (bool) and nbr
+    (int32) are (R, F), with ids in [0, N).  Returns (R, D) in h's
+    dtype.  ``block_rows``/``block_cols`` set the CUDA tiling (None:
+    the default); the output is bitwise the same for every tiling."""
+    check_shapes(h, nbr, mask, w)
+    if h.device.type == "cpu":
+        return ref.spmm_ref(h, w, nbr, mask)
+    if h.device.type != "cuda":
+        raise ValueError(f"spmm: no kernel for device {h.device}")
+    out, launched = launch_spmm("spmm", h, None, w, nbr, mask, block_rows,
+                                block_cols)
+    spmm.launches += launched
+    return out
+
+
+spmm.launches = 0

@@ -1,0 +1,231 @@
+"""The port's kernel wrappers on CPU tensors (their plain versions)
+against the JAX package's oracles, ``repro.kernels.ref``, on the
+parametrizations of ``tests/test_kernels.py``: random f32 and bf16 at
+that file's tolerances, plus the strict < 5e-7 gate on quantized f32
+inputs, where every sum is exact.  Also the wrappers' argument checks
+and the build helper's behaviour without a CUDA toolkit."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+
+# the tolerances of tests/test_kernels.py:19
+ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _quantized(rng, shape, step=2 ** -6, span=32):
+    """f32 values on a coarse lattice: short sums are exact in any
+    order (tests/test_kernels.py::_quantized)."""
+    return (rng.integers(-span, span, shape) * step).astype(np.float32)
+
+
+def _pair(a, dtype):
+    """The same values as a JAX array and a CPU tensor of ``dtype``
+    (bf16 rounded once, by JAX, then carried bit for bit)."""
+    j = jnp.asarray(a, JDT[dtype])
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(TDT[dtype])
+    return j, t
+
+
+def _ids(a):
+    return jnp.asarray(a, jnp.int32), torch.from_numpy(
+        np.asarray(a, np.int32))
+
+
+def _mask(a):
+    return jnp.asarray(a), torch.from_numpy(np.asarray(a))
+
+
+def _f32(x):
+    x = np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                   jnp.asarray(x, jnp.float32))
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("N,D,F", [(16, 128, 4), (32, 256, 8),
+                                   (64, 128, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spmm_matches_jax(N, D, F, dtype):
+    rng = np.random.default_rng(N + D)
+    hj, ht = _pair(rng.standard_normal((N, D)), dtype)
+    wj, wt = _pair(rng.standard_normal((N, F)), dtype)
+    nj, nt = _ids(rng.integers(0, N, (N, F)))
+    mj, mt = _mask(rng.random((N, F)) > 0.25)
+    got = ops.spmm(ht, wt, nt, mt)
+    assert got.dtype == TDT[dtype] and got.shape == (N, D)
+    np.testing.assert_allclose(_f32(got), _f32(jref.spmm_ref(hj, wj, nj, mj)),
+                               atol=ATOL[dtype] * F, rtol=3e-2)
+
+
+@pytest.mark.parametrize("N,D,F", [(16, 64, 4), (32, 128, 8), (24, 96, 6)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sddmm_matches_jax(N, D, F, dtype):
+    rng = np.random.default_rng(N + D)
+    qj, qt = _pair(rng.standard_normal((N, D)), dtype)
+    kj, kt = _pair(rng.standard_normal((N, D)), dtype)
+    nj, nt = _ids(rng.integers(0, N, (N, F)))
+    mj, mt = _mask(rng.random((N, F)) > 0.25)
+    got = ops.sddmm(qt, kt, nt, mt)
+    assert got.dtype == torch.float32 and got.shape == (N, F)
+    np.testing.assert_allclose(_f32(got), _f32(jref.sddmm_ref(qj, kj, nj, mj)),
+                               atol=ATOL[dtype] * np.sqrt(D), rtol=3e-2)
+
+
+@pytest.mark.parametrize("R,U,D,F", [(16, 16, 128, 4), (32, 48, 256, 8),
+                                     (64, 80, 96, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_spmm_matches_jax(R, U, D, F, dtype):
+    rng = np.random.default_rng(R + U + D)
+    hj, ht = _pair(rng.standard_normal((U, D)), dtype)
+    tj, tt = _ids(rng.permutation(U))
+    wj, wt = _pair(rng.standard_normal((R, F)), dtype)
+    nj, nt = _ids(rng.integers(0, U, (R, F)))
+    mj, mt = _mask(rng.random((R, F)) > 0.25)
+    got = ops.gather_spmm(ht, tt, wt, nt, mt)
+    want = jref.gather_spmm_ref(hj, tj, wj, nj, mj)
+    np.testing.assert_allclose(_f32(got), _f32(want),
+                               atol=ATOL[dtype] * F, rtol=3e-2)
+
+
+@pytest.mark.parametrize("N,U,D,F,heads", [(16, 16, 64, 4, 1),
+                                           (32, 48, 64, 8, 4),
+                                           (64, 64, 128, 16, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gat_attention_matches_jax(N, U, D, F, heads, dtype):
+    rng = np.random.default_rng(N + U + heads)
+    qj, qt = _pair(rng.standard_normal((N, D)), dtype)
+    kj, kt = _pair(rng.standard_normal((U, D)), dtype)
+    nj, nt = _ids(rng.integers(0, U, (N, F)))
+    mask = rng.random((N, F)) > 0.25
+    mask[0] = False                    # an all-masked row comes out 0
+    mj, mt = _mask(mask)
+    got = ops.gat_attention(qt, kt, nt, mt, heads=heads)
+    assert got.dtype == torch.float32 and got.shape == (N, F, heads)
+    np.testing.assert_allclose(
+        _f32(got), _f32(jref.gat_attention_ref(qj, kj, nj, mj, heads)),
+        atol=ATOL[dtype], rtol=3e-2)
+    assert (got.numpy()[~mask] == 0.0).all()
+
+
+@pytest.mark.parametrize("kernel", ["spmm", "gather_spmm", "sddmm",
+                                    "gat_attention"])
+def test_quantized_strict(kernel):
+    """The acceptance gate of tests/test_kernels.py: f32 max err < 5e-7
+    on the quantized lattice (sums exact, so really 0.0); attention on
+    random f32, as at tests/test_kernels.py:156."""
+    rng = np.random.default_rng(11)
+    R, U, D, F, heads = 64, 96, 128, 16, 4
+    qz = _quantized if kernel != "gat_attention" else (
+        lambda r, s: r.standard_normal(s).astype(np.float32))
+    hj, ht = _pair(qz(rng, (U, D)), "float32")
+    qj, qt = _pair(qz(rng, (R, D)), "float32")
+    wj, wt = _pair(qz(rng, (R, F)), "float32")
+    tj, tt = _ids(rng.permutation(U))
+    nj, nt = _ids(rng.integers(0, U, (R, F)))
+    mj, mt = _mask(rng.random((R, F)) > 0.25)
+    got, want = {
+        "spmm": lambda: (ops.spmm(ht, wt, nt, mt),
+                         jref.spmm_ref(hj, wj, nj, mj)),
+        "gather_spmm": lambda: (ops.gather_spmm(ht, tt, wt, nt, mt),
+                                jref.gather_spmm_ref(hj, tj, wj, nj, mj)),
+        "sddmm": lambda: (ops.sddmm(qt, ht, nt, mt),
+                          jref.sddmm_ref(qj, hj, nj, mj)),
+        "gat_attention": lambda: (
+            ops.gat_attention(qt, ht, nt, mt, heads=heads),
+            jref.gat_attention_ref(qj, hj, nj, mj, heads)),
+    }[kernel]()
+    assert np.abs(_f32(got) - _f32(want)).max() < 5e-7
+
+
+def test_pallas_spmm_rounds_coefficients_to_h_dtype():
+    """Pins the semantics the CUDA kernel copies (its card test is in
+    tests/test_torch_gpu.py): the Pallas kernel rounds w * mask to h's
+    dtype before the f32 sum (spmm.py:76), so with bf16 h a coefficient
+    of 1 + 2**-9 becomes 1.0 and this row sums to 0; the oracles keep
+    the f32 coefficient and give 2**-9."""
+    from repro.kernels.spmm import spmm as pallas_spmm
+    h = np.ones((8, 128), np.float32)
+    w = np.zeros((8, 2), np.float32)
+    w[:, 0], w[:, 1] = 1 + 2 ** -9, -1.0
+    nbr = np.zeros((8, 2), np.int32)
+    mask = np.ones((8, 2), bool)
+    hj = jnp.asarray(h, jnp.bfloat16)
+    got = pallas_spmm(hj, jnp.asarray(w), jnp.asarray(nbr),
+                      jnp.asarray(mask), block_n=8, block_d=128)
+    assert (np.asarray(got, np.float32) == 0).all()
+    plain = ops.spmm(torch.from_numpy(h).to(torch.bfloat16),
+                     torch.from_numpy(w), torch.from_numpy(nbr),
+                     torch.from_numpy(mask))
+    assert (plain.float().numpy() == 2 ** -9).all()
+
+
+def test_gather_spmm_bitwise_vs_materialized():
+    """The fused indirection equals spmm over h[table] bit for bit."""
+    rng = np.random.default_rng(5)
+    R, U, D, F = 32, 40, 128, 8
+    h = torch.from_numpy(rng.standard_normal((U, D)).astype(np.float32))
+    table = torch.from_numpy(rng.permutation(U).astype(np.int32))
+    w = torch.from_numpy(rng.standard_normal((R, F)).astype(np.float32))
+    nbr = torch.from_numpy(rng.integers(0, U, (R, F)).astype(np.int32))
+    mask = torch.from_numpy(rng.random((R, F)) > 0.25)
+    fused = ops.gather_spmm(h, table, w, nbr, mask)
+    materialized = ops.spmm(h[table.long()], w, nbr, mask)
+    assert torch.equal(fused, materialized)
+
+
+def test_wrappers_reject_bad_shapes_and_devices():
+    h = torch.zeros(8, 4)
+    nbr = torch.zeros(8, 3, dtype=torch.int32)
+    mask = torch.ones(8, 3, dtype=torch.bool)
+    w = torch.ones(8, 3)
+    with pytest.raises(ValueError, match="w must be"):
+        ops.spmm(h, torch.ones(8, 2), nbr, mask)
+    with pytest.raises(ValueError, match="nbr and mask"):
+        ops.sddmm(h, h, nbr, mask[:, :2])
+    with pytest.raises(ValueError, match="table must be 1-D"):
+        ops.gather_spmm(h, nbr, w, nbr, mask)
+    with pytest.raises(ValueError, match="heads=3"):
+        ops.gat_attention(h, h, nbr, mask, heads=3)
+    with pytest.raises(ValueError, match="k must be"):
+        ops.gat_attention(h, torch.zeros(8, 5), nbr, mask)
+    meta = [t.to("meta") for t in (h, w, nbr, mask)]
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.spmm(*meta)
+
+
+def test_launch_counters_reset_and_cpu_calls_do_not_count():
+    ops.reset_launch_counts()
+    h = torch.zeros(8, 4)
+    nbr = torch.zeros(8, 3, dtype=torch.int32)
+    mask = torch.ones(8, 3, dtype=torch.bool)
+    ops.spmm(h, torch.ones(8, 3), nbr, mask)
+    ops.gat_attention(h, h, nbr, mask)
+    assert ops.launch_counts() == {"spmm": 0, "gather_spmm": 0,
+                                   "gat_attention": 0, "sddmm": 0}
+
+
+def test_build_names_libraries_by_source_hash_and_needs_nvcc(
+        monkeypatch, tmp_path):
+    a, b = build.library_path("spmm"), build.library_path("gat_attention")
+    assert a.parent == b.parent == build.BUILD_DIR and a != b
+    assert a == build.library_path("spmm")        # stable name
+    assert all((build.CSRC / f"{n}.cu").exists() for n in build.SOURCES)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc()
+
+
+@pytest.mark.parametrize("D,vec,want", [(128, 4, (8, 32)), (32, 4, (32, 8)),
+                                        (20, 4, (32, 8)), (128, 8, (16, 16)),
+                                        (7, 1, (32, 8)), (4096, 4, (8, 32))])
+def test_default_tiling(D, vec, want):
+    from repro_torch.kernels.spmm import default_tiling
+    assert default_tiling(D, vec) == want
