@@ -22,6 +22,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    rtol 3e-3), with each kernel's launches counted over that run.
 4. fused feature prep: ``fused_load_spmm`` through the cuda executor
    against "ref", counting the gather_spmm launches.
+5. flash kernel: ``flash_attention`` at the dense-transformer prefill
+   shape (smollm-360m: B=4, S=2048, 15 query heads over 5 kv heads,
+   hd=64, causal) in f32 and bf16, a ragged S=1000, a sliding window and
+   the Pallas (BH, S, hd) signature, each against its plain version
+   (tests/test_kernels.py's flash tolerances: atol 2e-5 f32, 3e-2 bf16,
+   rtol 3e-2).  Times the kernel, the plain version, the library
+   yardstick (``scaled_dot_product_attention``, causal, GQA) and the
+   bound (f32; the bf16 tensor-core bound is printed beside it).
+6. llm: smollm-360m at full width (32 layers, d_model 960), random
+   weights from a seed.  ``prefill_step`` on B=4 x S=2048 tokens in f32
+   through attention backend "cuda" against "ref" (last-position
+   logits and the kv cache, atol 1e-4, rtol 3e-3), exactly 32 flash
+   launches per "cuda" prefill and none under "ref"; the same in bf16
+   (finite, max error printed); then ``launch.serve.run`` in bf16 (8
+   requests, 4 slots, prompts of 3-11 tokens, 16 new tokens), which only
+   decodes and so launches no flash kernel, as in JAX.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Needs the repo's
@@ -29,6 +45,7 @@ the last line is ``{"ok": true, "device": {...}}``.  Needs the repo's
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -43,6 +60,10 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
 N_NODES_SCALE = 64               # ogbn-papers100M stand-in: 16384 * 64
 FANOUT, D, HEADS, LAYERS = 8, 128, 4, 3
 ATOL = {"float32": 2e-5, "bfloat16": 3e-2}      # tests/test_kernels.py:19
+FLASH_BF16_TOL = (8e-3, 1e-2)    # atol, rtol: the bf16 flash check
+BF16_TC_FLOPS_PER_S = 989e12     # H100 SXM, bf16 tensor cores, dense
+LLM_ARCH = "smollm-360m"         # the JAX serving entry points' default
+LLM_B, LLM_S = 4, 2048           # prefill batch and length
 DEVICE = "cuda"
 
 
@@ -366,6 +387,170 @@ def featprep_phase(torch, kops, lg, launches):
         f"err vs ref {err:.3e}")
 
 
+# ----------------------------------------------------------------------
+# phase 5: the flash attention kernel
+# ----------------------------------------------------------------------
+
+def flash_phase(torch, kops):
+    """flash_attention against its plain version at the prefill shape;
+    returns its row of the kernels JSON line, without launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref as kref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cfg = get_config(LLM_ARCH)
+    B, S = LLM_B, LLM_S
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def qkv(Sq, dtype=torch.float32):
+        return [torch.randn((B, Sq, n, hd), generator=gen,
+                            device=dev).to(dtype) for n in (H, K, K)]
+
+    gqa, plain = kflash.flash_attention_gqa, kref.gqa_attention_ref
+    q, k, v = qkv(S)
+    out = gqa(q, k, v, causal=True)
+    err = assert_close(torch, out, plain(q, k, v, causal=True),
+                       ATOL["float32"], 3e-2, "flash_attention f32")
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    # both sides round the same f32 softmax to bf16, so they differ by about
+    # one bf16 ulp: a limit far inside tests/test_kernels.py's 3e-2 / 3e-2
+    err_b = assert_close(torch, gqa(qb, kb, vb, causal=True),
+                         plain(qb, kb, vb, causal=True), FLASH_BF16_TOL[0],
+                         FLASH_BF16_TOL[1], "flash_attention bf16")
+    qr, kr, vr = qkv(1000)                        # a multiple of no tile
+    err_r = assert_close(torch, gqa(qr, kr, vr, causal=True),
+                         plain(qr, kr, vr, causal=True), ATOL["float32"],
+                         3e-2, "flash_attention ragged S=1000")
+    err_w = assert_close(torch, gqa(q, k, v, causal=True, window=256),
+                         plain(q, k, v, causal=True, window=256),
+                         ATOL["float32"], 3e-2, "flash_attention window 256")
+    q3, k3, v3 = (torch.randn((B * H, 1024, hd), generator=gen, device=dev)
+                  for _ in range(3))
+    fn, plain3, mod = kops.KERNELS["flash_attention"]
+    err_3 = assert_close(torch, fn(q3, k3, v3, causal=True),
+                         plain3(q3, k3, v3, causal=True), ATOL["float32"],
+                         3e-2, "flash_attention (BH, S, hd)")
+    # the library yardstick, (B, H, S, hd); transposes outside the timing
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+    err_lib = max_err(torch, lib, out)
+    ms = time_ms(torch, lambda: gqa(q, k, v, causal=True))
+    plain_ms = time_ms(torch, lambda: plain(q, k, v, causal=True), reps=5)
+    lib_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True))
+    qtb, ktb, vtb = (t.to(torch.bfloat16) for t in (qt, kt, vt))
+    ms_b = time_ms(torch, lambda: gqa(qb, kb, vb, causal=True))
+    lib_ms_b = time_ms(torch, lambda: sdpa(qtb, ktb, vtb, is_causal=True,
+                                           enable_gqa=True))
+    need = (2 * B * S * H + 2 * B * S * K) * hd * 4     # q, out, k, v
+    flops = 4 * hd * B * H * S * (S + 1) // 2          # live causal pairs
+    row = kernel_row("flash_attention", mod, err, ms, plain_ms, need, flops,
+                     lib_ms)
+    tc_ms = max(need / 2 / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS_PER_S) * 1e3
+    log(f"[flash] B={B} S={S} H={H} K={K} hd={hd} causal: f32 err "
+        f"{err:.3e}, bf16 err {err_b:.3e}, ragged S=1000 err {err_r:.3e}, "
+        f"window 256 err {err_w:.3e}, (BH, S, hd) err {err_3:.3e} (f32 atol "
+        f"{ATOL['float32']} rtol 3e-2; bf16 atol {FLASH_BF16_TOL[0]} rtol "
+        f"{FLASH_BF16_TOL[1]}); SDPA vs "
+        f"kernel {err_lib:.3e}")
+    log(f"[flash] f32: {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}, {flops / 1e9:.1f} GFLOP); bf16: {ms_b:.4f} ms, "
+        f"SDPA {lib_ms_b:.4f} ms, tensor-core bound {tc_ms:.4f} ms")
+    torch.cuda.synchronize()
+    return row
+
+
+# ----------------------------------------------------------------------
+# phase 6: the dense-transformer serving path
+# ----------------------------------------------------------------------
+
+def _prefill(torch, kops, prefill_step, cfg, params, tokens, backend):
+    """One prefill on ``backend``; returns (logits, cache, launches, ms)."""
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(cfg, params, {"tokens": tokens},
+                                 attn_backend=backend)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return logits, cache, kops.launch_counts(), ms
+
+
+def llm_phase(torch, kops, launches, card):
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer
+    from repro_torch.serve.step import prefill_step
+    base = get_config(LLM_ARCH)
+    L = base.n_layers
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.vocab_size, (LLM_B, LLM_S)), device=DEVICE)
+    want = {name: (L if name == "flash_attention" else 0)
+            for name in kops.KERNELS}
+    none = {name: 0 for name in kops.KERNELS}
+    times = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        params = transformer.init_params(cfg, 0, device=DEVICE)
+        got = _prefill(torch, kops, prefill_step, cfg, params, tokens, "cuda")
+        check(got[2] == want, f"prefill {dtype}: launches {got[2]}, "
+              f"expected {want}")
+        launches["flash_attention"] += got[2]["flash_attention"]
+        ref = _prefill(torch, kops, prefill_step, cfg, params, tokens, "ref")
+        check(ref[2] == none, f"prefill {dtype} ref: launches {ref[2]}")
+        check(tuple(got[0].shape) == (LLM_B, 1, cfg.vocab_size)
+              and bool(torch.isfinite(got[0]).all()),
+              f"prefill {dtype}: logits {tuple(got[0].shape)}, finite "
+              f"{bool(torch.isfinite(got[0]).all())}")
+        if dtype == "float32":
+            errs = [assert_close(torch, got[0], ref[0], 1e-4, 3e-3,
+                                 "prefill f32 logits cuda vs ref")]
+            errs += [assert_close(torch, got[1][n], ref[1][n], 1e-4, 3e-3,
+                                  f"prefill f32 cache {n} cuda vs ref")
+                     for n in ("k", "v")]
+        else:
+            errs = [max_err(torch, got[0], ref[0])] + [
+                max_err(torch, got[1][n], ref[1][n]) for n in ("k", "v")]
+        again = _prefill(torch, kops, prefill_step, cfg, params, tokens,
+                         "cuda")
+        check(again[2] == want, f"prefill {dtype} again: launches "
+              f"{again[2]}")
+        launches["flash_attention"] += again[2]["flash_attention"]
+        times[dtype] = again[3]
+        log(f"[llm] {LLM_ARCH} {L} layers d_model {cfg.d_model} {dtype}: "
+            f"prefill {LLM_B}x{LLM_S} tokens {again[3]:.1f} ms warm "
+            f"({got[3]:.1f} ms first; \"ref\" {ref[3]:.1f} ms), "
+            f"{got[2]['flash_attention']} flash launches (\"ref\": 0); max "
+            f"err cuda vs ref: logits {errs[0]:.3e}, cache k {errs[1]:.3e}, "
+            f"v {errs[2]:.3e}" + (" (atol 1e-4, rtol 3e-3)"
+                                  if dtype == "float32" else ""))
+        del got, ref, again
+        if dtype == "float32":
+            del params
+        torch.cuda.empty_cache()
+    kops.reset_launch_counts()
+    reqs, stats = launch_serve.run(LLM_ARCH, n_requests=8, max_new=16,
+                                   batch_slots=4, max_seq=128, seed=0,
+                                   params=params, cfg=base, device=DEVICE)
+    counts = kops.launch_counts()
+    check(counts == none, f"serve: launches {counts}, expected none")
+    check(all(r.done and r.out_tokens for r in reqs),
+          "serve: a request did not finish")
+    log(f"[llm] serve {LLM_ARCH} bf16 ({L} layers, d_model "
+        f"{base.d_model}) on {card}: "
+        f"{len(reqs)} requests, 4 slots, {stats['tokens']} tokens in "
+        f"{stats['decode_steps']} decode steps, {stats['seconds']:.2f} s "
+        f"({stats['tokens'] / stats['seconds']:.1f} tok/s, "
+        f"{stats['seconds'] / stats['decode_steps'] * 1e3:.1f} ms per "
+        f"step); prefill {LLM_B}x{LLM_S}: f32 {times['float32']:.1f} ms, "
+        f"bf16 {times['bfloat16']:.1f} ms; 0 flash launches")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -417,10 +602,15 @@ def main() -> int:
     rows = kernel_phase(torch, kops, lg)
     del src_e, dst_e, g
     torch.cuda.empty_cache()
+    rows["flash_attention"] = flash_phase(torch, kops)
+    torch.cuda.empty_cache()
 
     launches = {name: 0 for name in kops.KERNELS}
     lg0 = slice_phase(torch, kops, launches)
     featprep_phase(torch, kops, lg0, launches)
+    del lg0
+    torch.cuda.empty_cache()
+    llm_phase(torch, kops, launches, smi)
     for name, v in launches.items():
         check(v > 0, f"{name}: never launched on the main path")
         rows[name]["launches"] = v

@@ -58,7 +58,8 @@ def resolve_device(device="cuda") -> torch.device:
 
 class DenseIO:
     """Graph binding: a fixed-fanout neighbor matrix whose ids index the
-    source rows directly, on one device.
+    source rows directly, on one device (``"cuda"`` by default, which
+    raises without a card, like every entry point of the port).
 
     An optional ``table`` adds one level of indirection — ``nbr`` ids
     index ``table`` and ``table[id]`` indexes the source rows (loader
@@ -67,8 +68,8 @@ class DenseIO:
     which materializes the translation lazily (bitwise the same)."""
 
     def __init__(self, nbr: np.ndarray, mask: np.ndarray, table=None,
-                 device="cpu"):
-        self.device = torch.device(device)
+                 device="cuda"):
+        self.device = resolve_device(device)
         self.nbr_np = np.asarray(nbr)
         self.mask_np = np.asarray(mask)
         self.nbr = torch.as_tensor(self.nbr_np, dtype=torch.int32,
@@ -82,7 +83,7 @@ class DenseIO:
         self._mean_w = None
 
     @classmethod
-    def from_layer_graph(cls, lg: LayerGraph, device="cpu") -> "DenseIO":
+    def from_layer_graph(cls, lg: LayerGraph, device="cuda") -> "DenseIO":
         return cls(lg.nbr, lg.mask, device=device)
 
     @property

@@ -25,12 +25,13 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("spmm", "gat_attention")
+SOURCES = ("spmm", "gat_attention", "flash_attention")
 CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # C signatures (restype int: the launch's cudaError_t)
 SIGNATURES = {
     "spmm": {"deal_spmm": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
@@ -39,6 +40,9 @@ SIGNATURES = {
         "deal_gat_attention": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                                _P],
         "deal_sddmm": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]},
+    "flash_attention": {
+        "deal_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 *[_L] * 9, _I, _I, _L, _L, _F, _I, _P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

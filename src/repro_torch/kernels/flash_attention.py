@@ -1,0 +1,133 @@
+"""``flash_attention``: softmax attention with an online (m, l, acc)
+rescale over tiles of keys, accumulated in f32.
+
+    out = softmax(q . k^T * scale [causal, window]) . v
+
+Replaces the Pallas TPU kernel
+``src/repro/kernels/flash_attention.py::flash_attention`` (``pallas_call``
+at line 65) with the kernel in ``csrc/flash_attention.cu``.  One CUDA
+entry serves two signatures:
+
+- ``flash_attention(q, k, v, *, causal)``: the Pallas one, q (BH, Sq, hd),
+  k and v (BH, Skv, hd), scale 1/sqrt(hd);
+- ``flash_attention_gqa(q, k, v, *, q_offset, causal, window, scale)``: the
+  one of ``models/attention.py::flash_attention_jnp``, q (B, Sq, H, hd), k
+  and v (B, Skv, K, hd), query head h reading kv head h // (H // K).
+
+The kernel reads all three through their strides (the head dimension
+contiguous), so neither GQA nor the heads-in-the-middle layout is copied,
+and it masks ragged Sq and Skv itself.  On CPU tensors the wrappers
+return the plain versions, ``ref.flash_attention_ref`` and
+``ref.gqa_attention_ref``.  ``flash_attention.launches`` counts kernel
+launches through either signature.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+from repro_torch.kernels.spmm import FLOAT_CODES
+
+SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+REPLACES = "src/repro/kernels/flash_attention.py:65"
+MAX_HEAD_DIM = 256
+
+
+def _check(q, k, v, ndim: int):
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != ndim:
+            raise ValueError(f"flash_attention: {name} must be {ndim}-D, "
+                             f"got {tuple(t.shape)}")
+    if not (q.shape[0] == k.shape[0] == v.shape[0]
+            and k.shape[:-1] == v.shape[:-1]
+            and q.shape[-1] == k.shape[-1]):
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit")
+    if ndim == 4 and q.shape[2] % k.shape[2]:
+        raise ValueError(f"flash_attention: {q.shape[2]} query heads are "
+                         f"not a multiple of {k.shape[2]} kv heads")
+
+
+def _launch(q, k, v, *, q_offset: int, causal: bool,
+            window: Optional[int], scale: float):
+    """Run the kernel on (B, S, H, hd) views; returns a new contiguous
+    (B, Sq, H, hd) tensor in q's dtype."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, "
+                             f"expected {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: q is {q.dtype} but {name} is "
+                            f"{t.dtype}")
+    if q.dtype not in FLOAT_CODES:
+        raise TypeError(f"flash_attention: q must be one of "
+                        f"{tuple(FLOAT_CODES)}, got {q.dtype}")
+    if v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(
+            "flash_attention: v's head dim differs from q's (MLA); the "
+            "kernel takes one head dim (ROADMAP.md Queue 1 item 11)")
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {hd} > {MAX_HEAD_DIM}")
+    if Skv == 0:
+        raise ValueError("flash_attention: no keys (Skv = 0)")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the head dimension of q, k and v "
+                         "must be contiguous")
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if B * Sq == 0:
+        return out
+    lib = build.library("flash_attention")
+    with torch.cuda.device(q.device):
+        err = lib.deal_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, K, Sq, Skv, hd, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], int(causal), int(window is not None),
+            int(window or 0), int(q_offset), float(scale),
+            FLOAT_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
+                    block_k: int = 128):
+    """The Pallas signature: q (BH, Sq, hd); k, v (BH, Skv, hd), f32 or
+    bf16.  Returns (BH, Sq, hd) in q's dtype.  ``block_q`` and
+    ``block_k`` are the TPU kernel's tiles; they do not change the
+    result, and the CUDA kernel's tiles are its own."""
+    del block_q, block_k
+    _check(q, k, v, 3)
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    out = _launch(q[:, :, None], k[:, :, None], v[:, :, None], q_offset=0,
+                  causal=causal, window=None,
+                  scale=1.0 / math.sqrt(q.shape[-1]))
+    return out[:, :, 0]
+
+
+flash_attention.launches = 0
+
+
+def flash_attention_gqa(q, k, v, *, q_offset: int = 0, causal: bool = True,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """The GQA signature of ``flash_attention_jnp``: q (B, Sq, H, hd); k, v
+    (B, Skv, K, hd) with H % K == 0; query positions start at
+    ``q_offset``; ``window`` keeps keys with q_pos - kv_pos < window.
+    Returns (B, Sq, H, hd) in q's dtype."""
+    _check(q, k, v, 4)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return ref.gqa_attention_ref(q, k, v, q_offset=q_offset,
+                                     causal=causal, window=window,
+                                     scale=scale)
+    return _launch(q, k, v, q_offset=q_offset, causal=causal, window=window,
+                   scale=scale)

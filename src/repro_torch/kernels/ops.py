@@ -7,7 +7,7 @@ version in ``kernels.ref``.  There is no backend probe and no fallback.
 (GEMM has no kernel: the executors call ``ref.gemm_ref``, that is
 ``torch.matmul``, as the JAX package leaves GEMM to XLA.)
 
-``KERNELS`` lists the four kernels with their plain versions, sources
+``KERNELS`` lists the five kernels with their plain versions, sources
 and the TPU kernels they replace; ``launch_counts`` and
 ``reset_launch_counts`` read and zero their launch counters.
 """
@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gat_attention as _gat
 from repro_torch.kernels import gather_spmm as _gather
 from repro_torch.kernels import ref
@@ -25,6 +26,7 @@ spmm = _spmm.spmm
 gather_spmm = _gather.gather_spmm
 gat_attention = _gat.gat_attention
 sddmm = _sddmm.sddmm
+flash_attention = _flash.flash_attention
 
 # name -> (wrapper, plain version, module with SOURCE / REPLACES)
 KERNELS = {
@@ -32,6 +34,7 @@ KERNELS = {
     "gather_spmm": (gather_spmm, ref.gather_spmm_ref, _gather),
     "gat_attention": (gat_attention, ref.gat_attention_ref, _gat),
     "sddmm": (sddmm, ref.sddmm_ref, _sddmm),
+    "flash_attention": (flash_attention, ref.flash_attention_ref, _flash),
 }
 
 

@@ -8,6 +8,8 @@ read them as int32.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -54,3 +56,44 @@ def gat_attention_ref(q, k, nbr, mask, heads: int):
     m = mask[:, :, None]
     p = torch.softmax(torch.where(m, s, -1e30), dim=1)
     return p * m
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True):
+    """q: (BH, Sq, hd); k, v: (BH, Skv, hd).  Plain softmax attention in
+    f32 (scores scaled by 1/sqrt(hd), -1e30 above the diagonal when
+    ``causal``), cast back to q.dtype."""
+    Sq, hd = q.shape[1], q.shape[2]
+    s = torch.einsum("bqd,bsd->bqs", q.float(), k.float()) * (
+        1.0 / math.sqrt(hd))
+    if causal:
+        pos = torch.arange(k.shape[1], device=q.device)
+        m = pos[None, :] <= torch.arange(Sq, device=q.device)[:, None]
+        s = torch.where(m[None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqs,bsd->bqd", p, v.float()).to(q.dtype)
+
+
+def gqa_attention_ref(q, k, v, *, q_offset: int = 0, causal: bool = True,
+                      window=None, kv_valid_len=None, scale=None):
+    """Unchunked GQA attention in f32, the plain version of the flash
+    kernel's GQA signature (``repro.models.attention.simple_attention``).
+    q: (B, Sq, H, hd); k, v: (B, Skv, K, hd), query head h reading kv
+    head h // (H // K).  Masked scores are -1e30, so a row with no live
+    key gets the uniform mean of v."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qf = q.reshape(B, Sq, K, H // K, hd).float() * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    kv_pos = torch.arange(Skv, device=q.device)
+    m = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        m &= kv_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= (q_pos[:, None] - kv_pos[None, :]) < window
+    if kv_valid_len is not None:
+        m &= (kv_pos < kv_valid_len)[None, :]
+    p = torch.softmax(torch.where(m, s, -1e30), dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)

@@ -1,0 +1,6 @@
+"""The transformer family's models — the twin of ``repro.models``, dense
+family only so far (see ``models.transformer``)."""
+from repro_torch.models.transformer import (decode_step, forward, init_cache,
+                                            init_params)
+
+__all__ = ["decode_step", "forward", "init_cache", "init_params"]

@@ -1,0 +1,54 @@
+"""Transformer building blocks — twins of ``repro.models.layers``.
+
+Plain PyTorch, in the JAX package's layouts and its rounding points:
+statistics and rotations in f32, results cast back to the input's dtype,
+weights stored as (d_in, d_out) so a projection is ``x @ w``.
+(``layer_norm``, ``gelu_mlp`` and ``sinusoidal_positions`` come with the
+audio family, ROADMAP.md Queue 1 item 14.)
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """x * rsqrt(mean(x^2) + eps) * (1 + scale), in f32."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def swiglu_mlp(x, w_gate, w_up, w_down):
+    """SwiGLU MLP: down(silu(x @ gate) * (x @ up))."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def rope(x, positions, theta):
+    """Rotary embedding.  x: (..., S, H, hd); positions: (S,) or (B, S).
+    ``theta`` is a Python number, taken as f32 as the JAX package
+    carries it (and never copied to the device as a tensor: a host to
+    device copy per call would stall every decode step)."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = 1.0 / (float(theta) ** (torch.arange(
+        0, half, dtype=torch.float32, device=x.device) / half))
+    angles = positions[..., None].float() * freqs        # (..., S, half)
+    angles = angles[..., None, :]                        # (..., S, 1, half)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed_tokens(embedding, tokens, scale: Optional[float] = None):
+    """Rows of ``embedding`` for ``tokens``, times ``scale`` rounded to the
+    embedding's dtype first (as ``jnp.asarray(scale, out.dtype)``; a 0-d
+    CPU tensor, which a CUDA op reads as a scalar)."""
+    out = embedding[tokens.long()]
+    if scale is not None:
+        out = out * torch.tensor(scale, dtype=out.dtype)
+    return out

@@ -1,0 +1,30 @@
+"""prefill_step / serve_step — the inference entry points (twins of
+``repro.serve.step``).
+
+prefill: the full-sequence forward; returns the last position's logits
+and the filled cache (never materializes (B, S, V)).  Its attention runs
+on ``attn_backend`` ("cuda", the default: the flash kernel; "ref": the
+plain version).
+serve_step (decode): one new token per slot against the cache.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+
+
+def prefill_step(cfg: ModelConfig, params, batch: Dict[str, Any], *,
+                 attn_backend: str = "cuda"):
+    """batch = {"tokens": (B, S) int}.  Returns (logits (B, 1, V) f32,
+    cache {"k", "v"}: (L, B, S, K, hd))."""
+    hidden, _, cache = transformer.forward(
+        cfg, params, batch, mode="prefill", return_cache=True,
+        return_hidden=True, attn_backend=attn_backend)
+    return transformer.unembed(cfg, params, hidden[:, -1:]), cache
+
+
+def serve_step(cfg: ModelConfig, params, cache, batch: Dict[str, Any]):
+    """batch = {"token": (B, 1) int, "pos": an int or (B,) ints}."""
+    return transformer.decode_step(cfg, params, cache, batch)

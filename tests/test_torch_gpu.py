@@ -140,3 +140,98 @@ def test_cuda_session_matches_ref_on_the_card(cuda):
             want = run_model(RefExecutor(), model_spec(model, s.params),
                              ios, s.X)
             _close(H, want, 1e-4, 3e-3)
+
+
+# (B, Sq, Skv, H, K, hd, q_offset, causal, window)
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, 0, True, None),     # GQA, whole tiles
+    (1, 37, 37, 6, 2, 64, 0, True, None),       # ragged S
+    (2, 100, 100, 4, 4, 128, 0, True, 8),       # window; two threads a row
+    (1, 21, 57, 4, 1, 32, 36, True, 16),        # q_offset; hd 32 padded to 64
+    (2, 50, 70, 2, 2, 80, 0, False, None),      # cross attention; hd 80
+    (1, 9, 40, 2, 1, 64, 100, True, 8),         # no live key: mean of v
+    (1, 300, 300, 15, 5, 64, 0, True, 1 << 30),  # smollm heads, global
+    (1, 70, 70, 8, 4, 256, 0, True, 32),        # gemma3: hd 256, local
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,q_offset,causal,window",
+                         FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, K, hd,
+                                              q_offset, causal, window,
+                                              dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    g = torch.Generator(device=cuda).manual_seed(Sq + hd)
+    # q, k, v as strided views of one fused projection, as a model may
+    # hold them: the kernel reads the strides and copies nothing
+    qkv = torch.randn((B, max(Sq, Skv), H + 2 * K, hd), generator=g,
+                      device=cuda).to(dtype)
+    q, k, v = (qkv[:, :Sq, :H], qkv[:, :Skv, H:H + K],
+               qkv[:, :Skv, H + K:])
+    kw = dict(q_offset=q_offset, causal=causal, window=window)
+    before = kops.launch_counts()["flash_attention"]
+    got = flash_attention_gqa(q, k, v, **kw)
+    assert kops.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (B, Sq, H, hd)
+    _close(got, ref.gqa_attention_ref(q, k, v, **kw), ATOL[dtype])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_pallas_signature(cuda, causal):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((6, 200, 64), generator=g, device=cuda)
+               for _ in range(3))
+    got = kops.flash_attention(q, k, v, causal=causal, block_q=64)
+    assert got.shape == q.shape
+    _close(got, ref.flash_attention_ref(q, k, v, causal=causal),
+           ATOL[torch.float32])
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    q = torch.randn((1, 8, 2, 64), device=cuda)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        flash_attention_gqa(q, q, torch.randn((1, 8, 2, 32), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_gqa(q.transpose(1, 3).contiguous().transpose(1, 3),
+                            q, q)
+    big = torch.randn((1, 8, 2, 320), device=cuda)
+    with pytest.raises(ValueError, match="head dim 320"):
+        flash_attention_gqa(big, big, big)
+    with pytest.raises(TypeError, match="q is"):
+        flash_attention_gqa(q, q.to(torch.bfloat16), q)
+
+
+def test_prefill_step_cuda_matches_ref_on_the_card(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve.step import prefill_step
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              dtype="float32")
+    params = init_params(cfg, 0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 77), device=cuda)
+    kops.reset_launch_counts()
+    got, cache = prefill_step(cfg, params, {"tokens": tokens})
+    assert kops.launch_counts()["flash_attention"] == cfg.n_layers
+    want, want_cache = prefill_step(cfg, params, {"tokens": tokens},
+                                    attn_backend="ref")
+    assert kops.launch_counts()["flash_attention"] == cfg.n_layers
+    _close(got, want, 1e-4, 3e-3)
+    for name in ("k", "v"):
+        _close(cache[name], want_cache[name], 1e-4, 3e-3)
+
+
+def test_serve_engine_decodes_on_the_card(cuda):
+    """The launcher on the card (params on cuda:0, the engine asked for
+    "cuda"): every request finishes, and decode launches no flash kernel
+    (the engine only decodes, as in JAX)."""
+    from repro_torch.launch import serve
+    kops.reset_launch_counts()
+    reqs, stats = serve.run("smollm-360m", n_requests=5, max_new=6,
+                            batch_slots=2)
+    assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
+    assert stats["tokens"] == 30
+    assert kops.launch_counts()["flash_attention"] == 0

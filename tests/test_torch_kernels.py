@@ -206,8 +206,11 @@ def test_launch_counters_reset_and_cpu_calls_do_not_count():
     mask = torch.ones(8, 3, dtype=torch.bool)
     ops.spmm(h, torch.ones(8, 3), nbr, mask)
     ops.gat_attention(h, h, nbr, mask)
+    q = torch.zeros(2, 5, 4)
+    ops.flash_attention(q, q, q)
     assert ops.launch_counts() == {"spmm": 0, "gather_spmm": 0,
-                                   "gat_attention": 0, "sddmm": 0}
+                                   "gat_attention": 0, "sddmm": 0,
+                                   "flash_attention": 0}
 
 
 def test_build_names_libraries_by_source_hash_and_needs_nvcc(

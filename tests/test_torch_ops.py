@@ -45,7 +45,8 @@ def _world(model, heads, R, U, D, F, seed=0):
     h_tgt = rng.standard_normal((R, D)).astype(np.float32)
     return (jgm.model_spec(model, jparams).layers[0],
             tgm.model_spec(model, tparams).layers[0],
-            jops.DenseIO(nbr, mask), tops.DenseIO(nbr, mask), h_tgt, h_src)
+            jops.DenseIO(nbr, mask), tops.DenseIO(nbr, mask, device="cpu"),
+            h_tgt, h_src)
 
 
 CASES = [("gcn", 1), ("sage", 1), ("gat", 1), ("gat", 4)]
@@ -92,7 +93,7 @@ def test_fused_gather_matches_unfused_bitwise(model):
     R, U, D, F = 50, 61, 32, 8
     nbr = rng.integers(0, U, (R, F)).astype(np.int32)
     mask = rng.random((R, F)) > 0.25
-    io = tops.DenseIO(nbr, mask, table=rng.permutation(U))
+    io = tops.DenseIO(nbr, mask, table=rng.permutation(U), device="cpu")
     h = torch.from_numpy(rng.standard_normal((U, D)).astype(np.float32))
     got = [tops.CudaExecutor("cpu", fused_gather=fg).spmm(h, io.mean_w, io)
            for fg in (True, False)]
@@ -106,7 +107,7 @@ def test_dense_io_table_is_int32_and_resolves_like_repro():
     nbr = rng.integers(0, 30, (10, 4)).astype(np.int32)
     mask = rng.random((10, 4)) > 0.5
     table = rng.permutation(30).astype(np.int64)   # the loader's dtype
-    tio = tops.DenseIO(nbr, mask, table=table)
+    tio = tops.DenseIO(nbr, mask, table=table, device="cpu")
     jio = jops.DenseIO(nbr, mask, table=table)
     assert tio.table.dtype == torch.int32
     np.testing.assert_array_equal(tio.nbr_resolved.numpy(),
@@ -170,7 +171,7 @@ def test_fused_load_spmm_matches_repro(feature_files, layer_graphs):
         assert stats["file_rows"] == N and stats["net_rows"] == 0
     # the fused route equals the unfused one over node-ordered rows
     ex = tops.CudaExecutor("cpu")
-    io = tops.DenseIO.from_layer_graph(lg)
+    io = tops.DenseIO.from_layer_graph(lg, device="cpu")
     unfused = ex.spmm(ex.gemm(ex.prepare(feats), w), io.mean_w, io)
     got, _ = tfp.fused_load_spmm(files, 4, N, D, w, lg, ex)
     np.testing.assert_allclose(got.numpy(), unfused.numpy(), atol=1e-6,

@@ -1,0 +1,269 @@
+"""The port's dense transformer (``repro_torch.models``) and its config
+copy against the JAX package: every config field for field, the layers,
+``params_from_numpy``, the prefill forward with its cache, the decode
+step over several ragged steps, and the clamped cache write.  Params are
+the JAX package's, carried over as numpy by ``params_from_numpy``."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import repro.configs as jconfigs  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+from repro.models import transformer as jtf  # noqa: E402
+import repro_torch.configs as tconfigs  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.models import transformer as ttf  # noqa: E402
+
+# f32: the whole-model tolerance of infer_all (tests/test_kernels.py:235).
+# bf16: both packages round every projection, norm and residual to bf16,
+# at the same points but through different matmul and transcendental
+# code; one bf16 ulp is 2^-8 = 0.4% relative, and two layers of it on
+# logits of magnitude ~0.5 stay within 2e-2.
+TOL = {"float32": dict(atol=1e-4, rtol=3e-3),
+       "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+DENSE = ["smollm-360m", "qwen2.5-14b", "gemma3-4b", "granite-8b"]
+
+
+def _cfg(arch, dtype="float32"):
+    jc = dataclasses.replace(jconfigs.get_config(arch).reduced(), dtype=dtype)
+    tc = dataclasses.replace(tconfigs.get_config(arch).reduced(), dtype=dtype)
+    return jc, tc
+
+
+def _numpy_tree(params):
+    return jax.tree.map(np.asarray, params)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _model(arch, dtype="float32", seed=0):
+    jc, tc = _cfg(arch, dtype)
+    jp = jtf.init_params(jc, jax.random.PRNGKey(seed))
+    return jc, tc, jp, ttf.params_from_numpy(tc, _numpy_tree(jp),
+                                             device="cpu")
+
+
+# ----------------------------------------------------------------------
+# configs
+# ----------------------------------------------------------------------
+
+def test_config_registry_matches_jax():
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert ([dataclasses.asdict(s) for s in tconfigs.INPUT_SHAPES]
+            == [dataclasses.asdict(s) for s in jconfigs.INPUT_SHAPES])
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_config_matches_jax_field_by_field(arch):
+    j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    for a, b in ((j, t), (j.reduced(), t.reduced())):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert t.param_count() == j.param_count()
+    assert t.active_param_count() == j.active_param_count()
+    assert ([s.name for s in tconfigs.applicable_shapes(t)]
+            == [s.name for s in jconfigs.applicable_shapes(j)])
+
+
+# ----------------------------------------------------------------------
+# layers
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layers_match_jax(dtype):
+    rng = np.random.default_rng(5)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def pair(*shape, scale=1.0):
+        j = jnp.asarray(rng.standard_normal(shape) * scale, jdt)
+        return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(tdt)
+
+    tol = TOL[dtype]
+    xj, xt = pair(2, 6, 4, 32)
+    sj, st = pair(32, scale=0.1)
+    np.testing.assert_allclose(_np(tlayers.rms_norm(xt, st, 1e-5)),
+                               _np(jlayers.rms_norm(xj, sj, 1e-5)), **tol)
+    pos = np.arange(6)[None] + np.array([[0], [3]])
+    for positions in (np.arange(6), pos):
+        for theta in (10_000.0, 1_000_000.0):
+            got = tlayers.rope(xt, torch.from_numpy(positions),
+                               np.float32(theta))
+            want = jlayers.rope(xj, jnp.asarray(positions),
+                                jnp.float32(theta))
+            assert got.dtype == tdt
+            np.testing.assert_allclose(_np(got), _np(want), **tol)
+    hj, ht = pair(2, 6, 32)
+    (gj, gt), (uj, ut), (dj, dt) = pair(32, 48, scale=0.2), pair(
+        32, 48, scale=0.2), pair(48, 32, scale=0.2)
+    np.testing.assert_allclose(_np(tlayers.swiglu_mlp(ht, gt, ut, dt)),
+                               _np(jlayers.swiglu_mlp(hj, gj, uj, dj)), **tol)
+    ej, et = pair(50, 32)
+    tok = rng.integers(0, 50, (2, 6))
+    for scale in (None, 2560 ** 0.5):
+        np.testing.assert_array_equal(
+            _np(tlayers.embed_tokens(et, torch.from_numpy(tok), scale)),
+            _np(jlayers.embed_tokens(ej, jnp.asarray(tok), scale)))
+
+
+def test_layer_meta_matches_jax():
+    for arch in DENSE:
+        j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
+        for jc, tc in ((j, t), (j.reduced(), t.reduced())):
+            jw, jt = jtf.layer_meta(jc)
+            tw, tt = ttf.layer_meta(tc)
+            assert tw == np.asarray(jw).tolist()
+            np.testing.assert_array_equal(np.float32(tt), np.asarray(jt))
+
+
+# ----------------------------------------------------------------------
+# params
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,dtype", [("smollm-360m", "bfloat16"),
+                                        ("qwen2.5-14b", "float32")])
+def test_params_from_numpy_unstacks_the_layer_axis(arch, dtype):
+    jc, tc, jp, tp = _model(arch, dtype)
+    tree = _numpy_tree(jp)
+    assert tp.embed.dtype == getattr(torch, dtype)
+    assert not tp.embed.requires_grad
+    np.testing.assert_array_equal(_np(tp.embed), _np(tree["embed"]))
+    assert len(tp.blocks) == tc.n_layers
+    for l, blk in enumerate(tp.blocks):
+        for name in ("wq", "wk", "wv", "wo"):
+            np.testing.assert_array_equal(
+                _np(getattr(blk.attn, name)),
+                _np(tree["blocks"]["attn"][name][l]))
+        np.testing.assert_array_equal(_np(blk.mlp.w_down),
+                                      _np(tree["blocks"]["mlp"]["w_down"][l]))
+    assert (tp.lm_head is None) == tc.tie_embeddings
+    assert (tp.blocks[0].attn.bq is not None) == tc.qkv_bias
+    n = sum(np.asarray(a).size for a in jax.tree.leaves(tree))
+    assert sum(p.numel() for p in tp.parameters()) == n
+
+
+def test_params_from_numpy_refuses_another_shape():
+    jc, tc, jp, _ = _model("smollm-360m")
+    tree = _numpy_tree(jp)
+    with pytest.raises(ValueError, match="keys"):
+        ttf.params_from_numpy(tc, {**tree, "lm_head": tree["embed"]},
+                              device="cpu")
+    with pytest.raises(ValueError, match="layers"):
+        ttf.params_from_numpy(dataclasses.replace(tc, n_layers=3), tree,
+                              device="cpu")
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("llama4-maverick-400b-a17b", 10), ("deepseek-v2-236b", 11),
+    ("mamba2-1.3b", 12), ("zamba2-7b", 13), ("whisper-base", 14),
+    ("llava-next-34b", 15)])
+def test_other_families_name_the_roadmap_item(arch, item):
+    cfg = tconfigs.get_config(arch).reduced()
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}\\)"):
+        ttf.init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError):
+        ttf.init_cache(cfg, 1, 8, device="cpu")
+
+
+def test_init_params_draws_the_jax_shapes_from_a_seed():
+    jc, tc = _cfg("qwen2.5-14b")
+    a = ttf.init_params(tc, 1, device="cpu")
+    b = ttf.init_params(tc, 1, device="cpu")
+    shapes = jax.tree.map(lambda x: tuple(x.shape),
+                          jax.eval_shape(lambda: jtf.init_params(
+                              jc, jax.random.PRNGKey(0))))
+    assert tuple(a.blocks[1].attn.wq.shape) == shapes["blocks"]["attn"][
+        "wq"][1:]
+    assert tuple(a.embed.shape) == shapes["embed"]
+    assert all(torch.equal(x, y) for x, y in zip(a.parameters(),
+                                                  b.parameters()))
+    assert float(a.blocks[0].attn.wq.std()) == pytest.approx(0.02, rel=0.1)
+    assert float(a.blocks[0].attn.bq.abs().max()) == 0.0
+    with pytest.raises(NotImplementedError, match="item 16"):
+        ttf.forward(tc, a, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
+                    mode="train")
+
+
+# ----------------------------------------------------------------------
+# prefill forward and decode
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,dtype", [
+    ("smollm-360m", "float32"), ("smollm-360m", "bfloat16"),
+    ("qwen2.5-14b", "float32"), ("qwen2.5-14b", "bfloat16"),
+    ("gemma3-4b", "float32"), ("granite-8b", "float32")])
+def test_prefill_forward_and_cache_match_jax(arch, dtype):
+    jc, tc, jp, tp = _model(arch, dtype, seed=2)
+    tokens = np.random.default_rng(3).integers(0, tc.vocab_size, (2, 40))
+    want, _, jcache = jtf.forward(jc, jp, {"tokens": jnp.asarray(tokens)},
+                                  mode="prefill", return_cache=True,
+                                  remat=False)
+    kops.reset_launch_counts()
+    got, aux, cache = ttf.forward(tc, tp, {"tokens": torch.from_numpy(tokens)},
+                                  mode="prefill", return_cache=True)
+    assert kops.launch_counts()["flash_attention"] == 0      # CPU: plain
+    assert got.dtype == torch.float32 and got.shape == (2, 40, tc.vocab_size)
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(_np(got), _np(want), **TOL[dtype])
+    for name in ("k", "v"):
+        assert cache[name].shape == jcache[name].shape
+        assert cache[name].dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(_np(cache[name]), _np(jcache[name]),
+                                   **TOL[dtype])
+    hidden, _ = ttf.forward(tc, tp, {"tokens": torch.from_numpy(tokens)},
+                            return_hidden=True)
+    jh, _ = jtf.forward(jc, jp, {"tokens": jnp.asarray(tokens)},
+                        mode="prefill", return_hidden=True, remat=False)
+    np.testing.assert_allclose(_np(hidden), _np(jh), **TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma3-4b"])
+def test_decode_steps_match_jax_with_ragged_slots(arch):
+    """Six decode steps with the slots at different positions (a (B,)
+    ``pos``): the logits of every step and the final caches agree."""
+    jc, tc, jp, tp = _model(arch, seed=4)
+    rng = np.random.default_rng(6)
+    B, S = 3, 48
+    start = np.array([0, 5, 40])              # gemma3's window is 32
+    jcache = jtf.init_cache(jc, B, S)
+    tcache = ttf.init_cache(tc, B, S, device="cpu")
+    for t in range(6):
+        tok = rng.integers(0, tc.vocab_size, (B, 1))
+        pos = (start + t).astype(np.int32)
+        jl, jcache = jtf.decode_step(jc, jp, jcache, {
+            "token": jnp.asarray(tok, jnp.int32), "pos": jnp.asarray(pos)})
+        tl, tcache = ttf.decode_step(tc, tp, tcache, {
+            "token": torch.from_numpy(tok), "pos": torch.from_numpy(pos)})
+        assert tl.shape == (B, 1, tc.vocab_size) and tl.dtype == torch.float32
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL["float32"])
+    for name in ("k", "v"):
+        np.testing.assert_allclose(_np(tcache[name]), _np(jcache[name]),
+                                   **TOL["float32"])
+
+
+def test_update_cache_clamps_the_position_like_jax():
+    """``lax.dynamic_update_slice`` clamps the start into [0, S - 1]; the
+    port clamps the same way (torch indexing would raise at pos >= S)."""
+    B, S = 4, 5
+    cache = np.zeros((B, S, 2, 3), np.float32)
+    new = np.arange(B * 6, dtype=np.float32).reshape(B, 1, 2, 3) + 1
+    pos = np.array([0, 4, 5, 9], np.int32)
+    want = jtf._update_cache(jnp.asarray(cache), jnp.asarray(new),
+                             jnp.asarray(pos))
+    got = ttf._update_cache(torch.from_numpy(cache.copy()),
+                            torch.from_numpy(new), torch.from_numpy(pos))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got[2:, S - 1] == torch.from_numpy(new[2:, 0])).all()
+    scalar = ttf._update_cache(torch.zeros(B, S, 2, 3), torch.from_numpy(new),
+                               7)
+    np.testing.assert_array_equal(
+        scalar.numpy(), np.asarray(jtf._update_cache(
+            jnp.zeros((B, S, 2, 3)), jnp.asarray(new), jnp.int32(7))))
