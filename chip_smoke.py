@@ -6,7 +6,10 @@ hand-written CUDA kernels against the kernel's plain PyTorch version.
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
-1. card:   the card's name and power limit; build the kernels with nvcc.
+1. card:   the card's name and power limit; build the kernels with nvcc
+   (one process per source, in parallel), print each source's registers,
+   spills and ptxas performance warnings, and count the HGMMA (wgmma)
+   instructions in the tensor-core flash kernel's SASS.
 2. kernels: each kernel at the main path's shapes (ogbn-papers100M
    stand-in, N = 1,048,576, fanout 8, D = 128, 4 heads) against its plain
    version on the card: quantized f32 (< 5e-7), random f32 and bf16 at
@@ -22,20 +25,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    rtol 3e-3), with each kernel's launches counted over that run.
 4. fused feature prep: ``fused_load_spmm`` through the cuda executor
    against "ref", counting the gather_spmm launches.
-5. flash kernel: ``flash_attention`` at the dense-transformer prefill
+5. flash kernels: ``flash_attention`` at the dense-transformer prefill
    shape (smollm-360m: B=4, S=2048, 15 query heads over 5 kv heads,
-   hd=64, causal) in f32 and bf16, a ragged S=1000, a sliding window and
-   the Pallas (BH, S, hd) signature, each against its plain version
-   (tests/test_kernels.py's flash tolerances: atol 2e-5 f32, 3e-2 bf16,
-   rtol 3e-2).  Times the kernel, the plain version, the library
-   yardstick (``scaled_dot_product_attention``, causal, GQA) and the
-   bound (f32; the bf16 tensor-core bound is printed beside it).
+   hd=64, causal), a ragged S=1000, a sliding window of 256 and the
+   Pallas (BH, S, hd) signature, each in f32 (the f32-FMA kernel, atol
+   2e-5, rtol 3e-2) and in bf16 (the tensor-core kernel, atol 8e-3, rtol
+   1e-2) against its plain version; all four bf16 calls and no f32 one
+   must take the tensor-core kernel.  Times both kernels, the plain
+   version, the library yardstick (``scaled_dot_product_attention``,
+   causal, GQA) in f32 and bf16, and the bounds (f32 FMA rate for f32,
+   bf16 tensor-core rate for bf16).  Then the bf16 kernel once at hd 128
+   (qwen2.5-14b's 40 query heads over 8 kv heads, B=1, S=4096, causal)
+   against its plain version and SDPA.
 6. llm: smollm-360m at full width (32 layers, d_model 960), random
    weights from a seed.  ``prefill_step`` on B=4 x S=2048 tokens in f32
    through attention backend "cuda" against "ref" (last-position
    logits and the kv cache, atol 1e-4, rtol 3e-3), exactly 32 flash
-   launches per "cuda" prefill and none under "ref"; the same in bf16
-   (finite, max error printed); then ``launch.serve.run`` in bf16 (8
+   launches per "cuda" prefill, none of them on the tensor cores, and
+   none under "ref"; the same in bf16 (finite, max error printed), where
+   all 32 are tensor-core launches.  One more prefill of each type gives
+   a bound on its device time (the stream sleeps while the host queues
+   the work); then ``launch.serve.run`` in bf16 (8
    requests, 4 slots, prompts of 3-11 tokens, 16 new tokens), which only
    decodes and so launches no flash kernel, as in JAX.
 
@@ -64,6 +74,7 @@ FLASH_BF16_TOL = (8e-3, 1e-2)    # atol, rtol: the bf16 flash check
 BF16_TC_FLOPS_PER_S = 989e12     # H100 SXM, bf16 tensor cores, dense
 LLM_ARCH = "smollm-360m"         # the JAX serving entry points' default
 LLM_B, LLM_S = 4, 2048           # prefill batch and length
+HD128_ARCH, HD128_S = "qwen2.5-14b", 4096   # the bf16 kernel at hd 128
 DEVICE = "cuda"
 
 
@@ -392,8 +403,9 @@ def featprep_phase(torch, kops, lg, launches):
 # ----------------------------------------------------------------------
 
 def flash_phase(torch, kops):
-    """flash_attention against its plain version at the prefill shape;
-    returns its row of the kernels JSON line, without launches."""
+    """flash_attention against its plain version at the prefill shape, f32
+    on the f32-FMA kernel and bf16 on the tensor-core one; returns its row
+    of the kernels JSON line, without launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref as kref
@@ -403,35 +415,38 @@ def flash_phase(torch, kops):
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(1)
+    bf16 = torch.bfloat16
 
-    def qkv(Sq, dtype=torch.float32):
-        return [torch.randn((B, Sq, n, hd), generator=gen,
-                            device=dev).to(dtype) for n in (H, K, K)]
+    def qkv(Sq, B=B, H=H, K=K, hd=hd):
+        return [torch.randn((B, Sq, n, hd), generator=gen, device=dev)
+                for n in (H, K, K)]
 
     gqa, plain = kflash.flash_attention_gqa, kref.gqa_attention_ref
-    q, k, v = qkv(S)
-    out = gqa(q, k, v, causal=True)
-    err = assert_close(torch, out, plain(q, k, v, causal=True),
-                       ATOL["float32"], 3e-2, "flash_attention f32")
-    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-    # both sides round the same f32 softmax to bf16, so they differ by about
-    # one bf16 ulp: a limit far inside tests/test_kernels.py's 3e-2 / 3e-2
-    err_b = assert_close(torch, gqa(qb, kb, vb, causal=True),
-                         plain(qb, kb, vb, causal=True), FLASH_BF16_TOL[0],
-                         FLASH_BF16_TOL[1], "flash_attention bf16")
-    qr, kr, vr = qkv(1000)                        # a multiple of no tile
-    err_r = assert_close(torch, gqa(qr, kr, vr, causal=True),
-                         plain(qr, kr, vr, causal=True), ATOL["float32"],
-                         3e-2, "flash_attention ragged S=1000")
-    err_w = assert_close(torch, gqa(q, k, v, causal=True, window=256),
-                         plain(q, k, v, causal=True, window=256),
-                         ATOL["float32"], 3e-2, "flash_attention window 256")
-    q3, k3, v3 = (torch.randn((B * H, 1024, hd), generator=gen, device=dev)
-                  for _ in range(3))
     fn, plain3, mod = kops.KERNELS["flash_attention"]
-    err_3 = assert_close(torch, fn(q3, k3, v3, causal=True),
-                         plain3(q3, k3, v3, causal=True), ATOL["float32"],
-                         3e-2, "flash_attention (BH, S, hd)")
+    tc0 = kflash.flash_attention.launches_tc
+    errs = {}
+
+    def hold(what, got_fn, plain_fn, args, kw):
+        """The kernel against its plain version, in f32 and in bf16 (the
+        same inputs rounded), each at its own tolerance."""
+        tol = {"f32": (ATOL["float32"], 3e-2), "bf16": FLASH_BF16_TOL}
+        for tag, xs in (("f32", args),
+                        ("bf16", [t.to(bf16) for t in args])):
+            errs[f"{what} {tag}"] = assert_close(
+                torch, got_fn(*xs, **kw), plain_fn(*xs, **kw), *tol[tag],
+                f"flash_attention {what} {tag}")
+
+    q, k, v = qkv(S)
+    hold("prefill", gqa, plain, (q, k, v), dict(causal=True))
+    hold("ragged S=1000", gqa, plain, qkv(1000), dict(causal=True))
+    hold("window 256", gqa, plain, (q, k, v), dict(causal=True, window=256))
+    hold("(BH, S, hd)", fn, plain3,
+         [torch.randn((B * H, 1024, hd), generator=gen, device=dev)
+          for _ in range(3)], dict(causal=True))
+    n_tc = kflash.flash_attention.launches_tc - tc0
+    check(n_tc == 4, f"flash_attention: {n_tc} of the 4 bf16 calls took "
+          "the tensor-core kernel, and none of the f32 ones may")
+    out = gqa(q, k, v, causal=True)
     # the library yardstick, (B, H, S, hd); transposes outside the timing
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
@@ -440,25 +455,52 @@ def flash_phase(torch, kops):
     plain_ms = time_ms(torch, lambda: plain(q, k, v, causal=True), reps=5)
     lib_ms = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
                                          enable_gqa=True))
-    qtb, ktb, vtb = (t.to(torch.bfloat16) for t in (qt, kt, vt))
+    qb, kb, vb, qtb, ktb, vtb = (t.to(bf16) for t in (q, k, v, qt, kt, vt))
     ms_b = time_ms(torch, lambda: gqa(qb, kb, vb, causal=True))
     lib_ms_b = time_ms(torch, lambda: sdpa(qtb, ktb, vtb, is_causal=True,
                                            enable_gqa=True))
     need = (2 * B * S * H + 2 * B * S * K) * hd * 4     # q, out, k, v
     flops = 4 * hd * B * H * S * (S + 1) // 2          # live causal pairs
-    row = kernel_row("flash_attention", mod, err, ms, plain_ms, need, flops,
-                     lib_ms)
+    row = kernel_row("flash_attention", mod, errs["prefill f32"], ms,
+                     plain_ms, need, flops, lib_ms)
     tc_ms = max(need / 2 / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS_PER_S) * 1e3
-    log(f"[flash] B={B} S={S} H={H} K={K} hd={hd} causal: f32 err "
-        f"{err:.3e}, bf16 err {err_b:.3e}, ragged S=1000 err {err_r:.3e}, "
-        f"window 256 err {err_w:.3e}, (BH, S, hd) err {err_3:.3e} (f32 atol "
-        f"{ATOL['float32']} rtol 3e-2; bf16 atol {FLASH_BF16_TOL[0]} rtol "
-        f"{FLASH_BF16_TOL[1]}); SDPA vs "
-        f"kernel {err_lib:.3e}")
+    row.update(source_bf16=kflash.SOURCE_TC, ms_bf16=ms_b,
+               library_ms_bf16=lib_ms_b, bound_ms_bf16=tc_ms,
+               max_abs_err_bf16=errs["prefill bf16"])
+    log(f"[flash] B={B} S={S} H={H} K={K} hd={hd} causal, max err against "
+        "the plain version: " + ", ".join(f"{n} {e:.3e}"
+                                          for n, e in errs.items())
+        + f" (f32 atol {ATOL['float32']} rtol 3e-2; bf16 atol "
+        f"{FLASH_BF16_TOL[0]} rtol {FLASH_BF16_TOL[1]}); SDPA vs kernel "
+        f"{err_lib:.3e}; {n_tc} bf16 calls on the tensor-core kernel")
     log(f"[flash] f32: {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
         f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']}, {flops / 1e9:.1f} GFLOP); bf16: {ms_b:.4f} ms, "
-        f"SDPA {lib_ms_b:.4f} ms, tensor-core bound {tc_ms:.4f} ms")
+        f"({row['bound_by']}, {flops / 1e9:.1f} GFLOP); bf16 (tensor "
+        f"cores): {ms_b:.4f} ms, SDPA {lib_ms_b:.4f} ms, tensor-core bound "
+        f"{tc_ms:.4f} ms ({ms_b / lib_ms_b:.2f}x SDPA, {ms_b / tc_ms:.2f}x "
+        "the bound)")
+    del q, k, v, qt, kt, vt, qb, kb, vb, qtb, ktb, vtb, out, lib
+    # hd 128: qwen2.5-14b's heads, one 4096-token sequence, bf16
+    qc = get_config(HD128_ARCH)
+    H2, K2, hd2, S2 = (qc.n_heads, qc.n_kv_heads, qc.resolved_head_dim,
+                       HD128_S)
+    q, k, v = (t.to(bf16) for t in qkv(S2, B=1, H=H2, K=K2, hd=hd2))
+    tc0 = kflash.flash_attention.launches_tc
+    err2 = assert_close(torch, gqa(q, k, v, causal=True),
+                        plain(q, k, v, causal=True), *FLASH_BF16_TOL,
+                        "flash_attention bf16 hd 128")
+    check(kflash.flash_attention.launches_tc == tc0 + 1,
+          "flash_attention bf16 hd 128: not on the tensor-core kernel")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms2 = time_ms(torch, lambda: gqa(q, k, v, causal=True))
+    lib2 = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True))
+    flops2 = 4 * hd2 * H2 * S2 * (S2 + 1) // 2
+    need2 = (2 * S2 * H2 + 2 * S2 * K2) * hd2 * 2
+    tc2 = max(need2 / HBM_BYTES_PER_S, flops2 / BF16_TC_FLOPS_PER_S) * 1e3
+    log(f"[flash] bf16 hd {hd2} ({HD128_ARCH} heads: B=1 S={S2} H={H2} "
+        f"K={K2} causal): err {err2:.3e}; {ms2:.4f} ms, SDPA {lib2:.4f} ms, "
+        f"tensor-core bound {tc2:.4f} ms ({ms2 / lib2:.2f}x SDPA)")
     torch.cuda.synchronize()
     return row
 
@@ -468,7 +510,8 @@ def flash_phase(torch, kops):
 # ----------------------------------------------------------------------
 
 def _prefill(torch, kops, prefill_step, cfg, params, tokens, backend):
-    """One prefill on ``backend``; returns (logits, cache, launches, ms)."""
+    """One prefill on ``backend``; returns (logits, cache, launches, ms,
+    launches of the tensor-core flash kernel)."""
     torch.cuda.synchronize()
     kops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -476,10 +519,29 @@ def _prefill(torch, kops, prefill_step, cfg, params, tokens, backend):
                                  attn_backend=backend)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    return logits, cache, kops.launch_counts(), ms
+    return (logits, cache, kops.launch_counts(), ms,
+            kops.flash_attention.launches_tc)
+
+
+def _device_ms(torch, fn):
+    """An upper bound on the device time of ``fn``'s work: the stream first
+    sleeps for about half a second, so the host queues the work ahead of
+    the device, and events time it from the end of the sleep.  Where the
+    host fills the launch queue and then falls behind, idle gaps remain
+    inside the bound; a wall time above it is the host's."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000_000)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
 
 
 def llm_phase(torch, kops, launches, card):
+    """Returns the tensor-core flash launches of the prefills."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -493,16 +555,19 @@ def llm_phase(torch, kops, launches, card):
     want = {name: (L if name == "flash_attention" else 0)
             for name in kops.KERNELS}
     none = {name: 0 for name in kops.KERNELS}
-    times = {}
+    times, n_tc = {}, 0
     for dtype in ("float32", "bfloat16"):
         cfg = dataclasses.replace(base, dtype=dtype)
         params = transformer.init_params(cfg, 0, device=DEVICE)
+        want_tc = L if dtype == "bfloat16" else 0     # bf16: tensor cores
         got = _prefill(torch, kops, prefill_step, cfg, params, tokens, "cuda")
-        check(got[2] == want, f"prefill {dtype}: launches {got[2]}, "
-              f"expected {want}")
+        check(got[2] == want and got[4] == want_tc, f"prefill {dtype}: "
+              f"launches {got[2]}, {got[4]} on the tensor-core kernel; "
+              f"expected {want}, {want_tc}")
         launches["flash_attention"] += got[2]["flash_attention"]
         ref = _prefill(torch, kops, prefill_step, cfg, params, tokens, "ref")
-        check(ref[2] == none, f"prefill {dtype} ref: launches {ref[2]}")
+        check(ref[2] == none and ref[4] == 0,
+              f"prefill {dtype} ref: launches {ref[2]}, {ref[4]}")
         check(tuple(got[0].shape) == (LLM_B, 1, cfg.vocab_size)
               and bool(torch.isfinite(got[0]).all()),
               f"prefill {dtype}: logits {tuple(got[0].shape)}, finite "
@@ -518,14 +583,22 @@ def llm_phase(torch, kops, launches, card):
                 max_err(torch, got[1][n], ref[1][n]) for n in ("k", "v")]
         again = _prefill(torch, kops, prefill_step, cfg, params, tokens,
                          "cuda")
-        check(again[2] == want, f"prefill {dtype} again: launches "
-              f"{again[2]}")
+        check(again[2] == want and again[4] == want_tc, f"prefill {dtype} "
+              f"again: launches {again[2]}, {again[4]} tensor-core")
         launches["flash_attention"] += again[2]["flash_attention"]
+        n_tc += got[4] + again[4]
         times[dtype] = again[3]
+        kops.reset_launch_counts()
+        dev_ms = _device_ms(torch, lambda: prefill_step(
+            cfg, params, {"tokens": tokens}, attn_backend="cuda"))
+        launches["flash_attention"] += kops.flash_attention.launches
+        n_tc += kops.flash_attention.launches_tc
         log(f"[llm] {LLM_ARCH} {L} layers d_model {cfg.d_model} {dtype}: "
             f"prefill {LLM_B}x{LLM_S} tokens {again[3]:.1f} ms warm "
-            f"({got[3]:.1f} ms first; \"ref\" {ref[3]:.1f} ms), "
-            f"{got[2]['flash_attention']} flash launches (\"ref\": 0); max "
+            f"({got[3]:.1f} ms first; \"ref\" {ref[3]:.1f} ms; device "
+            f"at most {dev_ms:.1f} ms, queued ahead), "
+            f"{got[2]['flash_attention']} flash launches, {got[4]} of them "
+            f"on the tensor cores (\"ref\": 0); max "
             f"err cuda vs ref: logits {errs[0]:.3e}, cache k {errs[1]:.3e}, "
             f"v {errs[2]:.3e}" + (" (atol 1e-4, rtol 3e-3)"
                                   if dtype == "float32" else ""))
@@ -549,6 +622,7 @@ def llm_phase(torch, kops, launches, card):
         f"{stats['seconds'] / stats['decode_steps'] * 1e3:.1f} ms per "
         f"step); prefill {LLM_B}x{LLM_S}: f32 {times['float32']:.1f} ms, "
         f"bf16 {times['bfloat16']:.1f} ms; 0 flash launches")
+    return n_tc
 
 
 def main() -> int:
@@ -589,8 +663,21 @@ def main() -> int:
         spills = [line.strip() for line in text.splitlines()
                   if "spill" in line and not line.strip().startswith(
                       "0 bytes stack frame, 0 bytes spill stores, 0 bytes")]
+        slow = [line.split("Potential Performance Loss: ")[1].split(
+            " in the function")[0] for line in text.splitlines()
+            if "Potential Performance Loss" in line]
         log(f"[build] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)}"
-            f" registers; spills: {spills or 'none'}")
+            f" registers; spills: {spills or 'none'}; ptxas performance "
+            f"warnings: {slow or 'none'}")
+    # the tensor-core flash kernel really is on the tensor cores
+    sass = subprocess.run(
+        [str(Path(build.nvcc()).parent / "cuobjdump"), "-sass",
+         str(build.library_path("flash_attention_sm90"))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    check(n_hgmma > 0, "flash_attention_sm90: no HGMMA in its SASS")
+    log(f"[build] flash_attention_sm90: {n_hgmma} HGMMA instructions in "
+        "its SASS (cuobjdump -sass)")
 
     t0 = time.perf_counter()
     src_e, dst_e, n = make_dataset("ogbn-papers100M", seed=0,
@@ -610,11 +697,14 @@ def main() -> int:
     featprep_phase(torch, kops, lg0, launches)
     del lg0
     torch.cuda.empty_cache()
-    llm_phase(torch, kops, launches, smi)
+    n_tc = llm_phase(torch, kops, launches, smi)
     for name, v in launches.items():
         check(v > 0, f"{name}: never launched on the main path")
         rows[name]["launches"] = v
-    log(f"[done] launches on the main path: {launches}; "
+    check(n_tc > 0, "flash_attention_sm90: never launched on the main path")
+    rows["flash_attention"]["launches_bf16"] = n_tc
+    log(f"[done] launches on the main path: {launches} ({n_tc} flash on "
+        "the tensor cores); "
         f"{time.perf_counter() - t_start:.1f} s in all")
     log(json.dumps({"kernels": [rows[n] for n in kops.KERNELS]}))
     log(json.dumps({"ok": True, "device": {

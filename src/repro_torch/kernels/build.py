@@ -25,7 +25,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("spmm", "gat_attention", "flash_attention")
+SOURCES = ("spmm", "gat_attention", "flash_attention",
+           "flash_attention_sm90")
 CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -43,6 +44,9 @@ SIGNATURES = {
     "flash_attention": {
         "deal_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  *[_L] * 9, _I, _I, _L, _L, _F, _I, _P]},
+    "flash_attention_sm90": {
+        "deal_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    *[_L] * 9, _I, _I, _L, _L, _F, _I, _P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -34,8 +34,10 @@
 // out as the mean of v over all Skv keys, which is what a softmax over -1e30
 // fills gives.  The output is acc / max(l, 1e-30) in q's type.  No fast math:
 // expf and the division are IEEE.
+//
+// This kernel takes float32.  bfloat16 runs on the tensor cores, in
+// flash_attention_sm90.cu, which takes the same arguments.
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -46,13 +48,7 @@ constexpr int kChunk = 16;      // keys scored per online-softmax update
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 struct Args {
   const void* q;
@@ -236,7 +232,7 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and out share it).  Strides
+// dtype code: 0 = float32 (q, k, v and out share it).  Strides
 // are in elements; the head dimension of each tensor is contiguous, and out
 // is a contiguous (B, Sq, H, hd).  window is read only when has_window != 0.
 // Returns the launch's cudaError_t.
@@ -256,6 +252,5 @@ extern "C" int deal_flash_attention(
                svh, causal, has_window, window, q_offset, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(a, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, s);
   return cudaErrorInvalidValue;
 }

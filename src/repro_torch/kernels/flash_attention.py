@@ -5,8 +5,15 @@ rescale over tiles of keys, accumulated in f32.
 
 Replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention.py::flash_attention`` (``pallas_call``
-at line 65) with the kernel in ``csrc/flash_attention.cu``.  One CUDA
-entry serves two signatures:
+at line 65) with two CUDA kernels, one per dtype (``route``), each for
+any hd up to 256:
+
+- bf16: ``csrc/flash_attention_sm90.cu``, both products on the tensor
+  cores (``wgmma``), q, k and v read by TMA;
+- f32: ``csrc/flash_attention.cu``, f32 FMAs outside the tensor cores
+  (f32 GEMM math stays full f32 in this port: no TF32).
+
+Each entry serves two signatures:
 
 - ``flash_attention(q, k, v, *, causal)``: the Pallas one, q (BH, Sq, hd),
   k and v (BH, Skv, hd), scale 1/sqrt(hd);
@@ -14,12 +21,17 @@ entry serves two signatures:
   one of ``models/attention.py::flash_attention_jnp``, q (B, Sq, H, hd), k
   and v (B, Skv, K, hd), query head h reading kv head h // (H // K).
 
-The kernel reads all three through their strides (the head dimension
+The kernels read all three through their strides (the head dimension
 contiguous), so neither GQA nor the heads-in-the-middle layout is copied,
-and it masks ragged Sq and Skv itself.  On CPU tensors the wrappers
-return the plain versions, ``ref.flash_attention_ref`` and
-``ref.gqa_attention_ref``.  ``flash_attention.launches`` counts kernel
-launches through either signature.
+and they mask ragged Sq and Skv themselves.  The tensor-core kernel reads
+through TMA, which needs every base address 16-byte aligned and every
+outer stride a multiple of 8 elements: the wrapper raises on a bf16 view
+that breaks this (``tma_strides``) and never re-routes it.  On CPU
+tensors the wrappers return the plain versions,
+``ref.flash_attention_ref`` and ``ref.gqa_attention_ref``.
+``flash_attention.launches`` counts kernel launches through either
+signature and either kernel; ``flash_attention.launches_tc`` counts the
+tensor-core kernel's alone.
 """
 from __future__ import annotations
 
@@ -32,8 +44,42 @@ from repro_torch.kernels import build, ref
 from repro_torch.kernels.spmm import FLOAT_CODES
 
 SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+SOURCE_TC = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:65"
 MAX_HEAD_DIM = 256
+
+
+def route(dtype: torch.dtype, device: torch.device) -> str:
+    """Which version a call takes: "plain" for CPU tensors, else "tc"
+    (the tensor-core kernel) for bf16 and "simt" (the f32-FMA kernel) for
+    f32."""
+    if device.type == "cpu":
+        return "plain"
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def tma_strides(t: torch.Tensor, name: str):
+    """The (batch, seq, head) strides of a (B, S, heads, hd) view in
+    elements, as the tensor-core kernel's tensor maps take them.  TMA
+    needs a 16-byte aligned base and strides that are multiples of 16
+    bytes (8 bf16); the stride of a dimension of size 1 is never stepped
+    along, so it is replaced by a contiguous one.  Raises ValueError on
+    anything else."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name}'s base address is not "
+                         "16-byte aligned, which the bf16 tensor-core "
+                         "kernel's TMA loads need")
+    _, S, H, hd = t.shape
+    hd8 = -(-hd // 8) * 8
+    natural = (S * H * hd8, H * hd8, hd8)
+    strides = [s if n > 1 else c
+               for n, s, c in zip(t.shape[:3], t.stride()[:3], natural)]
+    if any(s % 8 for s in strides):
+        raise ValueError(f"flash_attention: {name}'s strides "
+                         f"{tuple(t.stride())} are not multiples of 8 "
+                         "elements (16 bytes), which the bf16 tensor-core "
+                         "kernel's TMA loads need")
+    return strides
 
 
 def _check(q, k, v, ndim: int):
@@ -80,20 +126,29 @@ def _launch(q, k, v, *, q_offset: int, causal: bool,
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dimension of q, k and v "
                          "must be contiguous")
+    tc = route(q.dtype, q.device) == "tc"
+    if tc:
+        strides = [s for name, t in (("q", q), ("k", k), ("v", v))
+                   for s in tma_strides(t, name)]
+    else:
+        strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     if B * Sq == 0:
         return out
-    lib = build.library("flash_attention")
+    if tc:
+        entry = build.library("flash_attention_sm90").deal_flash_attention_tc
+    else:
+        entry = build.library("flash_attention").deal_flash_attention
     with torch.cuda.device(q.device):
-        err = lib.deal_flash_attention(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, K, Sq, Skv, hd, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], int(causal), int(window is not None),
-            int(window or 0), int(q_offset), float(scale),
-            FLOAT_CODES[q.dtype],
+            B, H, K, Sq, Skv, hd, *strides, int(causal),
+            int(window is not None), int(window or 0), int(q_offset),
+            float(scale), FLOAT_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_tc += int(tc)
     return out
 
 
@@ -114,6 +169,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0
 
 
 def flash_attention_gqa(q, k, v, *, q_offset: int = 0, causal: bool = True,

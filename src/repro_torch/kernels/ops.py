@@ -9,7 +9,9 @@ version in ``kernels.ref``.  There is no backend probe and no fallback.
 
 ``KERNELS`` lists the five kernels with their plain versions, sources
 and the TPU kernels they replace; ``launch_counts`` and
-``reset_launch_counts`` read and zero their launch counters.
+``reset_launch_counts`` read and zero their launch counters (the reset
+also zeroes ``flash_attention.launches_tc``, the bf16 tensor-core
+kernel's share of ``flash_attention``'s).
 """
 from __future__ import annotations
 
@@ -45,3 +47,4 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
+    flash_attention.launches_tc = 0

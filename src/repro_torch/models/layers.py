@@ -32,13 +32,23 @@ def rope(x, positions, theta):
     ``theta`` is a Python number, taken as f32 as the JAX package
     carries it (and never copied to the device as a tensor: a host to
     device copy per call would stall every decode step)."""
-    hd = x.shape[-1]
+    return apply_rope(x, *rope_angles(positions, theta, x.shape[-1]))
+
+
+def rope_angles(positions, theta, hd: int):
+    """(cos, sin) of ``rope``'s angles in f32, (..., S, 1, hd // 2): one
+    table serves every tensor and layer rotated at these positions."""
     half = hd // 2
     freqs = 1.0 / (float(theta) ** (torch.arange(
-        0, half, dtype=torch.float32, device=x.device) / half))
+        0, half, dtype=torch.float32, device=positions.device) / half))
     angles = positions[..., None].float() * freqs        # (..., S, half)
     angles = angles[..., None, :]                        # (..., S, 1, half)
-    cos, sin = torch.cos(angles), torch.sin(angles)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x, cos, sin):
+    """``rope`` with its angles' (cos, sin) from ``rope_angles``."""
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

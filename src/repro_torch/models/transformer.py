@@ -29,7 +29,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ops import resolve_device
 from repro_torch.models.attention import decode_attention, flash_attention
-from repro_torch.models.layers import embed_tokens, rms_norm, rope, swiglu_mlp
+from repro_torch.models.layers import (apply_rope, embed_tokens, rms_norm,
+                                       rope, rope_angles, swiglu_mlp)
 
 _BIG_WINDOW = 1 << 30
 # ROADMAP.md Queue 1 items that port the other families
@@ -231,13 +232,14 @@ def _qkv(x, p: Attention, cfg: ModelConfig):
             v.reshape(B, S, cfg.n_kv_heads, hd))
 
 
-def _gqa_full(x, p: Attention, cfg: ModelConfig, positions, theta, window,
+def _gqa_full(x, p: Attention, cfg: ModelConfig, rot, window,
               causal: bool = True, backend: str = "cuda"):
-    """Full-sequence GQA attention (prefill).  Returns (out, k, v)."""
+    """Full-sequence GQA attention (prefill).  ``rot`` is the layer's
+    rope (cos, sin) from ``rope_angles``, or None.  Returns (out, k, v)."""
     q, k, v = _qkv(x, p, cfg)
-    if theta is not None:
-        q = rope(q, positions, theta)
-        k = rope(k, positions, theta)
+    if rot is not None:
+        q = apply_rope(q, *rot)
+        k = apply_rope(k, *rot)
     o = flash_attention(q, k, v, causal=causal, window=window,
                         backend=backend)
     B, S = x.shape[:2]
@@ -326,11 +328,15 @@ def _dense_stack(cfg: ModelConfig, params: DenseLM, x, positions,
         shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
         cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
                  "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
+    # one rope table per theta for the whole stack: the prefill is bound
+    # by the host's operator launches once attention is on the tensor cores
+    rots = {t: rope_angles(positions, t, cfg.resolved_head_dim)
+            for t in set(thetas) if t is not None}
     h = x
     for l, (p, window, theta) in enumerate(zip(params.blocks, windows,
                                                thetas)):
         a, k, v = _gqa_full(rms_norm(h, p.pre_attn_norm, cfg.norm_eps),
-                            p.attn, cfg, positions, theta, window,
+                            p.attn, cfg, rots.get(theta), window,
                             backend=attn_backend)
         h = h + a
         h = h + swiglu_mlp(rms_norm(h, p.pre_mlp_norm, cfg.norm_eps),

@@ -152,6 +152,15 @@ FLASH_CASES = [
     (1, 9, 40, 2, 1, 64, 100, True, 8),         # no live key: mean of v
     (1, 300, 300, 15, 5, 64, 0, True, 1 << 30),  # smollm heads, global
     (1, 70, 70, 8, 4, 256, 0, True, 32),        # gemma3: hd 256, local
+    # the tensor-core kernel's edges: 64-row warpgroups, 128-row blocks and
+    # 128-key tiles (64 for hd 256), one short of and one past each
+    (1, 63, 63, 4, 2, 64, 0, True, None),
+    (1, 65, 127, 4, 2, 128, 62, True, None),
+    (2, 129, 129, 2, 1, 64, 0, True, None),
+    (1, 127, 65, 4, 4, 64, 0, False, None),
+    (1, 129, 257, 2, 2, 256, 128, True, None),
+    (1, 100, 300, 4, 2, 64, 150, True, 60),     # window band crosses key 128
+    (1, 70, 64, 2, 1, 128, 60, True, 4),        # rows 7.. have no live key
 ]
 
 
@@ -171,21 +180,29 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, K, hd,
                qkv[:, :Skv, H + K:])
     kw = dict(q_offset=q_offset, causal=causal, window=window)
     before = kops.launch_counts()["flash_attention"]
+    before_tc = kops.flash_attention.launches_tc
     got = flash_attention_gqa(q, k, v, **kw)
     assert kops.launch_counts()["flash_attention"] == before + 1
+    # bf16 runs on the tensor cores (every hd up to 256), f32 never
+    assert kops.flash_attention.launches_tc == before_tc + int(
+        dtype == torch.bfloat16)
     assert got.dtype == dtype and got.shape == (B, Sq, H, hd)
     _close(got, ref.gqa_attention_ref(q, k, v, **kw), ATOL[dtype])
 
 
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_pallas_signature(cuda, causal):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_pallas_signature(cuda, causal, dtype):
     g = torch.Generator(device=cuda).manual_seed(3)
-    q, k, v = (torch.randn((6, 200, 64), generator=g, device=cuda)
+    q, k, v = (torch.randn((6, 200, 64), generator=g, device=cuda).to(dtype)
                for _ in range(3))
+    before_tc = kops.flash_attention.launches_tc
     got = kops.flash_attention(q, k, v, causal=causal, block_q=64)
-    assert got.shape == q.shape
+    assert got.shape == q.shape and got.dtype == dtype
+    assert kops.flash_attention.launches_tc == before_tc + int(
+        dtype == torch.bfloat16)
     _close(got, ref.flash_attention_ref(q, k, v, causal=causal),
-           ATOL[torch.float32])
+           ATOL[dtype])
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
@@ -201,6 +218,16 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
         flash_attention_gqa(big, big, big)
     with pytest.raises(TypeError, match="q is"):
         flash_attention_gqa(q, q.to(torch.bfloat16), q)
+    # TMA's rules for the tensor-core kernel: raised, never re-routed
+    qb = torch.randn((1, 8, 2, 68), device=cuda).to(torch.bfloat16)
+    before = kops.launch_counts()["flash_attention"]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention_gqa(qb[..., :64], qb[..., :64], qb[..., :64])
+    flat = torch.zeros(1 + 8 * 2 * 64, device=cuda, dtype=torch.bfloat16)
+    odd = flat[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_gqa(odd, odd, odd)
+    assert kops.launch_counts()["flash_attention"] == before
 
 
 def test_prefill_step_cuda_matches_ref_on_the_card(cuda):
@@ -216,12 +243,33 @@ def test_prefill_step_cuda_matches_ref_on_the_card(cuda):
     kops.reset_launch_counts()
     got, cache = prefill_step(cfg, params, {"tokens": tokens})
     assert kops.launch_counts()["flash_attention"] == cfg.n_layers
+    assert kops.flash_attention.launches_tc == 0          # f32: FMA kernel
     want, want_cache = prefill_step(cfg, params, {"tokens": tokens},
                                     attn_backend="ref")
     assert kops.launch_counts()["flash_attention"] == cfg.n_layers
     _close(got, want, 1e-4, 3e-3)
     for name in ("k", "v"):
         _close(cache[name], want_cache[name], 1e-4, 3e-3)
+
+
+def test_bf16_prefill_runs_flash_on_the_tensor_cores(cuda):
+    """A bf16 prefill sends every layer's attention to the tensor-core
+    kernel, and its logits stay close to "ref"'s (bf16 noise)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve.step import prefill_step
+    cfg = get_config("smollm-360m").reduced()
+    assert cfg.dtype == "bfloat16"
+    params = init_params(cfg, 0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 130), device=cuda)
+    kops.reset_launch_counts()
+    got, _ = prefill_step(cfg, params, {"tokens": tokens})
+    assert kops.flash_attention.launches_tc == cfg.n_layers
+    want, _ = prefill_step(cfg, params, {"tokens": tokens},
+                           attn_backend="ref")
+    assert kops.flash_attention.launches_tc == cfg.n_layers
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, 0.1, 0.1)
 
 
 def test_serve_engine_decodes_on_the_card(cuda):
