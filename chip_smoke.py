@@ -14,11 +14,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    stand-in, N = 1,048,576, fanout 8, D = 128, 4 heads) against its plain
    version on the card: quantized f32 (< 5e-7), random f32 and bf16 at
    the tolerances of tests/test_kernels.py, attention on random f32
-   (< 5e-7); spmm and gather_spmm bitwise across two tilings.  Times
+   (< 5e-7); spmm and gather_spmm bitwise across two tilings;
+   gat_attention and sddmm bitwise on row subsets, and sddmm on strided
+   per-head column slices against their contiguous copies.  Times
    with CUDA events (median of 20 after warm-up): the kernel, the plain
    version, one PyTorch library call where there is one, and the least
    time the card could take (bytes over 3.35 TB/s or flops over the
-   f32 peak, whichever is larger, counting what this run's data needs).
+   f32 peak, whichever is larger, counting what this run's data needs),
+   and each kernel's time over its bound and over its library call.
 3. slice:  ``Session.build(cfg, device="cuda").infer_all()`` for gcn,
    sage and gat (4 heads; fused and unfused attention), each against
    the "ref" executor on the card with the same params (atol 1e-4,
@@ -159,7 +162,8 @@ def kernel_phase(torch, kops, lg):
     uniq = int(torch.unique(nbr.reshape(-1)[live]).numel())
     live_rows = int(mask.any(dim=1).sum())
     log(f"[kernels] R=N={N} F={F} D={D} heads={HEADS}: {nnz} unmasked "
-        f"slots of {R * F}, {uniq} distinct source rows")
+        f"slots of {R * F}, {uniq} distinct source rows, {live_rows} rows "
+        "with an unmasked slot")
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -217,13 +221,18 @@ def kernel_phase(torch, kops, lg):
         rows[name] = kernel_row(name, mod, err, ms, plain_ms, need,
                                 2 * nnz * D, lib_ms)
         r = rows[name]
+        # GAT's attend runs it per head, at D = dh
+        need_h = need - (uniq + R) * (D - dh) * 4
+        r["ms_per_head"] = ms_head
+        r["bound_ms_per_head"] = bound(need_h, 2 * nnz * dh)[0]
         log(f"[kernels] {name}: quantized err {e_q:.1e} (< 5e-7), f32 err "
             f"{err:.3e} (atol {ATOL['float32'] * F:.1e}, rtol 3e-2), bf16 "
             f"within atol {ATOL['bfloat16'] * F:.2f}, tilings bitwise "
             f"equal; {ms:.4f} ms (D={dh}: "
             f"{ms_head:.4f} ms), plain {plain_ms:.4f} ms, torch.sparse.mm "
             f"{lib_ms:.4f} ms (err {lib_err:.1e}), bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; D={dh}: "
+            f"{r['bound_ms_per_head']:.4f} ms)")
 
     # -- gat_attention ----------------------------------------------------
     fn, plain, mod = kops.KERNELS["gat_attention"]
@@ -236,20 +245,28 @@ def kernel_phase(torch, kops, lg):
     err = max_err(torch, out, plain(q, k, nbr, mask, HEADS))
     check(err < 5e-7, f"gat_attention random f32: max err {err:.3e}")
     check(bool((out[~mask] == 0).all()), "gat_attention: masked slot != 0")
+    check(subset_equal(torch, fn, out, q, k, nbr, mask, heads=HEADS),
+          "gat_attention: a row subset differs from the full launch")
     qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
     assert_close(torch, fn(qb, kb, nbr, mask, heads=HEADS),
                  plain(qb, kb, nbr, mask, HEADS), ATOL["bfloat16"], 3e-2,
                  "gat_attention bf16")
     ms = time_ms(torch, lambda: fn(q, k, nbr, mask, heads=HEADS))
     plain_ms = time_ms(torch, lambda: plain(q, k, nbr, mask, HEADS))
+    # what the time is made of: half the bytes (bf16), and the same
+    # gathers without the softmax (sddmm at the full width)
+    ms_bf16 = time_ms(torch, lambda: fn(qb, kb, nbr, mask, heads=HEADS))
+    ms_gathers = time_ms(torch, lambda: kops.sddmm(q, k, nbr, mask))
     need = live_rows * D * 4 + uniq * D * 4 + R * F * 5 + R * F * HEADS * 4
     rows["gat_attention"] = kernel_row("gat_attention", mod, err, ms,
                                        plain_ms, need, 2 * nnz * D)
     r = rows["gat_attention"]
     log(f"[kernels] gat_attention: quantized err {e_q:.1e} (< 5e-7), f32 "
         f"err {err:.3e} (< 5e-7), bf16 within atol {ATOL['bfloat16']}; "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        f"{ms:.4f} ms (bf16 {ms_bf16:.4f} ms; sddmm at D={D}, its gathers "
+        f"without the softmax, {ms_gathers:.4f} ms), plain {plain_ms:.4f} "
+        f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); row subsets "
+        "bitwise equal")
 
     # -- sddmm: per-head column slices (N, dh), as CudaExecutor passes --
     fn, plain, mod = kops.KERNELS["sddmm"]
@@ -262,6 +279,18 @@ def kernel_phase(torch, kops, lg):
     qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
     assert_close(torch, fn(qb, kb, nbr, mask), plain(qb, kb, nbr, mask),
                  ATOL["bfloat16"] * dh ** 0.5, 3e-2, "sddmm bf16")
+    check(subset_equal(torch, fn, fn(q, k, nbr, mask), q, k, nbr, mask),
+          "sddmm: a row subset differs from the full launch")
+    # each head's column slice of full-width q and k, read in place, as
+    # CudaExecutor.attn_scores passes them: the bits of a contiguous copy
+    qw, kw = randn(N, D), randn(N, D)
+    for h in range(HEADS):
+        qh, kh = qw[:, h * dh:(h + 1) * dh], kw[:, h * dh:(h + 1) * dh]
+        check(torch.equal(fn(qh, kh, nbr, mask),
+                          fn(qh.contiguous(), kh.contiguous(), nbr, mask)),
+              f"sddmm: head {h}'s strided slice differs from its copy")
+    ms_strided = time_ms(torch, lambda: fn(qw[:, :dh], kw[:, :dh], nbr, mask))
+    del qw, kw
     ms = time_ms(torch, lambda: fn(q, k, nbr, mask))
     plain_ms = time_ms(torch, lambda: plain(q, k, nbr, mask))
     # the library yardstick: cuSPARSE SDDMM through sampled_addmm, over a
@@ -292,9 +321,29 @@ def kernel_phase(torch, kops, lg):
         f"err {err:.3e} (atol {ATOL['float32'] * dh ** 0.5:.1e}, rtol "
         f"3e-2); {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"torch.sparse.sampled_addmm {lib_ms:.4f} ms ({pairs_n} distinct "
-        f"pairs), bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        f"pairs), bound {r['bound_ms']:.4f} ms ({r['bound_by']}); row "
+        f"subsets and {HEADS} strided head slices bitwise equal, a strided "
+        f"slice {ms_strided:.4f} ms")
+    for name, r in rows.items():        # recorded, not gated
+        log(f"[kernels] {name}: {r['ms'] / r['bound_ms']:.2f}x its bound"
+            + (f" ({r['ms_per_head'] / r['bound_ms_per_head']:.2f}x at "
+               f"D={dh})" if "ms_per_head" in r else "")
+            + (f", {r['ms'] / r['library_ms']:.2f}x its library call"
+               if r["library_ms"] else ""))
     torch.cuda.synchronize()
     return rows
+
+
+def subset_equal(torch, fn, full, q, k, nbr, mask, **kw):
+    """Whether ``fn`` on a row subset (every third row, and rows 1000 to
+    1999) gives the bits of the same rows of the full launch ``full``, as
+    delta and chunked refresh need."""
+    for rows in (torch.arange(0, q.shape[0], 3, device=q.device),
+                 torch.arange(1000, 2000, device=q.device)):
+        if not torch.equal(fn(q[rows], k, nbr[rows], mask[rows], **kw),
+                           full[rows]):
+            return False
+    return True
 
 
 # ----------------------------------------------------------------------

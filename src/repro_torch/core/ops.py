@@ -257,12 +257,11 @@ class CudaExecutor(RefExecutor):
 
     def attn_scores(self, q, k, io: DenseIO, heads: int):
         """Unfused scores: one sddmm per head over head-major column
-        slices, stacked to (R, F, h) and scaled."""
+        slices (row-strided views, which the kernel reads in place),
+        stacked to (R, F, h) and scaled."""
         dh = q.shape[1] // heads
-        # a column slice of a row-major tensor is strided; the kernel
-        # takes contiguous rows, so each slice is copied explicitly
-        per_head = [kops.sddmm(q[:, h * dh:(h + 1) * dh].contiguous(),
-                               k[:, h * dh:(h + 1) * dh].contiguous(),
+        per_head = [kops.sddmm(q[:, h * dh:(h + 1) * dh],
+                               k[:, h * dh:(h + 1) * dh],
                                io.nbr_resolved, io.mask)
                     for h in range(heads)]
         s = torch.stack(per_head, dim=-1)

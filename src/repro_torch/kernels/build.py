@@ -40,7 +40,8 @@ SIGNATURES = {
     "gat_attention": {
         "deal_gat_attention": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                                _P],
-        "deal_sddmm": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]},
+        "deal_sddmm": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I,
+                       _P]},
     "flash_attention": {
         "deal_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  *[_L] * 9, _I, _I, _L, _L, _F, _I, _P]},
@@ -117,15 +118,23 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_args(what: str, named: dict, dtypes: dict) -> None:
+def check_args(what: str, named: dict, dtypes: dict,
+               row_strided=()) -> None:
     """What a kernel takes: every tensor on the first one's CUDA device,
-    contiguous, with a dtype in ``dtypes[name]``.  Raises otherwise."""
+    contiguous (a name in ``row_strided``: 2-D with unit-stride columns,
+    its rows any stride apart), with a dtype in ``dtypes[name]``.
+    Raises otherwise."""
     dev = next(iter(named.values())).device
     for name, t in named.items():
         if t.device != dev:
             raise ValueError(f"{what}: {name} is on {t.device}, expected "
                              f"{dev}")
-        if not t.is_contiguous():
+        if name in row_strided:
+            if t.dim() != 2 or (t.stride(1) != 1 and t.shape[1] > 1):
+                raise ValueError(f"{what}: {name} must be 2-D with "
+                                 "unit-stride columns, got strides "
+                                 f"{t.stride()}")
+        elif not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous (make a "
                              "column slice contiguous first)")
         if t.dtype not in dtypes[name]:

@@ -21,8 +21,8 @@ from repro_torch.kernels.spmm import FLOAT_CODES, check_shapes
 SOURCE = "src/repro_torch/kernels/csrc/gat_attention.cu"
 REPLACES = "src/repro/kernels/gat_attention.py:70"
 
-WARPS = 8                          # rows (one warp each) per block
-_SMEM_MAX = 48 * 1024              # static launch limit, no opt-in
+WARPS = 8                          # warps a block, at most
+_SMEM_MAX = 232448                 # a block's shared memory, 227 KB
 _DTYPES = {"q": tuple(FLOAT_CODES), "k": tuple(FLOAT_CODES),
            "nbr": (torch.int32,), "mask": (torch.bool,)}
 
@@ -36,26 +36,67 @@ def check_qk(q, k, nbr, mask):
         raise ValueError(f"nbr has {nbr.shape[0]} rows, q {q.shape[0]}")
 
 
-def launch_rows(what, fn, q, k, nbr, mask, out, heads, extra):
-    """Launch one of the warp-per-row kernels of gat_attention.cu on the
-    current stream; ``extra`` are the arguments between D and dtype."""
+def warp_words(F: int, D: int, heads: int, itemsize: int,
+               softmax: bool) -> int:
+    """Shared memory of one warp in 4-byte words, as ``warp_words`` in
+    ``csrc/gat_attention.cu``.  A warp serves 32 / F2 rows (F2: F rounded
+    up to a power of two) and holds their q rows, the chunk partials of
+    up to 32 live slots (chunks of 16 bytes where the head width allows,
+    else of one column; 33 words a chunk), the slots' k rows and lanes,
+    and one row's softmax values a lane."""
+    vec = 16 // itemsize
+    cols = vec if (D // heads) % vec == 0 else 1
+    f2 = 1 << max(F - 1, 0).bit_length()
+    words = 32 // f2 * D + 33 * (D // cols) + 64 + (
+        max(32, f2 * heads) if softmax else 0)
+    return -(-words // 4) * 4                      # 16-byte aligned
+
+
+def block_warps(what, F, D, heads, itemsize, softmax):
+    """Warps a block holds: WARPS, or fewer where their shared memory
+    would pass 227 KB.  Raises past the kernel's limits: F <= 32 slots
+    (one lane each), heads a power of two up to 32 (a lane holds one
+    head), one warp's shared memory within 227 KB."""
+    if F > 32:
+        raise ValueError(f"{what}: F={F} slots a row, the kernel takes at "
+                         "most 32 (one lane each)")
+    if heads > 32 or heads & (heads - 1):
+        raise ValueError(f"{what}: heads={heads}, the kernel takes a power "
+                         "of two up to 32")
+    if D < 1:
+        raise ValueError(f"{what}: D={D}, the kernel needs a column")
+    words = warp_words(F, D, heads, itemsize, softmax)
+    warps = min(WARPS, _SMEM_MAX // (4 * words))
+    if warps < 1:
+        raise ValueError(f"{what}: D={D}, F={F}, heads={heads} need "
+                         f"{4 * words} bytes of shared memory a warp, more "
+                         "than a block's 227 KB")
+    return warps
+
+
+def launch_rows(what, q, k, nbr, mask, out, heads: int, softmax: bool):
+    """Launch the kernel of gat_attention.cu (a warp on each group of
+    32 / F2 rows) on the current stream: ``deal_gat_attention`` (``softmax``; q and k contiguous) or
+    ``deal_sddmm`` (one head; q and k may be row-strided views)."""
     build.check_args(what, {"q": q, "k": k, "nbr": nbr, "mask": mask},
-                     _DTYPES)
+                     _DTYPES, row_strided=() if softmax else ("q", "k"))
     if k.dtype != q.dtype:
         raise TypeError(f"{what}: q is {q.dtype} but k is {k.dtype}")
     N, F = nbr.shape
     D = q.shape[1]
-    if N == 0:
+    warps = block_warps(what, F, D, heads, q.element_size(), softmax)
+    if N == 0 or F == 0:
         return False
-    if WARPS * (D + F * heads) * 4 > _SMEM_MAX:
-        raise ValueError(f"{what}: D={D}, F={F}, heads={heads} need more "
-                         "than 48 KB of shared memory per block")
     lib = build.library("gat_attention")
+    if softmax:
+        fn, extra = lib.deal_gat_attention, (heads,)
+    else:
+        fn, extra = lib.deal_sddmm, (q.stride(0), k.stride(0))
     with torch.cuda.device(q.device):
-        err = getattr(lib, fn)(
-            q.data_ptr(), k.data_ptr(), nbr.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), N, F, D, *extra, FLOAT_CODES[q.dtype], WARPS,
-            torch.cuda.current_stream(q.device).cuda_stream)
+        err = fn(q.data_ptr(), k.data_ptr(), nbr.data_ptr(),
+                 mask.data_ptr(), out.data_ptr(), N, F, D, *extra,
+                 FLOAT_CODES[q.dtype], warps,
+                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, what)
     return True
 
@@ -73,8 +114,8 @@ def gat_attention(q, k, nbr, mask, heads: int = 1):
         raise ValueError(f"gat_attention: no kernel for device {q.device}")
     out = torch.empty(nbr.shape + (heads,), dtype=torch.float32,
                       device=q.device)
-    launched = launch_rows("gat_attention", "deal_gat_attention", q, k,
-                           nbr, mask, out, heads, (heads,))
+    launched = launch_rows("gat_attention", q, k, nbr, mask, out, heads,
+                           softmax=True)
     gat_attention.launches += launched
     return out
 

@@ -5,9 +5,9 @@ on the unfused path).
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/sddmm.py::sddmm``
 (``pallas_call`` at line 48) with the scoring half of the warp-per-row
-kernel in ``csrc/gat_attention.cu``.  On a CPU tensor the wrapper
-returns the plain version, ``ref.sddmm_ref``.  ``sddmm.launches``
-counts kernel launches.
+kernel in ``csrc/gat_attention.cu``, which gathers only live slots.  On
+a CPU tensor the wrapper returns the plain version, ``ref.sddmm_ref``.
+``sddmm.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -21,17 +21,18 @@ REPLACES = "src/repro/kernels/sddmm.py:48"
 
 
 def sddmm(q, k, nbr, mask):
-    """q: (N, D); k: (U, D) source rows, same dtype (f32 or bf16); nbr
-    (int32, ids in [0, U)) and mask (bool): (N, F).  Returns (N, F)
-    f32 scores."""
+    """q: (N, D); k: (U, D) source rows, same dtype (f32 or bf16), each
+    contiguous or a row-strided view with unit-stride columns (a column
+    slice of a wider tensor: read in place, bitwise as its contiguous
+    copy); nbr (int32, ids in [0, U)) and mask (bool): (N, F).  Returns
+    (N, F) f32 scores, 0 at a masked slot."""
     check_qk(q, k, nbr, mask)
     if q.device.type == "cpu":
         return ref.sddmm_ref(q, k, nbr, mask)
     if q.device.type != "cuda":
         raise ValueError(f"sddmm: no kernel for device {q.device}")
     out = torch.empty(nbr.shape, dtype=torch.float32, device=q.device)
-    launched = launch_rows("sddmm", "deal_sddmm", q, k, nbr, mask, out, 1,
-                           ())
+    launched = launch_rows("sddmm", q, k, nbr, mask, out, 1, softmax=False)
     sddmm.launches += launched
     return out
 

@@ -104,6 +104,109 @@ def test_attention_kernels_match_plain(cuda, N, U, D, F, heads, dtype):
     _close(e, ref.sddmm_ref(q, k, nbr, mask), ATOL[dtype] * D ** 0.5)
 
 
+def _scores(kernel, q, k, nbr, mask, heads):
+    if kernel == "sddmm":
+        return kops.sddmm(q, k, nbr, mask)
+    return kops.gat_attention(q, k, nbr, mask, heads=heads)
+
+
+@pytest.mark.parametrize("kernel,heads", [("gat_attention", 4),
+                                          ("sddmm", 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_row_subset_equals_full_launch_bitwise(cuda, kernel,
+                                                         heads, dtype):
+    """Delta and chunked refresh run row subsets: a row's bits may not
+    depend on where it sits in a launch or which rows share its block."""
+    N, U, D, F = 300, 257, 128, 8
+    g, nbr, mask = _graph(cuda, N, U, F, 7)
+    q = torch.randn((N, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((U, D), generator=g, device=cuda).to(dtype)
+    full = _scores(kernel, q, k, nbr, mask, heads)
+    for rows in (torch.arange(5, 5 + 37, device=cuda),
+                 torch.randperm(N, generator=g, device=cuda)[:101]):
+        part = _scores(kernel, q[rows], k, nbr[rows], mask[rows], heads)
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[rows])
+
+
+# (N, U, D, F, heads): F = 1 and 32, D = 20 (one-column chunks at
+# dh = 5), D = 96 (24 chunks a row, not a power of two), 32 heads
+EDGE_CASES = [(40, 50, 64, 1, 4), (40, 50, 128, 32, 4), (40, 50, 32, 32, 1),
+              (33, 45, 20, 6, 4), (33, 45, 20, 6, 1), (40, 50, 96, 8, 2),
+              (17, 30, 64, 3, 32)]
+
+
+@pytest.mark.parametrize("N,U,D,F,heads", EDGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_the_edges(cuda, N, U, D, F, heads, dtype):
+    """An all-masked row (0), a fully live row (sums to 1), F = 1 and 32,
+    narrow chunks, and a misaligned view of the same q and k (narrow
+    loads in the same order: bitwise the aligned result)."""
+    g, nbr, mask = _graph(cuda, N, U, F, N + F)
+    mask[1] = True                                   # fully live
+    q = torch.randn((N, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((U, D), generator=g, device=cuda).to(dtype)
+    alpha = kops.gat_attention(q, k, nbr, mask, heads=heads)
+    e = kops.sddmm(q, k, nbr, mask)
+    strict = 5e-7 if dtype == torch.float32 else ATOL[dtype]
+    _close(alpha, ref.gat_attention_ref(q, k, nbr, mask, heads), strict,
+           0 if dtype == torch.float32 else 3e-2)
+    _close(e, ref.sddmm_ref(q, k, nbr, mask), ATOL[dtype] * D ** 0.5)
+    assert bool((alpha[0] == 0).all()) and bool((e[0] == 0).all())
+    assert bool((alpha[~mask] == 0).all()) and bool((e[~mask] == 0).all())
+    _close(alpha[1].sum(0), torch.ones(heads, device=cuda), 1e-5, 0)
+
+    def odd(t):                      # the same values, one element off
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    qo, ko = odd(q), odd(k)
+    assert qo.data_ptr() % 16 and ko.data_ptr() % 16
+    assert torch.equal(kops.gat_attention(qo, ko, nbr, mask, heads=heads),
+                       alpha)
+    assert torch.equal(kops.sddmm(qo, ko, nbr, mask), e)
+
+
+@pytest.mark.parametrize("width", [128, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sddmm_reads_column_slices_in_place(cuda, width, dtype):
+    """A per-head column slice (row-strided; width 129 leaves every row
+    but the first unaligned) gives the bits of its contiguous copy."""
+    N, U, F, dh = 70, 90, 8, 32
+    g, nbr, mask = _graph(cuda, N, U, F, width)
+    qw = torch.randn((N, width), generator=g, device=cuda).to(dtype)
+    kw = torch.randn((U, width), generator=g, device=cuda).to(dtype)
+    before = kops.launch_counts()["sddmm"]
+    for h in range(4):
+        q, k = qw[:, h * dh:(h + 1) * dh], kw[:, h * dh:(h + 1) * dh]
+        assert not q.is_contiguous()
+        got = kops.sddmm(q, k, nbr, mask)
+        assert torch.equal(got, kops.sddmm(q.contiguous(), k.contiguous(),
+                                           nbr, mask))
+    assert kops.launch_counts()["sddmm"] == before + 8
+    with pytest.raises(ValueError, match="unit-stride columns"):
+        kops.sddmm(qw[:, ::2], kw[:, ::2], nbr, mask)
+
+
+def test_attention_wrappers_raise_past_the_kernel_limits(cuda):
+    _, nbr, mask = _graph(cuda, 8, 8, 33, 0)
+    h = torch.randn((8, 96), device=cuda)
+    before = kops.launch_counts()
+    with pytest.raises(ValueError, match="F=33 slots"):
+        kops.gat_attention(h, h, nbr, mask, heads=4)
+    with pytest.raises(ValueError, match="F=33 slots"):
+        kops.sddmm(h, h, nbr, mask)
+    nbr, mask = nbr[:, :8].contiguous(), mask[:, :8].contiguous()
+    with pytest.raises(ValueError, match="heads=3, the kernel takes a "
+                       "power of two"):
+        kops.gat_attention(h, h, nbr, mask, heads=3)
+    wide = torch.randn((8, 8192), device=cuda)
+    with pytest.raises(ValueError, match="more than a block.s 227 KB"):
+        kops.gat_attention(wide, wide, nbr, mask, heads=4)
+    assert kops.launch_counts() == before
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     _, nbr, mask = _graph(cuda, 8, 8, 4, 0)
     h = torch.randn((8, 16), device=cuda)

@@ -232,3 +232,26 @@ def test_build_names_libraries_by_source_hash_and_needs_nvcc(
 def test_default_tiling(D, vec, want):
     from repro_torch.kernels.spmm import default_tiling
     assert default_tiling(D, vec) == want
+
+
+# (F, D, heads, itemsize, softmax, warps a block); a warp's shared memory
+# is 32 / F2 * D + 33 * D / V + 64 (+ max(32, F2 * heads)) words, F2 = F
+# rounded up to a power of two, V = 16 bytes of columns where dh allows
+# it, else 1
+@pytest.mark.parametrize("F,D,heads,itemsize,softmax,want", [
+    (8, 128, 4, 4, True, 8), (8, 32, 1, 4, False, 8),
+    (8, 2048, 4, 4, True, 2), (32, 1024, 1, 2, False, 8),
+    (6, 20, 4, 4, True, 8)])
+def test_attention_block_warps(F, D, heads, itemsize, softmax, want):
+    from repro_torch.kernels.gat_attention import block_warps, warp_words
+    assert block_warps("k", F, D, heads, itemsize, softmax) == want
+    assert want * 4 * warp_words(F, D, heads, itemsize, softmax) <= 232448
+
+
+@pytest.mark.parametrize("F,D,heads,match", [
+    (33, 128, 4, "F=33 slots"), (8, 96, 3, "heads=3"),
+    (8, 128, 64, "heads=64"), (8, 8192, 4, "more than a block.s 227 KB")])
+def test_attention_block_warps_name_the_kernel_limits(F, D, heads, match):
+    from repro_torch.kernels.gat_attention import block_warps
+    with pytest.raises(ValueError, match=match):
+        block_warps("gat_attention", F, D, heads, 4, True)

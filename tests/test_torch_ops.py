@@ -87,6 +87,31 @@ def test_fused_attention_matches_unfused(heads, R, U, D, F):
                                atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("heads", [1, 4])
+def test_cuda_attn_scores_match_ref_on_strided_views(heads):
+    """q and k as column slices of one wider projection (row-strided):
+    CudaExecutor hands each head's slice to sddmm uncopied, and on the
+    CPU its scores equal RefExecutor's at the live slots (the softmax
+    fills the masked ones; sddmm leaves 0 there)."""
+    rng = np.random.default_rng(6)
+    R, U, D, F = 23, 37, 32, 6
+    nbr = rng.integers(0, U, (R, F)).astype(np.int32)
+    mask = rng.random((R, F)) > 0.25
+    io = tops.DenseIO(nbr, mask, device="cpu")
+    proj = torch.from_numpy(
+        rng.standard_normal((U, 3 * D)).astype(np.float32))
+    q, k = proj[:R, :D], proj[:, D:2 * D]
+    assert not q.is_contiguous() and not k.is_contiguous()
+    got = tops.CudaExecutor("cpu").attn_scores(q, k, io, heads)
+    want = tops.RefExecutor("cpu").attn_scores(q.contiguous(),
+                                               k.contiguous(), io, heads)
+    assert got.shape == (R, F, heads)
+    live = torch.from_numpy(mask)
+    np.testing.assert_allclose(got[live].numpy(), want[live].numpy(),
+                               atol=1e-6, rtol=1e-6)
+    assert bool((got[~live] == 0).all())
+
+
 @pytest.mark.parametrize("model", ["gcn", "sage"])
 def test_fused_gather_matches_unfused_bitwise(model):
     rng = np.random.default_rng(4)
