@@ -14,18 +14,24 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    stand-in, N = 1,048,576, fanout 8, D = 128, 4 heads) against its plain
    version on the card: quantized f32 (< 5e-7), random f32 and bf16 at
    the tolerances of tests/test_kernels.py, attention on random f32
-   (< 5e-7); spmm and gather_spmm bitwise across two tilings;
-   gat_attention and sddmm bitwise on row subsets, and sddmm on strided
-   per-head column slices against their contiguous copies.  Times
-   with CUDA events (median of 20 after warm-up): the kernel, the plain
-   version, one PyTorch library call where there is one, and the least
-   time the card could take (bytes over 3.35 TB/s or flops over the
-   f32 peak, whichever is larger, counting what this run's data needs),
-   and each kernel's time over its bound and over its library call.
+   (< 5e-7); spmm and gather_spmm bitwise across tilings and on row
+   subsets, rows with no live slot exactly 0, and their heads-weighted
+   form (GAT's
+   attend: w a strided (R, 8, 4) view) bitwise the four per-head
+   launches; gat_attention and sddmm bitwise on row subsets, and sddmm
+   on strided per-head column slices against their contiguous copies.
+   Times with CUDA events (median of 20 after warm-up): the kernel, the
+   plain version, one PyTorch library call where there is one, and the
+   least time the card could take (bytes over 3.35 TB/s or flops over
+   the f32 peak, whichever is larger, counting what this run's data
+   needs), and each kernel's time over its bound and over its library
+   call.
 3. slice:  ``Session.build(cfg, device="cuda").infer_all()`` for gcn,
    sage and gat (4 heads; fused and unfused attention), each against
    the "ref" executor on the card with the same params (atol 1e-4,
-   rtol 3e-3), with each kernel's launches counted over that run.
+   rtol 3e-3), with each kernel's launches counted over that run; then
+   the warm epoch split into the DenseIO build, ``prepare`` and
+   ``run_model``, and ``run_model`` once more under spans (ms per op).
 4. fused feature prep: ``fused_load_spmm`` through the cuda executor
    against "ref", counting the gather_spmm launches.
 5. flash kernels: ``flash_attention`` at the dense-transformer prefill
@@ -150,6 +156,7 @@ def assert_close(torch, got, want, atol, rtol, what):
 def kernel_phase(torch, kops, lg):
     """Every kernel against its plain version at the main path's shapes;
     returns {name: row of the kernels JSON line, without launches}."""
+    from repro_torch.kernels import ref as kref
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
     nbr = torch.as_tensor(lg.nbr, device=dev)
@@ -175,12 +182,19 @@ def kernel_phase(torch, kops, lg):
     table = torch.randperm(N, generator=gen, device=dev).to(torch.int32)
     rows = {}
 
-    # -- spmm and gather_spmm (one template) ----------------------------
+    # -- spmm and gather_spmm (one kernel) ------------------------------
+    # GAT's attend: alpha (R, F, heads) as the unfused softmax leaves it, a
+    # transposed view the kernel reads in place
+    alpha = torch.rand((R, HEADS, F), generator=gen, device=dev).transpose(
+        1, 2)
     for name in ("spmm", "gather_spmm"):
         fn, plain, mod = kops.KERNELS[name]
         tbl = (table,) if name == "gather_spmm" else ()
+        heads_plain = (kref.gather_spmm_heads_ref if tbl
+                       else kref.spmm_heads_ref)
 
-        def call(h, w, use_plain=False, fn=fn, plain=plain, **kw):
+        def call(h, w, use_plain=False, fn=fn, plain=plain, nbr=nbr,
+                 mask=mask, **kw):
             if use_plain:
                 return plain(h, *tbl, w, nbr, mask)
             return fn(h, *tbl, w, nbr, mask, **kw)
@@ -195,14 +209,37 @@ def kernel_phase(torch, kops, lg):
         hb = h.to(torch.bfloat16)
         assert_close(torch, call(hb, w), call(hb, w, use_plain=True),
                      ATOL["bfloat16"] * F, 3e-2, f"{name} bf16")
-        other = call(h, w, block_rows=2, block_cols=16)
-        check(torch.equal(out, other), f"{name}: tilings (default) and "
-              "(2, 16) differ")
-        # per-head shape of GAT's attend: (N, dh) values, alpha weights
+        for tiling in ((2, 16), (8, 32)):
+            check(torch.equal(out, call(h, w, block_rows=tiling[0],
+                                        block_cols=tiling[1])),
+                  f"{name}: tilings (default) and {tiling} differ")
+        for sub in (torch.arange(0, R, 3, device=dev),
+                    torch.arange(1000, 2000, device=dev)):
+            check(torch.equal(call(h, w[sub], nbr=nbr[sub], mask=mask[sub]),
+                              out[sub]),
+                  f"{name}: a row subset differs from the full launch")
+        check(bool((out[~mask.any(dim=1)] == 0).all()),
+              f"{name}: a row with no live slot is not 0")
+        # GAT's attend: all heads in one launch, bitwise the per-head ones
+        out_h = call(h, alpha)
+        per_head = [call(h[:, k * dh:(k + 1) * dh].contiguous(),
+                         alpha[..., k].contiguous()) for k in range(HEADS)]
+        check(torch.equal(out_h, torch.cat(per_head, dim=1)),
+              f"{name}: heads-weighted launch differs from per-head ones")
+        err_h = assert_close(torch, out_h, heads_plain(h, *tbl, alpha, nbr,
+                                                       mask),
+                             ATOL["float32"] * F, 3e-2, f"{name} heads")
+        # per-head shape of GAT's attend before (D = dh), for continuity
         vh = randn(N, dh)
         assert_close(torch, call(vh, w), call(vh, w, use_plain=True),
                      ATOL["float32"] * F, 3e-2, f"{name} f32 D={dh}")
         ms = time_ms(torch, lambda: call(h, w))
+        ms_heads = time_ms(torch, lambda: call(h, alpha))
+        ms_heads_copies = time_ms(torch, lambda: torch.cat([
+            call(h[:, k * dh:(k + 1) * dh].contiguous(),
+                 alpha[..., k].contiguous()) for k in range(HEADS)], dim=1))
+        plain_ms_heads = time_ms(
+            torch, lambda: heads_plain(h, *tbl, alpha, nbr, mask), reps=5)
         ms_head = time_ms(torch, lambda: call(vh, w))
         plain_ms = time_ms(torch, lambda: call(h, w, use_plain=True))
         # the library yardstick: cuSPARSE through torch.sparse.mm
@@ -215,24 +252,38 @@ def kernel_phase(torch, kops, lg):
         lib_err = max_err(torch, torch.sparse.mm(csr, h), out)
         lib_ms = time_ms(torch, lambda: torch.sparse.mm(csr, h))
         del coo, csr
-        need = R * F * 9 + uniq * D * 4 + R * D * 4      # nbr, w, mask, h, out
+        # every mask byte; nbr and w of the live slots; each distinct
+        # gathered row once; the output
+        need = R * F + nnz * 8 + uniq * D * 4 + R * D * 4
         if tbl:
             need += uniq * 4                             # table entries
         rows[name] = kernel_row(name, mod, err, ms, plain_ms, need,
                                 2 * nnz * D, lib_ms)
         r = rows[name]
-        # GAT's attend runs it per head, at D = dh
+        # all heads in one launch: w is (R, F, heads)
+        need_heads = need + nnz * (HEADS - 1) * 4
+        r.update(ms_heads=ms_heads, plain_ms_heads=plain_ms_heads,
+                 bound_ms_heads=bound(need_heads, 2 * nnz * D)[0],
+                 max_abs_err_heads=err_h,
+                 ms_heads_per_head_copies=ms_heads_copies)
+        # GAT's attend ran it per head before, at D = dh
         need_h = need - (uniq + R) * (D - dh) * 4
         r["ms_per_head"] = ms_head
         r["bound_ms_per_head"] = bound(need_h, 2 * nnz * dh)[0]
         log(f"[kernels] {name}: quantized err {e_q:.1e} (< 5e-7), f32 err "
             f"{err:.3e} (atol {ATOL['float32'] * F:.1e}, rtol 3e-2), bf16 "
-            f"within atol {ATOL['bfloat16'] * F:.2f}, tilings bitwise "
-            f"equal; {ms:.4f} ms (D={dh}: "
-            f"{ms_head:.4f} ms), plain {plain_ms:.4f} ms, torch.sparse.mm "
-            f"{lib_ms:.4f} ms (err {lib_err:.1e}), bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}; D={dh}: "
-            f"{r['bound_ms_per_head']:.4f} ms)")
+            f"within atol {ATOL['bfloat16'] * F:.2f}; tilings and row "
+            f"subsets bitwise equal, rows with no live slot 0; "
+            f"{ms:.4f} ms (D={dh}: {ms_head:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, torch.sparse.mm {lib_ms:.4f} ms (err "
+            f"{lib_err:.1e}), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; D={dh}: {r['bound_ms_per_head']:.4f} ms)")
+        log(f"[kernels] {name} heads-weighted (D={D}, w (R, {F}, {HEADS}) "
+            f"strided): bitwise the {HEADS} per-head launches, err vs plain "
+            f"{err_h:.3e}; {ms_heads:.4f} ms (per-head launches on copied "
+            f"slices + cat {ms_heads_copies:.4f} ms), plain "
+            f"{plain_ms_heads:.4f} ms, bound {r['bound_ms_heads']:.4f} ms")
+    del alpha
 
     # -- gat_attention ----------------------------------------------------
     fn, plain, mod = kops.KERNELS["gat_attention"]
@@ -257,7 +308,10 @@ def kernel_phase(torch, kops, lg):
     # gathers without the softmax (sddmm at the full width)
     ms_bf16 = time_ms(torch, lambda: fn(qb, kb, nbr, mask, heads=HEADS))
     ms_gathers = time_ms(torch, lambda: kops.sddmm(q, k, nbr, mask))
-    need = live_rows * D * 4 + uniq * D * 4 + R * F * 5 + R * F * HEADS * 4
+    # q of rows with a live slot, k's distinct rows, every mask byte, nbr
+    # of the live slots, alpha for every slot
+    need = (live_rows * D * 4 + uniq * D * 4 + R * F + nnz * 4
+            + R * F * HEADS * 4)
     rows["gat_attention"] = kernel_row("gat_attention", mod, err, ms,
                                        plain_ms, need, 2 * nnz * D)
     r = rows["gat_attention"]
@@ -313,7 +367,7 @@ def kernel_phase(torch, kops, lg):
         pattern, q, kt, beta=0.0))
     pairs_n = pairs.numel()
     del keys, pairs, inv, crow, pattern, lib
-    need = live_rows * dh * 4 + uniq * dh * 4 + R * F * 5 + R * F * 4
+    need = live_rows * dh * 4 + uniq * dh * 4 + R * F + nnz * 4 + R * F * 4
     rows["sddmm"] = kernel_row("sddmm", mod, err, ms, plain_ms, need,
                                2 * nnz * dh, lib_ms)
     r = rows["sddmm"]
@@ -326,8 +380,9 @@ def kernel_phase(torch, kops, lg):
         f"slice {ms_strided:.4f} ms")
     for name, r in rows.items():        # recorded, not gated
         log(f"[kernels] {name}: {r['ms'] / r['bound_ms']:.2f}x its bound"
-            + (f" ({r['ms_per_head'] / r['bound_ms_per_head']:.2f}x at "
-               f"D={dh})" if "ms_per_head" in r else "")
+            + (f" ({r['ms_heads'] / r['bound_ms_heads']:.2f}x heads-"
+               f"weighted, {r['ms_per_head'] / r['bound_ms_per_head']:.2f}x "
+               f"at D={dh})" if "ms_per_head" in r else "")
             + (f", {r['ms'] / r['library_ms']:.2f}x its library call"
                if r["library_ms"] else ""))
     torch.cuda.synchronize()
@@ -353,12 +408,13 @@ def subset_equal(torch, fn, full, q, k, nbr, mask, **kw):
 EXPECTED = {
     "gcn": {"spmm": LAYERS},
     "sage": {"spmm": LAYERS},
-    "gat": {"gat_attention": LAYERS, "spmm": LAYERS * HEADS},
-    "gat_unfused": {"sddmm": LAYERS * HEADS, "spmm": LAYERS * HEADS},
+    "gat": {"gat_attention": LAYERS, "spmm": LAYERS},
+    "gat_unfused": {"sddmm": LAYERS * HEADS, "spmm": LAYERS},
 }
 
 
 def slice_phase(torch, kops, launches):
+    from repro_torch import obs
     from repro_torch.api import (DealConfig, ExecutorSpec, GraphSpec,
                                  ModelSpec, Session)
     from repro_torch.core.gnn_models import model_spec
@@ -390,26 +446,56 @@ def slice_phase(torch, kops, launches):
                   and H.device.type == DEVICE,
                   f"{label}: output {tuple(H.shape)} on {H.device}")
             check(bool(torch.isfinite(H).all()), f"{label}: non-finite")
-            # the epoch again, warm, over infer_all's own scope: the
-            # DenseIO build (host-to-device copies) and run_model
+            # the epoch again, warm, over infer_all's own scope, in three
+            # synchronized parts: the DenseIO build (host-to-device copies,
+            # and the host's mean weights where the model reads them),
+            # ex.prepare(X) and run_model
             spec = model_spec(model, s.params)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            ios = [DenseIO.from_layer_graph(lg, s.device)
-                   for lg in s.layer_graphs]
-            run_model(s.executor, spec, ios, s.X)
-            torch.cuda.synchronize()
-            warm = time.perf_counter() - t1
+            parts = {}
+
+            def part(key, fn):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                value = fn()
+                torch.cuda.synchronize()
+                parts[key] = time.perf_counter() - t
+                return value
+
+            def build_ios():
+                ios = [DenseIO.from_layer_graph(lg, s.device)
+                       for lg in s.layer_graphs]
+                if model != "gat":           # gat never reads them
+                    _ = [io.mean_w for io in ios]
+                return ios
+            ios = part("dense_io", build_ios)
+            X = part("prepare", lambda: s.executor.prepare(s.X))
+            part("run_model", lambda: run_model(s.executor, spec, ios, X))
+            warm = sum(parts.values())
+            # once more under spans: run_layer synchronizes each op then
+            tel = obs.Telemetry()
+            prev = obs.install(tel)
+            try:
+                run_model(s.executor, spec, ios, X)
+            finally:
+                obs.install(prev)
+            per_op = {}
+            for span_name, _, dur, _, _ in tel.events:
+                per_op[span_name] = per_op.get(span_name, 0) + dur / 1e6
             H_ref = run_model(RefExecutor(DEVICE), spec, ios, s.X)
             err = assert_close(torch, H, H_ref, 1e-4, 3e-3,
                                f"{label} cuda vs ref")
             log(f"[slice] {label}: N={s.n_nodes} E={s.graph.n_edges} "
                 f"built in {t_build:.1f} s; infer_all {cold:.4f} s "
-                f"(again, warm: {warm:.4f} s); launches "
+                f"(again, warm: {warm:.4f} s = DenseIO build "
+                f"{parts['dense_io']:.4f} + prepare {parts['prepare']:.4f} + "
+                f"run_model {parts['run_model']:.4f}); launches "
                 f"{ {k: v for k, v in counts.items() if v} }; max err vs "
                 f"ref {err:.3e}")
+            log(f"[slice] {label} run_model under spans, ms per op kind "
+                "(each op synchronized): " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in sorted(per_op.items())))
             lg0 = s.layer_graphs[0]
-        del H, H_ref, ios
+        del H, H_ref, ios, X
         torch.cuda.empty_cache()
     return lg0
 
@@ -709,6 +795,8 @@ def main() -> int:
     for name, text in logs.items():      # ptxas: registers, any spills
         regs = [int(line.split("Used ")[1].split()[0])
                 for line in text.splitlines() if "registers" in line]
+        smem = [int(line.split(" bytes smem")[0].split()[-1])
+                for line in text.splitlines() if " bytes smem" in line]
         spills = [line.strip() for line in text.splitlines()
                   if "spill" in line and not line.strip().startswith(
                       "0 bytes stack frame, 0 bytes spill stores, 0 bytes")]
@@ -716,7 +804,8 @@ def main() -> int:
             " in the function")[0] for line in text.splitlines()
             if "Potential Performance Loss" in line]
         log(f"[build] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)}"
-            f" registers; spills: {spills or 'none'}; ptxas performance "
+            f" registers, at most {max(smem, default=0)} bytes of static "
+            f"shared memory; spills: {spills or 'none'}; ptxas performance "
             f"warnings: {slow or 'none'}")
     # the tensor-core flash kernel really is on the tensor cores
     sass = subprocess.run(

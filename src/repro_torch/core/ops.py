@@ -7,9 +7,10 @@ layer graph (Deal §3.4), is declared once per model in
   ``RefExecutor``   ("ref")  the plain PyTorch versions (``kernels.ref``).
   ``CudaExecutor``  ("cuda") the hand-written CUDA kernels, the
                     counterpart of ``repro``'s ``PallasExecutor``: fused
-                    gather+spmm and fused attention switches, per-head
-                    ``attend``.  The kernels mask ragged rows and
-                    columns themselves, so nothing is padded.
+                    gather+spmm and fused attention switches, and
+                    ``attend`` as one spmm over all heads.  The kernels
+                    mask ragged rows and columns themselves, so nothing
+                    is padded.
 
 Every executor lives on one device.  On a CUDA device the kernels run;
 on the CPU the same executor code runs the plain versions (the wrappers
@@ -281,13 +282,10 @@ class CudaExecutor(RefExecutor):
                                   heads=heads)
 
     def attend(self, alpha, v, io: DenseIO, heads: int):
-        """One spmm per head: head h's attention column weighs head h's
-        value columns.  Both are strided slices, copied contiguous."""
-        dh = v.shape[-1] // heads
-        outs = [self.spmm(v[:, h * dh:(h + 1) * dh].contiguous(),
-                          alpha[..., h].contiguous(), io)
-                for h in range(heads)]
-        return torch.cat(outs, dim=-1)
+        """One spmm over all heads: alpha (R, F, heads), read through its
+        strides, weighs each head's block of v's columns (bitwise the
+        per-head launches)."""
+        return self.spmm(v, alpha, io)
 
 
 # ----------------------------------------------------------------------

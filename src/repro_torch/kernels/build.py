@@ -35,8 +35,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # C signatures (restype int: the launch's cudaError_t)
 SIGNATURES = {
-    "spmm": {"deal_spmm": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
-                           _I, _P]},
+    "spmm": {"deal_spmm": [_P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _I, _I,
+                           _I, _I, _I, _I, _P]},
     "gat_attention": {
         "deal_gat_attention": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                                _P],
@@ -119,11 +119,11 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def check_args(what: str, named: dict, dtypes: dict,
-               row_strided=()) -> None:
+               row_strided=(), strided=()) -> None:
     """What a kernel takes: every tensor on the first one's CUDA device,
     contiguous (a name in ``row_strided``: 2-D with unit-stride columns,
-    its rows any stride apart), with a dtype in ``dtypes[name]``.
-    Raises otherwise."""
+    its rows any stride apart; a name in ``strided``: any strides), with
+    a dtype in ``dtypes[name]``.  Raises otherwise."""
     dev = next(iter(named.values())).device
     for name, t in named.items():
         if t.device != dev:
@@ -134,7 +134,7 @@ def check_args(what: str, named: dict, dtypes: dict,
                 raise ValueError(f"{what}: {name} must be 2-D with "
                                  "unit-stride columns, got strides "
                                  f"{t.stride()}")
-        elif not t.is_contiguous():
+        elif name not in strided and not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous (make a "
                              "column slice contiguous first)")
         if t.dtype not in dtypes[name]:

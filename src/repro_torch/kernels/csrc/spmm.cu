@@ -1,164 +1,228 @@
-// Fanout-gather SPMM for Hopper (sm_90a), with an optional fused id table.
+// Fanout-gather SPMM for Hopper (sm_90a), with an optional fused id table
+// and optional per-head weights.
 //
-//   out[i, :] = sum_f  coef(w[i,f] * mask[i,f]) * h[idx(i,f), :]
+//   out[i, c] = sum_f  coef(w[i,f,hd(c)] * mask[i,f]) * h[idx(i,f), c]
 //   idx(i,f)  = nbr[i,f]                 (spmm)
 //             = table[nbr[i,f]]          (gather_spmm)
+//   hd(c)     = c / (D / heads)          (w is (R, F) when heads == 1)
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/spmm.py::spmm and
-// src/repro/kernels/gather_spmm.py::gather_spmm.  Like them it rounds the
-// coefficient w*mask to h's dtype before the f32 sum, multiplies masked
-// slots by their exact 0.0 instead of skipping them, and casts the f32 sum
-// back to h's dtype.
+// src/repro/kernels/gather_spmm.py::gather_spmm.  With heads > 1 one launch
+// computes what GAT's attend ran as one launch per head (repro's
+// PallasExecutor.attend): head k's weights on h's k-th block of D / heads
+// columns, each output element the same sum in the same order.  w is read
+// through its strides (row, slot, head), so a transposed softmax view is
+// not copied.
 //
-// Bound: bytes.  Each edge gathers one row of h (D * 4 bytes in f32) for
-// 2 * D flops, far below the card's ridge point.  Design: a 2-D block of
-// threads, threadIdx.x over 16-byte column vectors of a row (neighbouring
-// threads on neighbouring addresses, so each gathered row is one coalesced
-// read), threadIdx.y over rows.  Each thread keeps its VEC-column sum in f32
-// registers and walks f in order, so every output element is the same sum in
-// the same order whatever the tiling: the output is bitwise identical across
-// (block_rows, block_cols).  Products and sums are rounded separately
-// (__fmul_rn / __fadd_rn, no contraction into FMA), as the TPU kernel's
-// `acc + coef * row` is.  Ragged R and D are masked in the kernel, so callers
-// pad nothing.
+// Numerics, as the TPU kernel's: the coefficient is w * mask in f32,
+// rounded to h's dtype; each output element is an f32 sum over f in order,
+// starting at +0.0, with __fmul_rn / __fadd_rn (no contraction into FMA);
+// the sum is cast back to h's dtype.  A row's result depends on no other
+// row, and on no tiling.
+//
+// Masked slots are skipped, where the TPU kernel adds 0.0 * row.  For a
+// finite row that gives the same bits: 0.0 * row is +0.0 or -0.0, and
+// acc + (+-0.0) == acc for every acc other than -0.0.  The accumulator is
+// never -0.0: it starts at +0.0, and under round-to-nearest a sum is -0.0
+// only when both addends are -0.0 (an exact cancellation gives +0.0, and
+// there is no flush to zero here).  The one difference: a masked slot whose
+// row or weight holds Inf or NaN no longer turns the output into NaN, as
+// the TPU kernel's 0.0 * Inf does.  Masked ids must still be in range.
+//
+// Bound: bytes.  Each live slot gathers one row of h (D * 4 bytes in f32)
+// from a random place for 2 * D flops, about 100x below the ridge point, so
+// tensor cores are of no use.  The bytes that set the time are device
+// memory's: the output (R * D, written once), nbr / mask / w, and the
+// gathered rows that miss L2 (h is 537 MB at the main path's shape, L2 50
+// MB).  Design: a 2-D block, threadIdx.x over a row's 16-byte chunks
+// (neighbouring threads on neighbouring addresses, so a gathered row is one
+// coalesced read), threadIdx.y over rows.  A thread walks its row's slots
+// in f order, loading each slot's nbr, mask and weight together, and
+// gathers h's chunk only for a live slot: a masked slot's row is never
+// read, and a row with no live slot gathers nothing and writes its zeros.
+// The output goes out with streaming (evict-first) stores, and nbr, mask
+// and w are loaded under an evict-first L2 policy, so neither pushes the
+// gathered rows out of L2.  About 30 registers a thread: 64 warps an SM
+// keep the gathers in flight.  Slower on the card (tools/spmm_designs.py
+// times them; PERF.md, findings): a warp serving 32 / F rows with a ballot
+// of the live slots, its live rows copied into shared memory with Hopper's
+// bulk asynchronous copy in a two-stage pipeline, or every live chunk
+// loaded into registers before any sum.  Chunks are 16 bytes (4 f32, 8
+// bf16) where the head width allows it, else one element; rows whose base
+// is not 16-byte aligned take narrow loads of the same chunks.  Every
+// output element is the same sum in the same order whatever the chunk
+// width, the alignment or the tiling, so the output is bitwise the same
+// across all of them.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-// round an f32 to the feature dtype and back (identity for f32)
+constexpr int kMaxThreads = 1024;      // threads a block
+
+struct Args {
+  const void* h;             // (N, D) rows, contiguous
+  const int32_t* table;      // (N,) id map, or null
+  const float* w;            // (R, F[, heads]) read through its strides
+  long long swr, swf, swh;   // w's strides in elements (swh unused at 1 head)
+  const uint8_t* mask;       // (R, F)
+  const int32_t* nbr;        // (R, F)
+  void* out;                 // (R, D), contiguous
+  long long R;
+  int F, D, heads;
+  bool vec;                  // 16-byte loads and stores
+};
+
 __device__ __forceinline__ float round_to(float x, const float*) { return x; }
 __device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void from_f32(float x, float* p) { *p = x; }
+__device__ __forceinline__ void from_f32(float x, __nv_bfloat16* p) {
+  *p = __float2bfloat16_rn(x);
+}
 
-// VEC consecutive elements as f32: one 16-byte load when VEC > 1
-__device__ __forceinline__ void load_vec(const float* p, float (&x)[1]) {
-  x[0] = p[0];
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&x)[1]) {
-  x[0] = __bfloat162float(p[0]);
-}
-__device__ __forceinline__ void load_vec(const float* p, float (&x)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
-                                         float (&x)[8]) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+// V consecutive elements of a row: one 16-byte load where `vec` says the
+// addresses allow it, else V narrow loads of the same elements
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Chunk {
+  T v[V];
+  __device__ __forceinline__ void load(const T* __restrict__ p, bool vec) {
+    if constexpr (sizeof(T) * V == 16) {
+      if (vec) {
+        *reinterpret_cast<uint4*>(v) =
+            __ldg(reinterpret_cast<const uint4*>(p));
+        return;
+      }
+    }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {          // element 2i is the low half
-    x[2 * i] = __uint_as_float(words[i] << 16);
-    x[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
+    for (int j = 0; j < V; ++j) v[j] = __ldg(p + j);
   }
-}
-
-__device__ __forceinline__ void store_vec(float* p, const float (&x)[1]) {
-  p[0] = x[0];
-}
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
-                                          const float (&x)[1]) {
-  p[0] = __float2bfloat16_rn(x[0]);
-}
-__device__ __forceinline__ void store_vec(float* p, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
-                                          const float (&x)[8]) {
-  uint32_t words[4];
+  __device__ __forceinline__ void store(T* p, bool vec) const {
+    if constexpr (sizeof(T) * V == 16) {
+      if (vec) {                         // streaming: evict first
+        __stcs(reinterpret_cast<int4*>(p), *reinterpret_cast<const int4*>(v));
+        return;
+      }
+    }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(x[2 * i]));
-    const uint32_t hi =
-        __bfloat16_as_ushort(__float2bfloat16_rn(x[2 * i + 1]));
-    words[i] = lo | (hi << 16);
+    for (int j = 0; j < V; ++j) p[j] = v[j];
   }
-  *reinterpret_cast<uint4*>(p) =
-      make_uint4(words[0], words[1], words[2], words[3]);
+};
+
+// Loads of what a launch reads once (nbr, mask, w): L2 evicts them first,
+// so the gathered rows of h stay in it longer
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t pol;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol));
+  return pol;
+}
+__device__ __forceinline__ int32_t load_once(const int32_t* p, uint64_t pol) {
+  int32_t x;
+  asm volatile("ld.global.nc.L2::cache_hint.s32 %0, [%1], %2;"
+               : "=r"(x) : "l"(p), "l"(pol));
+  return x;
+}
+__device__ __forceinline__ float load_once(const float* p, uint64_t pol) {
+  float x;
+  asm volatile("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
+               : "=f"(x) : "l"(p), "l"(pol));
+  return x;
+}
+__device__ __forceinline__ bool load_once(const uint8_t* p, uint64_t pol) {
+  unsigned short x;
+  asm volatile("ld.global.nc.L2::cache_hint.u8 %0, [%1], %2;"
+               : "=h"(x) : "l"(p), "l"(pol));
+  return x != 0;
 }
 
-template <typename HT, int VEC>
-__global__ void spmm_kernel(const HT* __restrict__ h,
-                            const int32_t* __restrict__ table,
-                            const float* __restrict__ w,
-                            const uint8_t* __restrict__ mask,
-                            const int32_t* __restrict__ nbr,
-                            HT* __restrict__ out, long long R, int F, int D) {
+// write a chunk's sum as h's dtype
+template <typename T, int V>
+__device__ __forceinline__ void put(const Args& a, long long row, int c,
+                                    const float (&acc)[V]) {
+  Chunk<T, V> y;
+#pragma unroll
+  for (int e = 0; e < V; ++e) from_f32(acc[e], &y.v[e]);
+  y.store(static_cast<T*>(a.out) + row * a.D + c * V, a.vec);
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kMaxThreads)
+spmm_kernel(const Args a) {
   const long long r = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  const int c = (blockIdx.y * blockDim.x + threadIdx.x) * VEC;
-  if (r >= R || c >= D) return;
-  float acc[VEC];
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;     // the chunk
+  const int NC = a.D / V;
+  if (r >= a.R || c >= NC) return;
+  const T* h = static_cast<const T*>(a.h);
+  const long long e0 = r * a.F;
+  const float* wr = a.w + r * a.swr + (long long)(c / (NC / a.heads)) * a.swh;
+  float acc[V];
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
-  const long long e0 = r * F;
-  for (int f = 0; f < F; ++f) {
-    int32_t idx = nbr[e0 + f];
-    if (table != nullptr) idx = table[idx];
-    // (w * mask) in f32, rounded to h's dtype, as spmm.py:76 does
-    const float wm = __fmul_rn(w[e0 + f], mask[e0 + f] ? 1.0f : 0.0f);
-    const float coef = round_to(wm, h);
-    float x[VEC];
-    load_vec(h + (long long)idx * D + c, x);
+  for (int e = 0; e < V; ++e) acc[e] = 0.0f;
+  const uint64_t once = evict_first();
+  for (int f = 0; f < a.F; ++f) {        // nbr, mask and weight together
+    int id = load_once(a.nbr + e0 + f, once);
+    const bool live = load_once(a.mask + e0 + f, once);
+    const float w = load_once(wr + (long long)f * a.swf, once);
+    if (live) {                          // the gather: live slots only
+      if (a.table != nullptr) id = __ldg(a.table + id);
+      Chunk<T, V> x;
+      x.load(h + (long long)id * a.D + c * V, a.vec);
+      const float coef = round_to(w, h);  // w * 1.0: a live slot
 #pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      acc[i] = __fadd_rn(acc[i], __fmul_rn(coef, x[i]));
+      for (int e = 0; e < V; ++e)
+        acc[e] = __fadd_rn(acc[e], __fmul_rn(coef, to_f32(x.v[e])));
+    }
   }
-  store_vec(out + r * D + c, acc);
+  put<T, V>(a, r, c, acc);
 }
 
-template <typename HT, int VEC>
-cudaError_t launch(const void* h, const int32_t* table, const float* w,
-                   const uint8_t* mask, const int32_t* nbr, void* out,
-                   long long R, int F, int D, int block_rows, int block_cols,
-                   cudaStream_t stream) {
-  const long long nvec = D / VEC;
-  const dim3 block(block_cols, block_rows);
-  const dim3 grid((unsigned)((R + block_rows - 1) / block_rows),
-                  (unsigned)((nvec + block_cols - 1) / block_cols));
-  spmm_kernel<HT, VEC><<<grid, block, 0, stream>>>(
-      static_cast<const HT*>(h), table, w, mask, nbr, static_cast<HT*>(out), R,
-      F, D);
+template <typename T, int V>
+cudaError_t go(const Args& a, int block_rows, int block_cols,
+               cudaStream_t s) {
+  const long long nc = a.D / V;
+  const dim3 grid((unsigned)((a.R + block_rows - 1) / block_rows),
+                  (unsigned)((nc + block_cols - 1) / block_cols));
+  spmm_kernel<T, V><<<grid, dim3(block_cols, block_rows), 0, s>>>(a);
   return cudaGetLastError();
 }
 
-template <typename HT>
-cudaError_t launch_vec(const void* h, const int32_t* table, const float* w,
-                       const uint8_t* mask, const int32_t* nbr, void* out,
-                       long long R, int F, int D, int vec, int block_rows,
-                       int block_cols, cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(HT);
-  if (vec == 1)
-    return launch<HT, 1>(h, table, w, mask, nbr, out, R, F, D, block_rows,
-                         block_cols, stream);
-  if (vec == kVec && D % kVec == 0 &&
-      reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
-      reinterpret_cast<uintptr_t>(out) % 16 == 0)
-    return launch<HT, kVec>(h, table, w, mask, nbr, out, R, F, D, block_rows,
-                            block_cols, stream);
-  return cudaErrorInvalidValue;
+template <typename T>
+int launch(Args a, int block_rows, int block_cols, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const bool wide = (a.D / a.heads) % kVec == 0;   // chunks within a head
+  a.vec = wide && reinterpret_cast<uintptr_t>(a.h) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(a.out) % 16 == 0;
+  return wide ? go<T, kVec>(a, block_rows, block_cols, s)
+              : go<T, 1>(a, block_rows, block_cols, s);
 }
 
 }  // namespace
 
-// h_dtype: 0 = float32, 1 = bfloat16; w is float32.  `table` may be null
-// (spmm).  Returns the launch's cudaError_t; launches on `stream`, does not
-// sync.
+// h_dtype: 0 = float32, 1 = bfloat16; w is float32, (R, F) with heads = 1
+// or (R, F, heads), strides (swr, swf, swh) in elements.  `table` may be
+// null (spmm).  block_rows x block_cols threads a block (rows, and chunks
+// of a row), at most 1024.  Returns the launch's cudaError_t; launches on
+// `stream`, does not sync.
 extern "C" int deal_spmm(const void* h, const int32_t* table, const float* w,
+                         long long swr, long long swf, long long swh,
                          const uint8_t* mask, const int32_t* nbr, void* out,
-                         long long R, int F, int D, int h_dtype, int vec,
+                         long long R, int F, int D, int heads, int h_dtype,
                          int block_rows, int block_cols, void* stream) {
   if (R <= 0 || D <= 0) return 0;
-  if (block_rows < 1 || block_cols < 1 || block_rows * block_cols > 1024)
+  if (F < 0 || heads < 1 || D % heads != 0 || block_rows < 1 ||
+      block_cols < 1 || block_rows * block_cols > kMaxThreads)
     return cudaErrorInvalidValue;
+  const Args a{h, table, w, swr, swf, swh, mask, nbr, out, R, F, D, heads,
+               false};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h_dtype == 0)
-    return launch_vec<float>(h, table, w, mask, nbr, out, R, F, D, vec,
-                             block_rows, block_cols, s);
+  if (h_dtype == 0) return launch<float>(a, block_rows, block_cols, s);
   if (h_dtype == 1)
-    return launch_vec<__nv_bfloat16>(h, table, w, mask, nbr, out, R, F, D,
-                                     vec, block_rows, block_cols, s);
+    return launch<__nv_bfloat16>(a, block_rows, block_cols, s);
   return cudaErrorInvalidValue;
 }

@@ -42,6 +42,24 @@ def gather_spmm_ref(h, table, w, nbr, mask):
     return spmm_ref(h, w, idx, mask)
 
 
+def spmm_heads_ref(h, w, nbr, mask):
+    """``spmm_ref`` with w (R, F), or (R, F, heads): head k's weights
+    w[..., k] on h's k-th block of D / heads columns, the blocks
+    concatenated -- what one spmm per head computes in GAT's attend."""
+    if w.dim() == 2:
+        return spmm_ref(h, w, nbr, mask)
+    dh = h.shape[1] // w.shape[2]
+    return torch.cat([spmm_ref(h[:, k * dh:(k + 1) * dh], w[..., k], nbr,
+                               mask) for k in range(w.shape[2])], dim=1)
+
+
+def gather_spmm_heads_ref(h, table, w, nbr, mask):
+    """``gather_spmm_ref`` with w (R, F) or (R, F, heads), as
+    ``spmm_heads_ref``."""
+    idx = table.long()[nbr.reshape(-1).long()].reshape(nbr.shape)
+    return spmm_heads_ref(h, w, idx, mask)
+
+
 def gat_attention_ref(q, k, nbr, mask, heads: int):
     """Per-head scaled dot scores + masked edge softmax over the fanout:
     alpha (R, F, heads) f32, with the same -1e30 fill as

@@ -2,12 +2,14 @@
 
     out[i] = sum_f w[i,f] * mask[i,f] * h[nbr[i,f]]
 
+with w (R, F), or (R, F, heads) weighing each head's block of columns.
 Replaces the Pallas TPU kernel ``src/repro/kernels/spmm.py::spmm``
 (``pallas_call`` at line 78) with the CUDA kernel in ``csrc/spmm.cu``,
 which says what bounds it (bytes) and how it is laid out.  On a CUDA
 tensor the wrapper launches the kernel or raises; on a CPU tensor it
-returns the plain version, ``ref.spmm_ref``.  ``spmm.launches`` counts
-kernel launches.
+returns the plain version, ``ref.spmm_ref`` (``ref.spmm_heads_ref``
+for (R, F, heads) weights: per head, concatenated).  ``spmm.launches``
+counts kernel launches.
 """
 from __future__ import annotations
 
@@ -25,25 +27,33 @@ _DTYPES = {"h": tuple(FLOAT_CODES), "w": (torch.float32,),
 
 
 def check_shapes(h, nbr, mask, w=None):
-    """h is (N, D); nbr and mask are (R, F), and so is w if given."""
+    """h is (N, D); nbr and mask are (R, F); w, if given, is (R, F) or
+    (R, F, heads) with heads dividing D."""
     if h.dim() != 2:
         raise ValueError(f"features must be (N, D), got {tuple(h.shape)}")
     if nbr.dim() != 2 or mask.shape != nbr.shape:
         raise ValueError(f"nbr and mask must both be (R, F); got "
                          f"{tuple(nbr.shape)} and {tuple(mask.shape)}")
-    if w is not None and w.shape != nbr.shape:
-        raise ValueError(f"w must be (R, F) = {tuple(nbr.shape)}; got "
-                         f"{tuple(w.shape)}")
+    if w is None:
+        return
+    if w.dim() not in (2, 3) or w.shape[:2] != nbr.shape:
+        raise ValueError(f"w must be (R, F) = {tuple(nbr.shape)} or (R, F, "
+                         f"heads); got {tuple(w.shape)}")
+    if w.dim() == 3 and (w.shape[2] < 1 or h.shape[1] % w.shape[2]):
+        raise ValueError(f"w has heads={w.shape[2]}, which must divide "
+                         f"D={h.shape[1]}")
 
 
 def default_tiling(D: int, vec: int):
     """(block_rows, block_cols): block_cols threads over a row's
-    vec-wide column vectors (at most a warp), rows filling 256 threads."""
+    vec-wide chunks (at most a warp), rows filling 64 threads -- on the
+    card, at the main path's shapes, 64-thread blocks were a little
+    faster than 256-thread ones (PERF.md)."""
     nvec = -(-D // vec)
     block_cols = 1
     while block_cols < min(nvec, 32):
         block_cols *= 2
-    return 256 // block_cols, block_cols
+    return max(64 // block_cols, 1), block_cols
 
 
 def launch_spmm(what, h, table, w, nbr, mask, block_rows, block_cols):
@@ -52,24 +62,29 @@ def launch_spmm(what, h, table, w, nbr, mask, block_rows, block_cols):
     named = {"h": h, "w": w, "nbr": nbr, "mask": mask}
     if table is not None:
         named["table"] = table
-    build.check_args(what, named, _DTYPES)
+    build.check_args(what, named, _DTYPES, strided=("w",))
     R, F = nbr.shape
     D = h.shape[1]
+    heads = w.shape[2] if w.dim() == 3 else 1
+    vec = 16 // h.element_size()          # 16-byte chunks where a head's
+    if (D // heads) % vec:                # columns allow them, else one
+        vec = 1
+    rows, cols = default_tiling(D, vec)
+    rows, cols = block_rows or rows, block_cols or cols
+    if rows < 1 or cols < 1 or rows * cols > 1024:
+        raise ValueError(f"{what}: tiling ({rows}, {cols}); the kernel "
+                         "takes at most 1024 threads a block")
     out = torch.empty((R, D), dtype=h.dtype, device=h.device)
     if R == 0 or D == 0:
         return out, False
-    vec = 16 // h.element_size()          # 16-byte column vectors ...
-    if D % vec or h.data_ptr() % 16 or out.data_ptr() % 16:
-        vec = 1                           # ... where rows are aligned
-    dr, dc = default_tiling(D, vec)
+    strides = w.stride() if w.dim() == 3 else w.stride() + (0,)
     lib = build.library("spmm")
     with torch.cuda.device(h.device):
         err = lib.deal_spmm(
             h.data_ptr(), None if table is None else table.data_ptr(),
-            w.data_ptr(), mask.data_ptr(), nbr.data_ptr(), out.data_ptr(),
-            R, F, D, FLOAT_CODES[h.dtype], vec,
-            block_rows or dr, block_cols or dc,
-            torch.cuda.current_stream(h.device).cuda_stream)
+            w.data_ptr(), *strides, mask.data_ptr(), nbr.data_ptr(),
+            out.data_ptr(), R, F, D, heads, FLOAT_CODES[h.dtype], rows,
+            cols, torch.cuda.current_stream(h.device).cuda_stream)
     build.check(err, what)
     return out, True
 
@@ -77,13 +92,16 @@ def launch_spmm(what, h, table, w, nbr, mask, block_rows, block_cols):
 def spmm(h, w, nbr, mask, *, block_rows=None, block_cols=None):
     """out[i] = sum_f w[i,f]*mask[i,f]*h[nbr[i,f]].
 
-    h: (N, D) f32/bf16 source rows; w (f32), mask (bool) and nbr
-    (int32) are (R, F), with ids in [0, N).  Returns (R, D) in h's
-    dtype.  ``block_rows``/``block_cols`` set the CUDA tiling (None:
-    the default); the output is bitwise the same for every tiling."""
+    h: (N, D) f32/bf16 source rows; mask (bool) and nbr (int32) are
+    (R, F), with ids in [0, N).  w (f32, any strides) is (R, F), or
+    (R, F, heads): head k's weights on h's k-th block of D / heads
+    columns (GAT's attend, all heads in one launch).  Returns (R, D) in
+    h's dtype.  ``block_rows``/``block_cols`` set the CUDA tiling, rows
+    and chunks of a row a block (None: the default); the output is
+    bitwise the same for every tiling."""
     check_shapes(h, nbr, mask, w)
     if h.device.type == "cpu":
-        return ref.spmm_ref(h, w, nbr, mask)
+        return ref.spmm_heads_ref(h, w, nbr, mask)
     if h.device.type != "cuda":
         raise ValueError(f"spmm: no kernel for device {h.device}")
     out, launched = launch_spmm("spmm", h, None, w, nbr, mask, block_rows,

@@ -41,31 +41,136 @@ def _close(got, want, atol, rtol=3e-2):
                                rtol=rtol)
 
 
-@pytest.mark.parametrize("R,U,D,F", [(16, 16, 128, 4), (23, 37, 20, 6),
-                                     (64, 80, 96, 16), (1000, 900, 7, 8)])
+def _misaligned(t):
+    """The same values one element past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16
+    return view
+
+
+# (R, U, D, F): F = 1, 32 (a warp of slots) and 40 (past it), D = 20 (one-
+# element chunks in bf16) and 7, ragged R
+SPMM_CASES = [(16, 16, 128, 4), (23, 37, 20, 6), (64, 80, 96, 16),
+              (1000, 900, 7, 8), (40, 50, 64, 1), (40, 50, 128, 32),
+              (40, 50, 128, 40)]
+
+
+@pytest.mark.parametrize("R,U,D,F", SPMM_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fused_table", [False, True])
 def test_spmm_kernels_match_plain(cuda, R, U, D, F, dtype, fused_table):
+    """Against the plain version; bitwise the same across tilings and on a
+    misaligned view of h (narrow loads); a row with no live slot (row 0)
+    exactly 0."""
     g, nbr, mask = _graph(cuda, R, U, F, R + D)
     h = torch.randn((U, D), generator=g, device=cuda).to(dtype)
     w = torch.randn((R, F), generator=g, device=cuda)      # always f32
     before = kops.launch_counts()
     if fused_table:
         table = torch.randperm(U, generator=g, device=cuda).to(torch.int32)
-        got = kops.gather_spmm(h, table, w, nbr, mask)
+        fn = lambda hh, **kw: kops.gather_spmm(hh, table, w, nbr, mask, **kw)
         want = ref.gather_spmm_ref(h, table, w, nbr, mask)
-        other = kops.gather_spmm(h, table, w, nbr, mask, block_rows=3,
-                                 block_cols=2)
         name = "gather_spmm"
     else:
-        got = kops.spmm(h, w, nbr, mask)
+        fn = lambda hh, **kw: kops.spmm(hh, w, nbr, mask, **kw)
         want = ref.spmm_ref(h, w, nbr, mask)
-        other = kops.spmm(h, w, nbr, mask, block_rows=3, block_cols=2)
         name = "spmm"
+    got = fn(h)
     assert got.dtype == dtype and got.shape == (R, D)
     _close(got, want, ATOL[dtype] * F)
-    assert torch.equal(got, other)               # tiling-invariant bits
-    assert kops.launch_counts()[name] == before[name] + 2
+    for tiling in ((3, 2), (1, 32), (16, 8)):    # tiling-invariant bits
+        assert torch.equal(fn(h, block_rows=tiling[0],
+                              block_cols=tiling[1]), got)
+    assert torch.equal(fn(_misaligned(h)), got)
+    torch.cuda.synchronize()
+    assert bool((got[0] == 0).all())
+    assert kops.launch_counts()[name] == before[name] + 5
+
+
+@pytest.mark.parametrize("fused_table", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm_row_subset_equals_full_launch_bitwise(cuda, fused_table,
+                                                    dtype):
+    """Delta refresh runs row subsets (every third row, rows 1000 to
+    1999): a row's bits may not depend on which rows share its launch."""
+    R, U, D, F = 2500, 1200, 128, 8
+    g, nbr, mask = _graph(cuda, R, U, F, 11)
+    h = torch.randn((U, D), generator=g, device=cuda).to(dtype)
+    w = torch.randn((R, F, 4), generator=g, device=cuda)
+    table = torch.randperm(U, generator=g, device=cuda).to(torch.int32)
+
+    def run(rows):
+        args = (w[rows], nbr[rows], mask[rows])
+        if fused_table:
+            return kops.gather_spmm(h, table, *args)
+        return kops.spmm(h, *args)
+    full = run(torch.arange(R, device=cuda))
+    for rows in (torch.arange(0, R, 3, device=cuda),
+                 torch.arange(1000, 2000, device=cuda)):
+        part = run(rows)
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[rows])
+
+
+@pytest.mark.parametrize("fused_table", [False, True])
+def test_spmm_masked_slots_do_not_reach_the_output(cuda, fused_table):
+    """Masked slots pointing at a row of large finite values give the bits
+    of the same launch with those ids set to 0: a masked slot's row is
+    never read (the TPU kernel adds 0.0 * row there, the same bits for a
+    finite row)."""
+    R, U, D, F = 300, 200, 128, 8
+    g, nbr, mask = _graph(cuda, R, U, F, 5)
+    h = torch.randn((U + 1, D), generator=g, device=cuda)
+    h[U] = 3e38
+    w = torch.randn((R, F), generator=g, device=cuda)
+    table = torch.arange(U + 1, device=cuda, dtype=torch.int32)
+    big = torch.where(mask, nbr, torch.full_like(nbr, U))
+    zero = torch.where(mask, nbr, torch.zeros_like(nbr))
+    if fused_table:
+        a = kops.gather_spmm(h, table, w, big, mask)
+        b = kops.gather_spmm(h, table, w, zero, mask)
+    else:
+        a, b = kops.spmm(h, w, big, mask), kops.spmm(h, w, zero, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("fused_table", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_heads_weighted_spmm_equals_per_head_launches(cuda, transposed,
+                                                      fused_table, dtype):
+    """GAT's attend in one launch: w (R, F, heads), contiguous or the
+    unfused softmax's transposed view (read in place), gives the bits of
+    one launch per head on copied column slices, as attend ran before."""
+    R, U, D, F, heads = 700, 500, 128, 8, 4
+    g, nbr, mask = _graph(cuda, R, U, F, 3)
+    h = torch.randn((U, D), generator=g, device=cuda).to(dtype)
+    w = torch.rand((R, heads, F), generator=g, device=cuda).transpose(1, 2)
+    if not transposed:
+        w = w.contiguous()
+    assert w.is_contiguous() != transposed
+    table = torch.randperm(U, generator=g, device=cuda).to(torch.int32)
+
+    def run(hh, ww):
+        if fused_table:
+            return kops.gather_spmm(hh, table, ww, nbr, mask)
+        return kops.spmm(hh, ww, nbr, mask)
+    before = kops.launch_counts()
+    got = run(h, w)
+    name = "gather_spmm" if fused_table else "spmm"
+    assert kops.launch_counts()[name] == before[name] + 1
+    dh = D // heads
+    per_head = torch.cat([run(h[:, k * dh:(k + 1) * dh].contiguous(),
+                              w[..., k].contiguous()) for k in range(heads)],
+                         dim=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, per_head)
+    plain = (ref.gather_spmm_heads_ref(h, table, w, nbr, mask) if fused_table
+             else ref.spmm_heads_ref(h, w, nbr, mask))
+    _close(got, plain, ATOL[dtype] * F)
 
 
 def test_spmm_rounds_coefficients_to_h_dtype(cuda):
@@ -221,6 +326,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kops.sddmm(h, h, nbr.cpu(), mask)
     with pytest.raises(TypeError, match="q is"):
         kops.gat_attention(h, h.to(torch.bfloat16), nbr, mask)
+    with pytest.raises(ValueError, match="heads=3, which must divide"):
+        kops.spmm(torch.randn((8, 128), device=cuda),
+                  torch.ones((8, 4, 3), device=cuda), nbr, mask)
 
 
 def test_cuda_session_matches_ref_on_the_card(cuda):
@@ -237,7 +345,7 @@ def test_cuda_session_matches_ref_on_the_card(cuda):
             kops.reset_launch_counts()
             H = s.infer_all()
             assert H.is_cuda and H.shape == (512, 32)
-            assert kops.launch_counts()["spmm"] == 2 * heads
+            assert kops.launch_counts()["spmm"] == 2   # one a layer
             ios = [DenseIO.from_layer_graph(lg, s.device)
                    for lg in s.layer_graphs]
             want = run_model(RefExecutor(), model_spec(model, s.params),

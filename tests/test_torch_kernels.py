@@ -165,6 +165,82 @@ def test_pallas_spmm_rounds_coefficients_to_h_dtype():
     assert (plain.float().numpy() == 2 ** -9).all()
 
 
+# (heads, D, F): heads 1, 2 and 4, D 8 to 128, F 1, 8 and 40 (past a warp)
+HEADS_CASES = [(1, 8, 1), (2, 32, 8), (4, 128, 8), (4, 64, 40), (2, 16, 1),
+               (1, 128, 40)]
+
+
+@pytest.mark.parametrize("heads,D,F", HEADS_CASES)
+@pytest.mark.parametrize("fused_table", [False, True])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_heads_weighted_spmm_matches_pallas_per_head(heads, D, F,
+                                                     fused_table, quantized):
+    """w (R, F, heads): head k's weights on h's k-th block of D / heads
+    columns, as GAT's attend runs it -- equal to the concatenation of
+    JAX's per-head Pallas spmm / gather_spmm (interpret mode, as
+    tests/test_kernels.py runs them): < 5e-7 on the quantized lattice,
+    the sweep tolerance on random f32."""
+    from repro.kernels.gather_spmm import gather_spmm as pallas_gather
+    from repro.kernels.spmm import spmm as pallas_spmm
+    rng = np.random.default_rng(heads * 100 + D + F)
+    R, U = 24, 40
+    draw = _quantized if quantized else (
+        lambda r, s: r.standard_normal(s).astype(np.float32))
+    hj, ht = _pair(draw(rng, (U, D)), "float32")
+    wj, wt = _pair(draw(rng, (R, F, heads)), "float32")
+    tj, tt = _ids(rng.permutation(U))
+    nj, nt = _ids(rng.integers(0, U, (R, F)))
+    mask = rng.random((R, F)) > 0.25
+    mask[0] = False
+    mj, mt = _mask(mask)
+    dh = D // heads
+    cols = [slice(k * dh, (k + 1) * dh) for k in range(heads)]
+    if fused_table:
+        got = ops.gather_spmm(ht, tt, wt, nt, mt)
+        want = [pallas_gather(hj[:, c], tj, wj[..., k], nj, mj, block_d=dh)
+                for k, c in enumerate(cols)]
+    else:
+        got = ops.spmm(ht, wt, nt, mt)
+        want = [pallas_spmm(hj[:, c], wj[..., k], nj, mj, block_d=dh)
+                for k, c in enumerate(cols)]
+    want = np.concatenate([_f32(x) for x in want], axis=1)
+    assert got.shape == (R, D)
+    if quantized:
+        assert np.abs(_f32(got) - want).max() < 5e-7
+    else:
+        np.testing.assert_allclose(_f32(got), want, atol=ATOL["float32"] * F,
+                                   rtol=3e-2)
+    assert (_f32(got)[0] == 0).all()
+
+
+@pytest.mark.parametrize("fused_table", [False, True])
+def test_heads_weighted_spmm_reads_strided_weights(fused_table):
+    """A transposed (R, F, heads) view -- the unfused softmax's layout --
+    gives the bits of its contiguous copy."""
+    rng = np.random.default_rng(9)
+    R, U, D, F, heads = 30, 45, 64, 8, 4
+    h = torch.from_numpy(rng.standard_normal((U, D)).astype(np.float32))
+    table = torch.from_numpy(rng.permutation(U).astype(np.int32))
+    nbr = torch.from_numpy(rng.integers(0, U, (R, F)).astype(np.int32))
+    mask = torch.from_numpy(rng.random((R, F)) > 0.25)
+    w = torch.from_numpy(rng.random((R, heads, F)).astype(
+        np.float32)).transpose(1, 2)
+    assert not w.is_contiguous()
+    run = ((lambda ww: ops.gather_spmm(h, table, ww, nbr, mask))
+           if fused_table else (lambda ww: ops.spmm(h, ww, nbr, mask)))
+    assert torch.equal(run(w), run(w.contiguous()))
+
+
+def test_heads_weighted_spmm_rejects_heads_that_do_not_divide_d():
+    h = torch.zeros(8, 12)
+    nbr = torch.zeros(8, 3, dtype=torch.int32)
+    mask = torch.ones(8, 3, dtype=torch.bool)
+    with pytest.raises(ValueError, match="heads=5, which must divide D=12"):
+        ops.spmm(h, torch.ones(8, 3, 5), nbr, mask)
+    with pytest.raises(ValueError, match="w must be"):
+        ops.spmm(h, torch.ones(8, 2, 4), nbr, mask)
+
+
 def test_gather_spmm_bitwise_vs_materialized():
     """The fused indirection equals spmm over h[table] bit for bit."""
     rng = np.random.default_rng(5)
@@ -226,9 +302,9 @@ def test_build_names_libraries_by_source_hash_and_needs_nvcc(
         build.nvcc()
 
 
-@pytest.mark.parametrize("D,vec,want", [(128, 4, (8, 32)), (32, 4, (32, 8)),
-                                        (20, 4, (32, 8)), (128, 8, (16, 16)),
-                                        (7, 1, (32, 8)), (4096, 4, (8, 32))])
+@pytest.mark.parametrize("D,vec,want", [(128, 4, (2, 32)), (32, 4, (8, 8)),
+                                        (20, 4, (8, 8)), (128, 8, (4, 16)),
+                                        (7, 1, (8, 8)), (4096, 4, (2, 32))])
 def test_default_tiling(D, vec, want):
     from repro_torch.kernels.spmm import default_tiling
     assert default_tiling(D, vec) == want

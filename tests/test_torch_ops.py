@@ -112,6 +112,38 @@ def test_cuda_attn_scores_match_ref_on_strided_views(heads):
     assert bool((got[~live] == 0).all())
 
 
+@pytest.mark.parametrize("heads", [1, 4])
+@pytest.mark.parametrize("fused_table", [False, True])
+def test_attend_is_one_spmm_matching_pallas(monkeypatch, heads, fused_table):
+    """CudaExecutor.attend is one spmm over all heads (alpha (R, F, heads)
+    read in place, no copies, no cat), equal on the CPU to repro's
+    PallasExecutor(use_kernel=True).attend, which runs one Pallas spmm
+    per head in interpret mode."""
+    rng = np.random.default_rng(heads + 2 * fused_table)
+    R, U, D, F = 24, 40, 32, 6
+    nbr = rng.integers(0, U, (R, F)).astype(np.int32)
+    mask = rng.random((R, F)) > 0.25
+    mask[0] = False
+    table = rng.permutation(U).astype(np.int32) if fused_table else None
+    alpha = rng.random((R, F, heads)).astype(np.float32)
+    v = rng.standard_normal((U, D)).astype(np.float32)
+    want = np.asarray(jops.PallasExecutor(use_kernel=True).attend(
+        jnp.asarray(alpha), jnp.asarray(v),
+        jops.DenseIO(nbr, mask, table=table), heads))
+    calls = []
+    for name in ("spmm", "gather_spmm"):
+        fn = getattr(tops.kops, name)
+        monkeypatch.setattr(tops.kops, name,
+                            lambda *a, fn=fn, name=name: calls.append(name)
+                            or fn(*a))
+    tio = tops.DenseIO(nbr, mask, table=table, device="cpu")
+    got = tops.CudaExecutor("cpu").attend(torch.from_numpy(alpha),
+                                          torch.from_numpy(v), tio, heads)
+    assert calls == ["gather_spmm" if fused_table else "spmm"]
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5 * F, rtol=3e-2)
+    assert (got.numpy()[0] == 0).all()
+
+
 @pytest.mark.parametrize("model", ["gcn", "sage"])
 def test_fused_gather_matches_unfused_bitwise(model):
     rng = np.random.default_rng(4)
