@@ -4,7 +4,8 @@ hand-written CUDA kernels against the kernel's plain PyTorch version.
 
     python3 chip_smoke.py
 
-Phases, in order; any failure ends the run with a non-zero exit code:
+Phases (the flash phase runs right after the kernels); any failure ends
+the run with a non-zero exit code:
 
 1. card:   the card's name and power limit; build the kernels with nvcc
    (one process per source, in parallel), print each source's registers,
@@ -20,6 +21,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    attend: w a strided (R, 8, 4) view) bitwise the four per-head
    launches; gat_attention and sddmm bitwise on row subsets, and sddmm
    on strided per-head column slices against their contiguous copies.
+   [gat-wide]: the wide scoring kernel (a warp a row; F > 32 or heads
+   not a power of two) against the same plain versions: gat_attention
+   on the layer graph sampled at fanout 64 (D = 128, 4 heads; quantized
+   f32 < 5e-7, random f32 and bf16 at the tolerances of
+   tests/test_kernels.py) and at fanout 8 with D = 96 and 3 heads, and
+   sddmm at fanout 64 (D = 32 and strided head slices); row subsets
+   bitwise; times beside the live-slot bound and the plain version.
    Times with CUDA events (median of 20 after warm-up): the kernel, the
    plain version, one PyTorch library call where there is one, and the
    least time the card could take (bytes over 3.35 TB/s or flops over
@@ -32,6 +40,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    rtol 3e-3), with each kernel's launches counted over that run; then
    the warm epoch split into the DenseIO build, ``prepare`` and
    ``run_model``, and ``run_model`` once more under spans (ms per op).
+   [serve]: first (before the sessions) whether a row of
+   ``torch.matmul`` keeps its bits as the row count changes, and that
+   the executors' ``gemm_rows`` does.  Then, in the gcn and the fused
+   gat session (4 store shards, tail onboarding), ``Session.serve()``:
+   the full epoch, 64 queries of 256 rows through the engine, one
+   mutation batch (4,096 edge adds, 1,024 edge removes, 1,024 feature
+   updates, 256 node adds) folded by ``refresh()`` (its time split into
+   the DenseIO build, the ops on the card and the rest), then
+   ``full_epoch()``.  Checks: every level of the refreshed store is
+   bitwise a fresh full epoch over the mutated layer graphs and
+   features; the same batch refreshed in chunks of 4,096 rows by a
+   second engine (QoS, one chunk a step) and on a store capped at
+   262,144 rows a level (recompute on a miss) gives the same bytes; the
+   same steps through "ref" on the card agree within atol 1e-4, rtol
+   3e-3; gather_spmm (and gat_attention for gat) launch.
 4. fused feature prep: ``fused_load_spmm`` through the cuda executor
    against "ref", counting the gather_spmm launches.
 5. flash kernels: ``flash_attention`` at the dense-transformer prefill
@@ -84,6 +107,11 @@ BF16_TC_FLOPS_PER_S = 989e12     # H100 SXM, bf16 tensor cores, dense
 LLM_ARCH = "smollm-360m"         # the JAX serving entry points' default
 LLM_B, LLM_S = 4, 2048           # prefill batch and length
 HD128_ARCH, HD128_S = "qwen2.5-14b", 4096   # the bf16 kernel at hd 128
+WIDE_FANOUT = 64                 # benchmarks/bench_accuracy.py's fanout
+SERVE_QUERIES, SERVE_ROWS = 64, 256
+SERVE_BATCH = {"edge_adds": 4096, "edge_removes": 1024,
+               "feature_updates": 1024, "node_adds": 256}
+CHUNK_ROWS, BUDGET_ROWS = 4096, 262144
 DEVICE = "cuda"
 
 
@@ -401,6 +429,135 @@ def subset_equal(torch, fn, full, q, k, nbr, mask, **kw):
     return True
 
 
+def _plain_rows(torch, plain, q, nbr, mask, *args, block=131072, **kw):
+    """``plain`` over row blocks, concatenated: the same rows (the plain
+    versions compute a row from its own inputs) in bounded memory."""
+    return torch.cat([plain(q[i:i + block], *args, nbr[i:i + block],
+                            mask[i:i + block], **kw)
+                      for i in range(0, q.shape[0], block)])
+
+
+def gat_wide_phase(torch, kops, lg, lg64, rows):
+    """The wide scoring kernel (csrc/gat_attention.cu ``wide_kernel``)
+    against the plain versions: gat_attention at fanout 64 (D=128, 4
+    heads) and at fanout 8 with D=96 and 3 heads, sddmm at fanout 64;
+    adds its fields to the gat_attention and sddmm rows."""
+    from repro_torch.kernels import gat_attention as kgat
+    from repro_torch.kernels import ref as kref
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def quant(*shape):
+        return (torch.randint(-32, 32, shape, generator=gen, device=dev)
+                * 2.0 ** -6).float()
+
+    def graph(layer):
+        nbr = torch.as_tensor(layer.nbr, device=dev)
+        mask = torch.as_tensor(layer.mask, device=dev)
+        live = mask.reshape(-1)
+        return (nbr, mask, int(live.sum()),
+                int(torch.unique(nbr.reshape(-1)[live]).numel()),
+                int(mask.any(dim=1).sum()))
+
+    gat_plain = kref.gat_attention_ref
+    cases = [("F=64", graph(lg64), D, HEADS), ("heads=3", graph(lg), 96, 3)]
+    out = {}
+    for tag, (nbr, mask, nnz, uniq, live_rows), width, heads in cases:
+        R, F = nbr.shape
+        check(kgat.kernel_for(F, width, heads, 4, True) == "wide",
+              f"gat_attention {tag}: not the wide kernel's shape")
+        fn = kops.gat_attention
+        w0 = fn.launches_wide
+        q, k = quant(R, width), quant(R, width)
+        e_q = max_err(torch, fn(q, k, nbr, mask, heads=heads),
+                      _plain_rows(torch, gat_plain, q, nbr, mask, k,
+                                  heads=heads))
+        check(e_q < 5e-7, f"gat_attention {tag} quantized f32: max err "
+              f"{e_q:.3e}")
+        q, k = randn(R, width), randn(R, width)
+        got = fn(q, k, nbr, mask, heads=heads)
+        err = assert_close(torch, got, _plain_rows(
+            torch, gat_plain, q, nbr, mask, k, heads=heads),
+            ATOL["float32"], 3e-2, f"gat_attention {tag} f32")
+        check(bool((got[~mask] == 0).all()),
+              f"gat_attention {tag}: masked slot != 0")
+        check(subset_equal(torch, fn, got, q, k, nbr, mask, heads=heads),
+              f"gat_attention {tag}: a row subset differs")
+        qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
+        assert_close(torch, fn(qb, kb, nbr, mask, heads=heads),
+                     _plain_rows(torch, gat_plain, qb, nbr, mask, kb,
+                                 heads=heads), ATOL["bfloat16"], 3e-2,
+                     f"gat_attention {tag} bf16")
+        check(fn.launches_wide > w0, f"gat_attention {tag}: no wide launch")
+        ms = time_ms(torch, lambda: fn(q, k, nbr, mask, heads=heads))
+        plain_ms = time_ms(torch, lambda: _plain_rows(
+            torch, gat_plain, q, nbr, mask, k, heads=heads), reps=3)
+        need = (live_rows * width * 4 + uniq * width * 4 + R * F + nnz * 4
+                + R * F * heads * 4)
+        bms = bound(need, 2 * nnz * width)[0]
+        out[tag] = (err, ms, plain_ms, bms)
+        log(f"[gat-wide] gat_attention {tag} (N={R} F={F} D={width} heads="
+            f"{heads}, {nnz} live slots): quantized err {e_q:.1e} (< 5e-7), "
+            f"f32 err {err:.3e} (atol {ATOL['float32']}, rtol 3e-2), bf16 "
+            f"within atol {ATOL['bfloat16']}; row subsets bitwise; "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({ms / bms:.2f}x)")
+        del q, k, qb, kb, got
+    r = rows["gat_attention"]
+    r.update(max_abs_err_wide=out["F=64"][0], ms_wide=out["F=64"][1],
+             plain_ms_wide=out["F=64"][2], bound_ms_wide=out["F=64"][3],
+             max_abs_err_wide_heads3=out["heads=3"][0],
+             ms_wide_heads3=out["heads=3"][1],
+             plain_ms_wide_heads3=out["heads=3"][2],
+             bound_ms_wide_heads3=out["heads=3"][3])
+
+    # sddmm at fanout 64, per-head width as CudaExecutor passes it
+    nbr, mask, nnz, uniq, live_rows = cases[0][1]
+    R, F = nbr.shape
+    dh = D // HEADS
+    fn, plain = kops.sddmm, kref.sddmm_ref
+    w0 = fn.launches_wide
+    q, k = quant(R, dh), quant(R, dh)
+    e_q = max_err(torch, fn(q, k, nbr, mask),
+                  _plain_rows(torch, plain, q, nbr, mask, k))
+    check(e_q < 5e-7, f"sddmm F=64 quantized f32: max err {e_q:.3e}")
+    q, k = randn(R, dh), randn(R, dh)
+    got = fn(q, k, nbr, mask)
+    err = assert_close(torch, got, _plain_rows(torch, plain, q, nbr, mask,
+                                               k),
+                       ATOL["float32"] * dh ** 0.5, 3e-2, "sddmm F=64 f32")
+    qb, kb = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    assert_close(torch, fn(qb, kb, nbr, mask),
+                 _plain_rows(torch, plain, qb, nbr, mask, kb),
+                 ATOL["bfloat16"] * dh ** 0.5, 3e-2, "sddmm F=64 bf16")
+    check(subset_equal(torch, fn, got, q, k, nbr, mask),
+          "sddmm F=64: a row subset differs")
+    qw, kw = randn(R, D), randn(R, D)
+    for h in range(HEADS):
+        qh, kh = qw[:, h * dh:(h + 1) * dh], kw[:, h * dh:(h + 1) * dh]
+        check(torch.equal(fn(qh, kh, nbr, mask),
+                          fn(qh.contiguous(), kh.contiguous(), nbr, mask)),
+              f"sddmm F=64: head {h}'s strided slice differs from its copy")
+    del qw, kw
+    check(fn.launches_wide > w0, "sddmm F=64: no wide launch")
+    ms = time_ms(torch, lambda: fn(q, k, nbr, mask))
+    plain_ms = time_ms(torch, lambda: _plain_rows(torch, plain, q, nbr,
+                                                  mask, k), reps=3)
+    need = live_rows * dh * 4 + uniq * dh * 4 + R * F + nnz * 4 + R * F * 4
+    bms = bound(need, 2 * nnz * dh)[0]
+    rows["sddmm"].update(max_abs_err_wide=err, ms_wide=ms,
+                         plain_ms_wide=plain_ms, bound_ms_wide=bms)
+    log(f"[gat-wide] sddmm F=64 (D={dh}): quantized err {e_q:.1e} (< 5e-7), "
+        f"f32 err {err:.3e} (atol {ATOL['float32'] * dh ** 0.5:.1e}, rtol "
+        f"3e-2), bf16 within tolerance; row subsets and {HEADS} strided "
+        f"head slices bitwise; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({ms / bms:.2f}x)")
+    torch.cuda.synchronize()
+
+
 # ----------------------------------------------------------------------
 # phase 3: the slice through Session.infer_all
 # ----------------------------------------------------------------------
@@ -413,10 +570,12 @@ EXPECTED = {
 }
 
 
-def slice_phase(torch, kops, launches):
+def slice_phase(torch, kops, launches, wide):
+    """infer_all for each model; the gcn and gat (fused) sessions then
+    run the serving phase (``serve_session``)."""
     from repro_torch import obs
     from repro_torch.api import (DealConfig, ExecutorSpec, GraphSpec,
-                                 ModelSpec, Session)
+                                 ModelSpec, QoSSpec, Session, StoreSpec)
     from repro_torch.core.gnn_models import model_spec
     from repro_torch.core.ops import DenseIO, RefExecutor, run_model
 
@@ -429,13 +588,17 @@ def slice_phase(torch, kops, launches):
             model=ModelSpec(name=model, n_layers=LAYERS, d_feature=D,
                             heads=heads),
             executor=ExecutorSpec(name="cuda",
-                                  options={"fused_attention": fused}))
+                                  options={"fused_attention": fused}),
+            store=StoreSpec(n_shards=4, onboarding="tail"),
+            qos=QoSSpec(staleness_bound=1 << 30))
         t0 = time.perf_counter()
         with Session.build(cfg, device=DEVICE) as s:
             t_build = time.perf_counter() - t0
             kops.reset_launch_counts()
             H = s.infer_all()
             counts = kops.launch_counts()
+            wide["gat_attention"] += kops.gat_attention.launches_wide
+            wide["sddmm"] += kops.sddmm.launches_wide
             cold = s.timings["infer_s"]
             want = {k: EXPECTED[label].get(k, 0) for k in counts}
             check(counts == want, f"{label}: launches {counts}, expected "
@@ -495,7 +658,10 @@ def slice_phase(torch, kops, launches):
                 "(each op synchronized): " + ", ".join(
                     f"{k} {v:.3f}" for k, v in sorted(per_op.items())))
             lg0 = s.layer_graphs[0]
-        del H, H_ref, ios, X
+            del H, H_ref, ios, X
+            torch.cuda.empty_cache()
+            if label in ("gcn", "gat"):
+                serve_session(torch, kops, s, label, launches, wide)
         torch.cuda.empty_cache()
     return lg0
 
@@ -531,6 +697,287 @@ def featprep_phase(torch, kops, lg, launches):
     log(f"[featprep] fused_load_spmm N={N} D={D}: {stats['seconds']:.2f} s "
         f"host+device, launches {counts['gather_spmm']} gather_spmm, max "
         f"err vs ref {err:.3e}")
+
+
+# ----------------------------------------------------------------------
+# phase 3, [serve]: the serving tier through Session.serve
+# ----------------------------------------------------------------------
+
+def gemm_check(torch):
+    """Whether a row of ``torch.matmul`` keeps its bits as the row count
+    M of the call changes (against M = 1,048,576), and that the
+    executors' ``gemm_rows`` does for any M; its time beside one
+    matmul at 1,048,576 rows, with its row count a call and with 4096."""
+    from repro_torch.core import ops as cops
+    from repro_torch.core.ops import GEMM_ROWS, gemm_rows
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    M = 1 << 20
+    X = torch.randn((M, D), generator=gen, device=dev)
+    W = torch.randn((D, D), generator=gen, device=dev)
+    full, blocked = X @ W, gemm_rows(X, W)
+    agree = {}
+    for m in (256, 3000, 4096, 16384, 65536, 524288):
+        idx = torch.randperm(M, generator=gen, device=dev)[:m]
+        agree[m] = bool(torch.equal(X[idx] @ W, full[idx]))
+        check(torch.equal(gemm_rows(X[idx], W), blocked[idx]),
+              f"gemm_rows: rows of an M={m} call differ from M={M}")
+    ms = time_ms(torch, lambda: X @ W)
+    ms_rows = {}
+    try:
+        for rows in (4096, GEMM_ROWS):
+            cops.GEMM_ROWS = rows
+            ms_rows[rows] = time_ms(torch, lambda: gemm_rows(X, W))
+    finally:
+        cops.GEMM_ROWS = GEMM_ROWS
+    log(f"[serve] torch.matmul f32 ({D} x {D}): a row's bits equal "
+        f"M={M}'s at M = " + ", ".join(f"{m}: {v}" for m, v in agree.items())
+        + f"; gemm_rows ({GEMM_ROWS} rows a call) equal at every M; at "
+        f"M={M} one matmul {ms:.4f} ms, gemm_rows " + ", ".join(
+            f"{v:.4f} ms at {r} rows a call" for r, v in ms_rows.items()))
+    del X, full, blocked
+
+
+def _mutations(rng, graph, n):
+    """One seeded mutation batch as log calls: edge adds (those wiring the
+    new nodes included), removals of present edges, feature updates and
+    node adds with features."""
+    import numpy as np
+    k = SERVE_BATCH["node_adds"]
+    new = np.arange(n, n + k)
+    wire_src = np.concatenate([rng.integers(0, n, 2 * k), new])
+    wire_dst = np.concatenate([np.repeat(new, 2), rng.integers(0, n, k)])
+    rest = SERVE_BATCH["edge_adds"] - wire_src.size
+    e = rng.choice(graph.n_edges, SERVE_BATCH["edge_removes"], replace=False)
+    rm_dst = np.searchsorted(graph.indptr, e, side="right") - 1
+    rm_src = graph.indices[e]
+    fid = rng.choice(n, SERVE_BATCH["feature_updates"], replace=False)
+    return [("add_nodes", (k, rng.standard_normal((k, D), np.float32))),
+            ("add_edges", (rng.integers(0, n, rest),
+                           rng.integers(0, n, rest))),
+            ("add_edges", (wire_src, wire_dst)),
+            ("remove_edges", (rm_src, rm_dst)),
+            ("update_features", (fid, rng.standard_normal(
+                (fid.size, D), np.float32)))]
+
+
+def _apply(log, batch):
+    for name, args in batch:
+        getattr(log, name)(*args)
+
+
+def serve_session(torch, kops, s, label, launches, wide):
+    """The serving tier through the open slice-phase Session ``s`` (its
+    world as built: no second graph build); adds the phase's launches
+    to ``launches`` and the wide scoring kernel's to ``wide``."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch import gnnserve as gs
+    from repro_torch import obs
+    from repro_torch.core.ops import DenseIO, RefExecutor
+    from repro_torch.gnnserve import delta as gdelta
+
+    tenant = gs.parse_tenants("t:1:1:0:1")     # due at one pending op
+
+    class TimedIO(DenseIO):
+        """DenseIO that adds its build time (host arrays, copies to the
+        card, and the mean weights where the model reads them) to
+        ``spent``."""
+        spent, mean_w_too = 0.0, True
+
+        def __init__(self, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            super().__init__(*a, **kw)
+            if TimedIO.mean_w_too:
+                _ = self.mean_w
+            torch.cuda.synchronize()
+            TimedIO.spent += time.perf_counter() - t
+
+    model = s.cfg.model.name
+    counts = {k: 0 for k in kops.KERNELS}
+
+    def counted(fn):
+        """Run one step of the serving path with the launch counts
+        set to 0 just before it and added up just after."""
+        kops.reset_launch_counts()
+        value = fn()
+        torch.cuda.synchronize()
+        for k, v in kops.launch_counts().items():
+            counts[k] += v
+        wide["gat_attention"] += kops.gat_attention.launches_wide
+        wide["sddmm"] += kops.sddmm.launches_wide
+        return value
+
+    def span_s(tel, prefix):
+        """Seconds in the spans whose names start with ``prefix``.  An
+        ops.* span synchronizes its op: it holds the op's work on the
+        card and the host reads the op triggers (the mean weights where
+        the DenseIO build did not make them, gat's target rows)."""
+        return sum(dur for name, _, dur, _, _ in tel.events
+                   if name.startswith(prefix)) / 1e9
+
+    n = s.n_nodes
+    rng = np.random.default_rng(0)
+    tel = obs.Telemetry()
+    with obs.use(tel):
+        eng = counted(s.serve)
+    epoch_s, epoch_ops = s.timings["epoch_s"], span_s(tel, "ops.")
+    ids = [rng.integers(0, n, SERVE_ROWS)
+           for _ in range(SERVE_QUERIES)]
+
+    def ask(engine, tenant_name="default"):
+        qs = [gs.Query(uid=i, node_ids=x, tenant=tenant_name)
+              for i, x in enumerate(ids)]
+        for q in qs:
+            engine.submit(q)
+        engine.run()
+        check(all(q.done for q in qs), f"{label}: a query hung")
+        return qs
+
+    t0 = time.perf_counter()
+    qs = counted(lambda: ask(eng))
+    q_s = time.perf_counter() - t0
+    for q in qs:
+        check(np.array_equal(q.out, eng.store.lookup(q.node_ids,
+                                                     -1)),
+              f"{label}: a query's rows differ from the store's")
+    batch = _mutations(rng, s.graph, n)
+    _apply(s.apply_mutations(), batch)
+    TimedIO.spent, TimedIO.mean_w_too = 0.0, model != "gat"
+    gdelta.DenseIO = TimedIO
+    tel = obs.Telemetry()
+    try:
+        with obs.use(tel):
+            t0 = time.perf_counter()
+            stats = counted(s.refresh)
+            refresh_s = time.perf_counter() - t0
+    finally:
+        gdelta.DenseIO = DenseIO
+    dense_s = TimedIO.spent
+    split = {k: span_s(tel, k) for k in ("refresh.resample",
+                                         "refresh.frontier",
+                                         "refresh.layer", "ops.")}
+    st = s.store
+    all_ids = np.arange(st.n_nodes)
+    got = [st.lookup(all_ids, lvl) for lvl in range(st.n_levels)]
+    check(st.n_nodes == n + SERVE_BATCH["node_adds"]
+          and st.n_tail_shards == 1,
+          f"{label}: onboarding left {st.n_nodes} nodes")
+    # 4. a fresh full epoch over the mutated world, same executor
+    oracle = gs.DeltaReinference(
+        copy.deepcopy(s.reinfer.layer_graphs), model, s.params,
+        executor=s.executor).full_levels(got[0])
+    for lvl in range(1, len(got)):
+        check(np.array_equal(got[lvl], oracle[lvl]),
+              f"{label}: level {lvl} of the refreshed store is not "
+              "bitwise a fresh full epoch")
+    del oracle
+
+    def second(executor, **kw):
+        """Another engine over this session's world as built."""
+        ri = gs.DeltaReinference(copy.deepcopy(s.layer_graphs),
+                                 model, s.params, executor=executor)
+        store = gs.store_from_inference(
+            s.X, ri.full_levels(s.X)[1:], n_shards=4,
+            onboarding="tail",
+            budget_rows=kw.pop("budget_rows", None))
+        if store.budget_rows:
+            gs.attach_recompute(store, ri)
+        e = gs.EmbeddingServeEngine(store, ri, s.graph,
+                                    staleness_bound=1 << 30, **kw)
+        _apply(e.mutate(), batch)
+        return e
+
+    # 5. chunked, one chunk a step under QoS
+    def chunked():
+        e = second(s.executor, tenants=tenant,
+                   refresh_chunk_rows=CHUNK_ROWS)
+        t = time.perf_counter()
+        ask(e, "t")
+        return e, time.perf_counter() - t
+    e2, chunk_s = counted(chunked)
+    check(e2.n_refresh_chunks > LAYERS and e2.log.pending == 0,
+          f"{label}: chunked refresh ran {e2.n_refresh_chunks} "
+          "chunks")
+    for lvl in range(len(got)):
+        check(np.array_equal(e2.store.lookup(all_ids, lvl),
+                             got[lvl]),
+              f"{label}: chunked refresh differs at level {lvl}")
+    n_chunks = e2.n_refresh_chunks
+    del e2
+
+    # 6. a store capped at BUDGET_ROWS rows a level
+    def budgeted():
+        e = second(s.executor, budget_rows=BUDGET_ROWS)
+        e.refresh()
+        return e, ask(e), ask(eng)
+    e3, qb, qa = counted(budgeted)
+    for a, b in zip(qa, qb):
+        check(np.array_equal(a.out, b.out),
+              f"{label}: the budgeted store served other bytes")
+    probe = rng.choice(e3.store.n_nodes, min(16384, n), replace=False)
+    for lvl in range(len(got)):
+        check(np.array_equal(counted(lambda: e3.store.lookup(
+            probe, lvl)), got[lvl][probe]),
+            f"{label}: budgeted level {lvl} differs")
+    bst = e3.store.stats()
+    check(bst["n_recomputes"] > 0 and bst["n_evictions"] > 0,
+          f"{label}: no recompute on the budgeted store")
+    del e3
+
+    # 7. the same steps through "ref" on the card
+    e4 = second(RefExecutor(DEVICE))
+    e4.refresh()
+    err = 0.0
+    for lvl in range(1, len(got)):
+        ref_rows = e4.store.lookup(all_ids, lvl)
+        err = max(err, assert_close(
+            torch, torch.from_numpy(got[lvl]),
+            torch.from_numpy(ref_rows), 1e-4, 3e-3,
+            f"{label} serve level {lvl} cuda vs ref"))
+    del e4, ref_rows
+
+    # 8. fold the tail back in
+    t0 = time.perf_counter()
+    fold = counted(s.full_epoch)
+    fold_s = time.perf_counter() - t0
+    check(s.store.n_tail_shards == 0, f"{label}: tail not folded")
+    for lvl in range(len(got)):
+        check(np.array_equal(s.store.lookup(all_ids, lvl),
+                             got[lvl]),
+              f"{label}: full_epoch changed level {lvl}")
+    del got
+    check(counts["gather_spmm"] > 0, f"{label}: no gather_spmm launch")
+    if model == "gat":
+        check(counts["gat_attention"] > 0,
+              f"{label}: no gat_attention launch")
+    for k, v in counts.items():
+        launches[k] += v
+    layers = split["refresh.layer"]
+    prologue = (refresh_s - layers - split["refresh.resample"]
+                - split["refresh.frontier"])
+    log(f"[serve] {label}: N={n}, full epoch {epoch_s:.3f} s (layer ops "
+        f"{epoch_ops:.3f} s of it); {SERVE_QUERIES} queries x {SERVE_ROWS} "
+        f"rows in {q_s:.3f} s; mutations {SERVE_BATCH}: frontier rows per "
+        f"layer {stats['frontier_sizes']}; refresh {refresh_s:.3f} s = "
+        f"resample {split['refresh.resample']:.3f} + frontier "
+        f"{split['refresh.frontier']:.3f} + layers {layers:.3f} (DenseIO "
+        f"build {dense_s:.3f}, layer ops {split['ops.']:.3f}, the rest "
+        f"{layers - dense_s - split['ops.']:.3f}: store reads and writes, "
+        f"copies) + the rest {prologue:.3f} (graph splice, onboarding, "
+        "commit); fresh full epoch bitwise equal")
+    log(f"[serve] {label}: chunked ({CHUNK_ROWS} rows, {n_chunks} chunks, "
+        f"{chunk_s:.3f} s for the chunks and the queries) bitwise equal; "
+        f"budget {BUDGET_ROWS} rows a level: {bst['n_recomputes']} "
+        f"recomputes of {bst['rows_recomputed']} rows, "
+        f"{bst['n_evictions']} evictions, same bytes; \"cuda\" vs \"ref\" "
+        f"max err {err:.3e} (atol 1e-4, rtol 3e-3); full_epoch "
+        f"{fold_s:.3f} s over {n + SERVE_BATCH['node_adds']} nodes "
+        f"(version {fold['version']}); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
 
 
 # ----------------------------------------------------------------------
@@ -822,16 +1269,21 @@ def main() -> int:
                                    scale=N_NODES_SCALE)
     g, _ = csr_from_edges_distributed(src_e, dst_e, n)
     lg = sample_layer_graphs(g, FANOUT, 1, seed=0)[0]
+    lg64 = sample_layer_graphs(g, WIDE_FANOUT, 1, seed=0)[0]
     log(f"[kernels] layer graph of {n} nodes, {g.n_edges} edges in "
         f"{time.perf_counter() - t0:.1f} s")
     rows = kernel_phase(torch, kops, lg)
-    del src_e, dst_e, g
+    torch.cuda.empty_cache()
+    gat_wide_phase(torch, kops, lg, lg64, rows)
+    del src_e, dst_e, g, lg64
     torch.cuda.empty_cache()
     rows["flash_attention"] = flash_phase(torch, kops)
     torch.cuda.empty_cache()
 
     launches = {name: 0 for name in kops.KERNELS}
-    lg0 = slice_phase(torch, kops, launches)
+    wide = {"gat_attention": 0, "sddmm": 0}
+    gemm_check(torch)
+    lg0 = slice_phase(torch, kops, launches, wide)
     featprep_phase(torch, kops, lg0, launches)
     del lg0
     torch.cuda.empty_cache()
@@ -841,6 +1293,8 @@ def main() -> int:
         rows[name]["launches"] = v
     check(n_tc > 0, "flash_attention_sm90: never launched on the main path")
     rows["flash_attention"]["launches_bf16"] = n_tc
+    for name, v in wide.items():     # the main path's shapes are narrow
+        rows[name]["launches_wide"] = v
     log(f"[done] launches on the main path: {launches} ({n_tc} flash on "
         "the tensor cores); "
         f"{time.perf_counter() - t_start:.1f} s in all")

@@ -6,10 +6,12 @@ JSON round-trip, so a config written for the JAX package (for example
 the same bytes.  ``validate()`` checks names against the port's own
 registries (``api.registry``).
 
-The port runs the offline pipeline (graph, model, executor sections).
-The serving sections (store, qos, refresh, cluster) are carried for the
-round-trip and type-checked; the slices that port serving validate
-their values.
+The port runs the offline pipeline (graph, model, executor sections)
+and the single-process serving tier (store, qos, refresh), and validates
+every section as the JAX package does.  The multi-process cluster tier
+(``cluster.n_shards > 0``) and the telemetry endpoint and snapshots
+(``telemetry.http_port``, ``telemetry.snapshot_path``) validate here but
+raise ``NotImplementedError`` at ``Session.serve()``.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from repro_torch.api import registry as _reg
 
 # executors of the JAX package that the port does not have yet
 _NOT_PORTED = {"pallas": "its kernels are the port's \"cuda\" executor",
-               "dist": "the distributed executor is not ported yet"}
+               "dist": "the distributed executor is not ported yet, "
+                       "ROADMAP Queue 1 item 5"}
 
 
 class ConfigError(ValueError):
@@ -30,9 +33,11 @@ class ConfigError(ValueError):
 
 def _load_builtin_plugins() -> None:
     """Importing the defining modules registers the built-in executors
-    (``core.ops``) and models (``core.gnn_models``)."""
+    (``core.ops``), models (``core.gnn_models``) and store policies
+    (``gnnserve.store``)."""
     import repro_torch.core.gnn_models   # noqa: F401
     import repro_torch.core.ops          # noqa: F401
+    import repro_torch.gnnserve.store    # noqa: F401
 
 
 # ----------------------------------------------------------------------
@@ -109,27 +114,44 @@ class ExecutorSpec:
 
 @dataclasses.dataclass
 class StoreSpec:
-    """The versioned embedding store (serving; carried, not run)."""
+    """The versioned embedding store: sharding, memory budget, and
+    incremental node onboarding."""
     n_shards: int = 4
-    budget_rows: int = 0
-    evict_policy: str = "heat"
-    admission: str = "probation"
-    onboarding: str = "none"
+    budget_rows: int = 0            # 0 = unbudgeted; else rows per level
+    evict_policy: str = "heat"      # a registered eviction policy
+    admission: str = "probation"    # a registered admission policy
+    onboarding: str = "none"        # "tail": node adds append a tail
+    #                                 partition served via delta refresh
 
 
 @dataclasses.dataclass
 class QoSSpec:
-    """Serving batching geometry and tenants (carried, not run)."""
+    """The engine's batching geometry plus the optional multi-tenant
+    schedule (empty ``tenants`` = one implicit tenant at
+    ``staleness_bound``)."""
     staleness_bound: int = 64
     batch_slots: int = 4
     rows_per_step: int = 256
     refresh_charge: float = 1.0
     tenants: Tuple[Dict[str, Any], ...] = ()
 
+    def tenant_registry(self):
+        """The runtime ``gnnserve.qos.TenantRegistry`` (None when no
+        tenants are declared)."""
+        if not self.tenants:
+            return None
+        from repro_torch.gnnserve.qos import TenantRegistry, TenantSpec
+        return TenantRegistry([TenantSpec(**dict(t)) for t in self.tenants])
+
 
 @dataclasses.dataclass
 class RefreshSpec:
-    """Delta re-inference knobs (carried, not run)."""
+    """Delta re-inference knobs: the content-addressed resample seed,
+    the dist executor's frontier-size cutover (carried; the port has no
+    dist executor yet), and ``chunk_rows``: the delta frontier splits
+    into chunks of this many rows that the engine interleaves with
+    tenant gathers, one a serve step (0 = the whole refresh inline).
+    Any value serves the bits of the inline refresh."""
     sample_seed: int = 0
     dist_local_cutover: int = 0
     chunk_rows: int = 0
@@ -162,7 +184,9 @@ class TelemetrySpec:
 
 @dataclasses.dataclass
 class ClusterSpec:
-    """Multi-process serving tier (carried, not run)."""
+    """Multi-process serving tier: validated and carried; ``n_shards >
+    0`` raises ``NotImplementedError`` at ``Session.serve()`` (ROADMAP
+    Queue 1 item 8)."""
     n_shards: int = 0
     host: str = "127.0.0.1"
     ports: Tuple[int, ...] = ()
@@ -171,6 +195,26 @@ class ClusterSpec:
     ready_timeout_s: float = 120.0
     hang_timeout_s: float = 60.0
     overrides: Tuple[Dict[str, Any], ...] = ()
+
+
+_OVERRIDE_FIELDS = ("shard", "budget_rows", "evict_policy", "admission",
+                    "staleness_bound", "batch_slots", "rows_per_step")
+
+_TENANT_FIELDS = ("name", "priority", "slot_quota", "rate", "staleness_slo")
+
+
+def tenants_from_string(text: str) -> Tuple[Dict[str, Any], ...]:
+    """The CLI ``--tenants`` format ("name:priority:quota:rate:slo,...")
+    as config-tree tenant dicts, through ``gnnserve.qos.parse_tenants``;
+    every problem is re-raised as ``ConfigError``."""
+    from repro_torch.gnnserve.qos import parse_tenants
+    try:
+        reg = parse_tenants(text)
+    except (ValueError, AssertionError) as exc:
+        raise ConfigError(f"qos.tenants: {exc}") from None
+    return tuple({"name": t.name, "priority": t.priority,
+                  "slot_quota": t.slot_quota, "rate": t.rate,
+                  "staleness_slo": t.staleness_slo} for t in reg)
 
 
 # ----------------------------------------------------------------------
@@ -311,6 +355,7 @@ class DealConfig:
                               + "\n  - ".join(type_errors))
         e: List[str] = []
         g, m, pt, ex = self.graph, self.model, self.partition, self.executor
+        st, q, r = self.store, self.qos, self.refresh
 
         known = dataset_names() + ["rmat"]
         if g.dataset not in known:
@@ -362,10 +407,160 @@ class DealConfig:
             e.append("executor.block_table: the port has no tuned block "
                      f"table yet; must be null, got {ex.block_table!r}")
 
+        if st.n_shards < 1:
+            e.append(f"store.n_shards: must be >= 1, got {st.n_shards}")
+        if st.budget_rows < 0:
+            e.append(f"store.budget_rows: must be >= 0 (0 = unbudgeted), "
+                     f"got {st.budget_rows}")
+        if st.evict_policy not in _reg.EVICT_POLICIES:
+            e.append(f"store.evict_policy: unknown policy "
+                     f"{st.evict_policy!r}; registered: "
+                     + ", ".join(_reg.EVICT_POLICIES.names()))
+        if st.admission not in _reg.ADMISSIONS:
+            e.append(f"store.admission: unknown policy {st.admission!r}; "
+                     f"registered: {', '.join(_reg.ADMISSIONS.names())}")
+        if st.onboarding not in ("none", "tail"):
+            e.append(f"store.onboarding: must be \"none\" or \"tail\", "
+                     f"got {st.onboarding!r}")
+
+        if q.staleness_bound < 1:
+            e.append(f"qos.staleness_bound: must be >= 1, got "
+                     f"{q.staleness_bound}")
+        if q.batch_slots < 1:
+            e.append(f"qos.batch_slots: must be >= 1, got {q.batch_slots}")
+        if q.rows_per_step < 1:
+            e.append(f"qos.rows_per_step: must be >= 1, got "
+                     f"{q.rows_per_step}")
+        seen = set()
+        _num = (int, float)
+        tenant_types = {"name": (str, "str"), "priority": (_num, "number"),
+                        "slot_quota": (int, "int"), "rate": (_num, "number"),
+                        "staleness_slo": (int, "int")}
+        for i, t in enumerate(q.tenants):
+            path = f"qos.tenants[{i}]"
+            if not isinstance(t, dict):
+                e.append(f"{path}: must be a dict with fields "
+                         + ", ".join(_TENANT_FIELDS))
+                continue
+            bad_types = False
+            for k, v in t.items():
+                if k not in _TENANT_FIELDS:
+                    e.append(f"{path}.{k}: unknown tenant field; valid: "
+                             + ", ".join(_TENANT_FIELDS))
+                elif (not isinstance(v, tenant_types[k][0])
+                      or isinstance(v, bool)):
+                    e.append(f"{path}.{k}: expected {tenant_types[k][1]},"
+                             f" got {type(v).__name__} ({v!r})")
+                    bad_types = True
+            if bad_types:
+                continue            # value checks assume sane types
+            name = t.get("name", "")
+            if not name:
+                e.append(f"{path}.name: required and non-empty")
+            elif name in seen:
+                e.append(f"{path}.name: duplicate tenant {name!r}")
+            seen.add(name)
+            if t.get("priority", 1.0) <= 0:
+                e.append(f"{path}.priority: must be > 0, got "
+                         f"{t.get('priority')}")
+            if t.get("slot_quota", 1) < 0:
+                e.append(f"{path}.slot_quota: must be >= 0, got "
+                         f"{t.get('slot_quota')}")
+            if t.get("staleness_slo", 64) < 1:
+                e.append(f"{path}.staleness_slo: must be >= 1, got "
+                         f"{t.get('staleness_slo')}")
+        # (refresh.sample_seed's type is covered by the type pass above)
+        if r.dist_local_cutover < 0:
+            e.append(f"refresh.dist_local_cutover: must be >= 0 "
+                     f"(0 = never cut over), got {r.dist_local_cutover}")
+        if r.chunk_rows < 0:
+            e.append(f"refresh.chunk_rows: must be >= 0 "
+                     f"(0 = inline refresh), got {r.chunk_rows}")
         tel = self.telemetry
+        if tel.capacity < 1:
+            e.append(f"telemetry.capacity: must be >= 1, got "
+                     f"{tel.capacity}")
         if tel.clock not in ("monotonic", "fake"):
             e.append(f"telemetry.clock: must be \"monotonic\" or "
                      f"\"fake\", got {tel.clock!r}")
+        if not -1 <= tel.http_port <= 65535:
+            e.append(f"telemetry.http_port: must be -1 (off), 0 "
+                     f"(ephemeral) or a valid port, got {tel.http_port}")
+        if tel.snapshot_every_s <= 0:
+            e.append(f"telemetry.snapshot_every_s: must be > 0, got "
+                     f"{tel.snapshot_every_s}")
+        if tel.health_window < 2:
+            e.append(f"telemetry.health_window: must be >= 2, got "
+                     f"{tel.health_window}")
+        if not 0 < tel.slo_error_budget <= 1:
+            e.append(f"telemetry.slo_error_budget: must be in (0, 1], "
+                     f"got {tel.slo_error_budget}")
+        if tel.burn_threshold <= 0:
+            e.append(f"telemetry.burn_threshold: must be > 0, got "
+                     f"{tel.burn_threshold}")
+        if tel.wait_slo_ms < 0:
+            e.append(f"telemetry.wait_slo_ms: must be >= 0 (0 = wait "
+                     f"detector off), got {tel.wait_slo_ms}")
+
+        cl = self.cluster
+        if cl.n_shards < 0:
+            e.append(f"cluster.n_shards: must be >= 0 (0 = single-"
+                     f"process serving), got {cl.n_shards}")
+        if cl.ports and len(cl.ports) != cl.n_shards:
+            e.append(f"cluster.ports: need one port per shard "
+                     f"({cl.n_shards}) or none (ephemeral), got "
+                     f"{len(cl.ports)}")
+        for i, p in enumerate(cl.ports):
+            if not (isinstance(p, int) and not isinstance(p, bool)
+                    and 1 <= p <= 65535):
+                e.append(f"cluster.ports[{i}]: must be a valid port, "
+                         f"got {p!r}")
+        if not -1 <= cl.http_port <= 65535:
+            e.append(f"cluster.http_port: must be -1 (off), 0 "
+                     f"(ephemeral) or a valid port, got {cl.http_port}")
+        if cl.ready_timeout_s <= 0:
+            e.append(f"cluster.ready_timeout_s: must be > 0, got "
+                     f"{cl.ready_timeout_s}")
+        if cl.hang_timeout_s <= 0:
+            e.append(f"cluster.hang_timeout_s: must be > 0, got "
+                     f"{cl.hang_timeout_s}")
+        for i, ov in enumerate(cl.overrides):
+            path = f"cluster.overrides[{i}]"
+            if not isinstance(ov, dict):
+                e.append(f"{path}: must be a dict with fields "
+                         + ", ".join(_OVERRIDE_FIELDS))
+                continue
+            for k in ov:
+                if k not in _OVERRIDE_FIELDS:
+                    e.append(f"{path}.{k}: unknown override field; "
+                             f"valid: " + ", ".join(_OVERRIDE_FIELDS))
+            shard = ov.get("shard")
+            if not (isinstance(shard, int) and not isinstance(shard, bool)
+                    and 0 <= shard < max(cl.n_shards, 1)):
+                e.append(f"{path}.shard: must be a shard index in "
+                         f"[0, {cl.n_shards}), got {shard!r}")
+            ev = ov.get("evict_policy")
+            if ev is not None and ev not in _reg.EVICT_POLICIES:
+                e.append(f"{path}.evict_policy: unknown policy {ev!r}; "
+                         f"registered: "
+                         + ", ".join(_reg.EVICT_POLICIES.names()))
+            adm = ov.get("admission")
+            if adm is not None and adm not in _reg.ADMISSIONS:
+                e.append(f"{path}.admission: unknown policy {adm!r}; "
+                         f"registered: "
+                         + ", ".join(_reg.ADMISSIONS.names()))
+            for k in ("budget_rows",):
+                if k in ov and (not isinstance(ov[k], int)
+                                or isinstance(ov[k], bool)
+                                or ov[k] < 0):
+                    e.append(f"{path}.{k}: must be an int >= 0, got "
+                             f"{ov[k]!r}")
+            for k in ("staleness_bound", "batch_slots", "rows_per_step"):
+                if k in ov and (not isinstance(ov[k], int)
+                                or isinstance(ov[k], bool)
+                                or ov[k] < 1):
+                    e.append(f"{path}.{k}: must be an int >= 1, got "
+                             f"{ov[k]!r}")
 
         if e:
             raise ConfigError("invalid DealConfig:\n  - "

@@ -1,9 +1,12 @@
-"""String-keyed plugin registries of the port (``EXECUTORS``, ``MODELS``).
+"""String-keyed plugin registries of the port: ``EXECUTORS``,
+``MODELS``, ``EVICT_POLICIES`` (store victim selection) and
+``ADMISSIONS`` (store heat admission).
 
 A copy of ``repro.api.registry.Registry``.  The port's registries are
 its own: nothing here registers into ``repro``'s, so the two packages
 can live in one process.  Built-in entries register where they are
-defined (``core.ops``, ``core.gnn_models``); this module stays a leaf.
+defined (``core.ops``, ``core.gnn_models``, ``gnnserve.store``); this
+module stays a leaf.
 """
 from __future__ import annotations
 
@@ -59,6 +62,8 @@ class Registry:
 
 EXECUTORS = Registry("executor")
 MODELS = Registry("model")
+EVICT_POLICIES = Registry("evict_policy")
+ADMISSIONS = Registry("admission")
 
 
 def register_executor(name: str, factory: Optional[Callable] = None, **kw):
@@ -71,3 +76,18 @@ def register_model(name: str, plugin: Optional[Any] = None, **kw):
     """Register a model plugin: an object with ``init(gen, dims, heads)
     -> params`` and ``spec(params) -> core.gnn_models.ModelSpec``."""
     return MODELS.register(name, plugin, **kw)
+
+
+def register_evict_policy(name: str, policy: Optional[Callable] = None,
+                          **kw):
+    """Register a store eviction policy ``policy(store, level) ->
+    key_fn(shard) -> sortable``: the shard minimizing the key is
+    evicted first when the level is over budget."""
+    return EVICT_POLICIES.register(name, policy, **kw)
+
+
+def register_admission(name: str, policy: Optional[Callable] = None, **kw):
+    """Register a store admission policy ``policy(local_ids, admitted)
+    -> heat weight``: how much heat a gather adds to a shard
+    (``admitted`` is the recompute-admitted subset, or None)."""
+    return ADMISSIONS.register(name, policy, **kw)

@@ -1,8 +1,13 @@
-"""``Session`` — the port's lifecycle object over the offline pipeline.
+"""``Session`` — the port's lifecycle object over the offline pipeline
+and the single-process serving tier.
 
     cfg = DealConfig.load("cfg.json")
     with Session.build(cfg) as s:              # device="cuda" by default
         H = s.infer_all()                      # (N, d) tensor on the card
+        eng = s.serve()                        # store + serving engine
+        s.apply_mutations().add_edges(src, dst)
+        s.refresh()                            # delta re-inference
+        print(s.stats())
 
 ``build`` runs the same stages as ``repro.api.session.Session``: dataset
 -> distributed CSR construction -> layer-wise sampling -> features and
@@ -11,10 +16,21 @@ in the JAX package, so X is identical in both.  The params come from a
 ``torch.Generator`` seeded with the graph seed, or from ``params=``
 (for example ``core.gnn_models.params_from_numpy`` of the JAX package's
 params, which is how the two packages are held against each other).
-Serving (``serve``, ``refresh``, ...) is not ported yet.
+
+``serve`` adds the online half as ``repro.api.session.Session`` does:
+full epoch (``DeltaReinference.full_levels``, through the bound
+executor) -> versioned store (budget / eviction / tail onboarding) ->
+recompute-on-miss wiring -> continuous-batching engine with optional
+multi-tenant QoS.  The store lives in host memory; each layer of a
+refresh copies its rows' inputs to the device and the outputs back.
+Not ported yet: the cluster tier (``cluster.n_shards > 0``, ROADMAP
+Queue 1 item 8) and the telemetry exporters and endpoint
+(``dump_trace``, ``prometheus_text``, ``telemetry.http_port`` /
+``snapshot_path``, item 7); each raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import copy
 import time
 from typing import Any, Dict, Optional
 
@@ -27,8 +43,9 @@ from repro_torch.api.registry import MODELS
 
 
 class Session:
-    """Build once from a validated ``DealConfig`` on one device; run the
-    all-node epoch with ``infer_all``; tear down with ``close``."""
+    """Build once from a validated ``DealConfig`` on one device; drive
+    offline inference (``infer_all``) and/or online serving (``serve``);
+    tear down with ``close``."""
 
     def __init__(self, cfg: DealConfig, device="cuda",
                  params: Optional[Dict[str, Any]] = None):
@@ -42,6 +59,8 @@ class Session:
                                 if self.telemetry is not None else None)
         self._build_pipeline(params)
         self._H: Optional[torch.Tensor] = None
+        self._engine = None
+        self.reinfer = None
 
     @classmethod
     def build(cls, cfg: DealConfig, device="cuda",
@@ -130,19 +149,203 @@ class Session:
         self._H = H
         return H
 
+    # -- online: store + serving engine ---------------------------------
+    def serve(self):
+        """Stand up (once) and return the serving engine: full epoch ->
+        versioned store (budget / eviction / tail onboarding) ->
+        ``EmbeddingServeEngine`` with the config's QoS schedule."""
+        self._check_open()
+        if self._engine is not None:
+            return self._engine
+        cfg = self.cfg
+        self._check_servable()
+        from repro_torch.gnnserve import (DeltaReinference, attach_recompute,
+                                          store_from_inference)
+        st = cfg.store
+        self.reinfer = DeltaReinference(
+            [copy.deepcopy(lg) for lg in self.layer_graphs],
+            cfg.model.name, self.params,
+            sample_seed=cfg.refresh.sample_seed, executor=self.executor,
+            local_cutover=cfg.refresh.dist_local_cutover)
+        t0 = time.perf_counter()
+        with obs.span("serve.epoch") as sp:
+            levels = self.reinfer.full_levels(self.X)
+            if sp:
+                sp.set(n_levels=len(levels))
+        self.timings["epoch_s"] = time.perf_counter() - t0
+        store = store_from_inference(
+            self.X, levels[1:], n_shards=st.n_shards,
+            budget_rows=st.budget_rows or None,
+            evict_policy=st.evict_policy, admission=st.admission,
+            onboarding=st.onboarding)
+        if st.budget_rows:
+            attach_recompute(store, self.reinfer)
+        return self._attach_engine(store)
+
+    def _check_servable(self) -> None:
+        """Raise for the serving options the port does not run yet."""
+        cfg = self.cfg
+        if cfg.cluster.n_shards > 0:
+            raise NotImplementedError(
+                "cluster.n_shards > 0: the multi-process cluster tier is "
+                "not ported yet (ROADMAP Queue 1 item 8)")
+        t = cfg.telemetry
+        if self.telemetry is not None and (t.http_port >= 0
+                                           or t.snapshot_path):
+            raise NotImplementedError(
+                "telemetry.http_port / telemetry.snapshot_path: the "
+                "telemetry endpoint is not ported yet (ROADMAP Queue 1 "
+                "item 7)")
+
+    def _attach_engine(self, store):
+        """Wire a ready store (+ ``self.reinfer``/``self.graph``) into
+        the serving engine and its health options.  ``serve()`` calls
+        this after the full epoch; checkpoint restore calls it with a
+        restored store instead of running an epoch."""
+        from repro_torch.gnnserve import EmbeddingServeEngine
+        cfg = self.cfg
+        q = cfg.qos
+        self._engine = EmbeddingServeEngine(
+            store, self.reinfer, self.graph,
+            batch_slots=q.batch_slots, rows_per_step=q.rows_per_step,
+            staleness_bound=q.staleness_bound,
+            tenants=q.tenant_registry(), refresh_charge=q.refresh_charge,
+            refresh_chunk_rows=cfg.refresh.chunk_rows)
+        t = cfg.telemetry
+        self._engine.health_opts = {
+            "window": t.health_window,
+            "error_budget": t.slo_error_budget,
+            "burn_threshold": t.burn_threshold,
+            "wait_slo_ms": t.wait_slo_ms,
+        }
+        return self._engine
+
+    @classmethod
+    def from_checkpoint(cls, path, cfg: DealConfig, device="cuda",
+                        params: Optional[Dict[str, Any]] = None
+                        ) -> "Session":
+        """A Session whose serving world comes from a
+        ``gnnserve.checkpoint.save_world`` artifact (of either package)
+        instead of a fresh full epoch: the offline pipeline still builds
+        from ``cfg`` (the checkpoint stores no params), then the
+        checkpointed graph, layer graphs and store swap in and the
+        engine attaches without recomputing the epoch."""
+        cfg.validate()
+        if cfg.cluster.n_shards > 0:
+            raise ConfigError(
+                "cluster.n_shards: from_checkpoint restores a single-"
+                "process engine")
+        session = cls(cfg, device=device, params=params)
+        session._check_servable()
+        from repro_torch.gnnserve.checkpoint import restore_into_session
+        restore_into_session(session, path)
+        return session
+
+    @property
+    def cluster(self):
+        """The live cluster deployment: always None (the cluster tier is
+        not ported yet)."""
+        return None
+
+    @property
+    def engine(self):
+        """The serving engine (built on first access)."""
+        return self.serve()
+
+    @property
+    def endpoint(self):
+        """The telemetry endpoint: always None (not ported yet)."""
+        return None
+
+    @property
+    def store(self):
+        """The engine's CURRENT embedding store (a ``full_epoch`` fold
+        swaps in a rebuilt one, so never cache this reference)."""
+        return self.serve().store
+
+    def apply_mutations(self):
+        """The engine's writable mutation log (``add_edges`` /
+        ``remove_edges`` / ``update_features`` / ``add_nodes``)."""
+        return self.serve().mutate()
+
+    def refresh(self) -> Dict[str, Any]:
+        """Drain pending mutations into the store via delta
+        re-inference (node onboarding included when
+        ``store.onboarding == "tail"``)."""
+        return self.serve().refresh()
+
+    def full_epoch(self, n_shards: Optional[int] = None) -> Dict[str, Any]:
+        """Re-partition epoch: fold any onboarded tail partitions back
+        into the main 1-D partitioning."""
+        return self.serve().full_epoch(n_shards)
+
+    # -- observability ----------------------------------------------------
+    def stats(self) -> Dict[str, Any]:
+        """Pipeline timings + construction stats, plus the serve / store /
+        QoS counter tree once the engine exists, with the keys of
+        ``repro.api.session.Session.stats``: ``refresh_cutover``,
+        ``plan_cache`` (0 until the distributed executor brings a
+        subset-plan cache), ``metrics`` (the flat unified view, with
+        live telemetry merged on top when enabled), and ``attribution``
+        / ``health`` once the engine has served under telemetry."""
+        self._check_open()
+        from repro_torch.obs import compat
+        out: Dict[str, Any] = {"n_nodes": self.n_nodes,
+                               "n_edges": self.graph.n_edges,
+                               **{f"t_{k}": v
+                                  for k, v in self.timings.items()}}
+        engine_stats = refresh_stats = cutover = None
+        if self._engine is not None:
+            engine_stats = self._engine.stats()
+            refresh_stats = self._engine.last_refresh_stats
+            out.update(engine_stats)
+            cutover = {
+                "threshold": self.reinfer.local_cutover,
+                "n_local": self.reinfer.n_local_cutovers,
+                "n_dist": self.reinfer.n_dist_layers,
+                "n_tail": self.reinfer.n_tail_routed}
+            out["refresh_cutover"] = cutover
+        out["plan_cache"] = {"hits": 0, "misses": 0}
+        out["metrics"] = compat.unified_metrics(
+            engine_stats=engine_stats,
+            construct_stats=self.construct_stats,
+            refresh_stats=refresh_stats,
+            plan_cache=out["plan_cache"],
+            timings=self.timings,
+            live=(self.telemetry.metrics.to_dict()
+                  if self.telemetry is not None else None),
+            cutover=cutover)
+        if self._engine is not None and self._engine.attrib is not None:
+            out["attribution"] = self._engine.attrib.summary()
+        if self._engine is not None and self._engine.health is not None:
+            out["health"] = self._engine.health.summary()
+        return out
+
+    def dump_trace(self, path) -> Dict[str, Any]:
+        """The Perfetto trace export: not ported yet."""
+        raise NotImplementedError(
+            "dump_trace: the telemetry exporters are not ported yet "
+            "(ROADMAP Queue 1 item 7)")
+
+    def prometheus_text(self) -> str:
+        """The Prometheus export: not ported yet."""
+        raise NotImplementedError(
+            "prometheus_text: the telemetry exporters are not ported yet "
+            "(ROADMAP Queue 1 item 7)")
+
     # -- lifecycle ------------------------------------------------------
     def _check_open(self) -> None:
         if self._closed:
             raise ConfigError("session is closed")
 
     def close(self) -> None:
-        """Release the big arrays and hand the process-current telemetry
-        back to whoever held it."""
+        """Release the big arrays (graph, features, store, engine) and
+        hand the process-current telemetry back to whoever held it."""
         if not self._closed and self.telemetry is not None:
             obs.install(self._prev_telemetry)
         self._closed = True
         for name in ("X", "graph", "layer_graphs", "_H", "params",
-                     "executor"):
+                     "executor", "_engine", "reinfer"):
             setattr(self, name, None)
 
     def __enter__(self) -> "Session":

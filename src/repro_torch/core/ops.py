@@ -16,7 +16,10 @@ Every executor lives on one device.  On a CUDA device the kernels run;
 on the CPU the same executor code runs the plain versions (the wrappers
 dispatch on the tensors' device), which is how the tests reach it.
 GEMM is ``torch.matmul`` in full f32: ``resolve_device`` turns TF32
-off for matmuls and cuDNN when it selects a CUDA device.
+off for matmuls and cuDNN when it selects a CUDA device.  Every GEMM
+call has the same number of rows (``GEMM_ROWS``; see ``gemm_rows``), so
+a row's bits never depend on how many rows share the call: a delta
+refresh of a few rows then equals the full epoch bitwise.
 """
 from __future__ import annotations
 
@@ -51,6 +54,38 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use cuda or cpu")
     return dev
+
+
+# ----------------------------------------------------------------------
+# GEMM with bits that do not depend on the row count
+# ----------------------------------------------------------------------
+
+# rows of every torch.matmul call that gemm_rows makes.  cuBLAS picks its
+# kernel by shape, so a row of an f32 (M, 128) @ (128, 128) product can
+# change its bits with M (chip_smoke.py's first [serve] line prints at
+# which M it does on the card); a fixed row count a call removes M from
+# the bits, and a large one keeps the launches few
+GEMM_ROWS = 16384
+
+
+def gemm_rows(h, w):
+    """``ref.gemm_ref(h, w)`` computed as ``torch.matmul`` calls of
+    exactly ``GEMM_ROWS`` rows each (the last block zero-padded), so
+    every row goes through the same library kernel whatever the number
+    of rows: bitwise invariant to M by construction."""
+    hf, wf = h.float(), w.float()
+    M = hf.shape[0]
+    out = torch.empty((M, wf.shape[1]), dtype=torch.float32,
+                      device=hf.device)
+    whole = M - M % GEMM_ROWS
+    for i in range(0, whole, GEMM_ROWS):
+        torch.matmul(hf[i:i + GEMM_ROWS], wf, out=out[i:i + GEMM_ROWS])
+    if whole < M:
+        pad = torch.zeros((GEMM_ROWS, hf.shape[1]), dtype=torch.float32,
+                          device=hf.device)
+        pad[:M - whole] = hf[whole:]
+        out[whole:] = torch.matmul(pad, wf)[:M - whole]
+    return out.to(h.dtype)
 
 
 # ----------------------------------------------------------------------
@@ -209,7 +244,7 @@ class RefExecutor:
         return torch.as_tensor(X, device=self.device)
 
     def gemm(self, H, W):
-        return ref.gemm_ref(H, torch.as_tensor(W, device=self.device))
+        return gemm_rows(H, torch.as_tensor(W, device=self.device))
 
     def spmm(self, H_src, w_edge, io: DenseIO):
         return ref.spmm_ref(H_src, w_edge, io.nbr_resolved, io.mask)
@@ -234,7 +269,7 @@ class RefExecutor:
 class CudaExecutor(RefExecutor):
     """Routes spmm / sddmm / attention through the CUDA kernels — the
     counterpart of ``repro``'s PallasExecutor.  GEMM stays on
-    ``torch.matmul``.
+    ``torch.matmul`` (``gemm_rows``).
 
     ``fused_gather``: consume ``DenseIO.table`` in the gather_spmm kernel
     instead of materializing ``nbr_resolved`` (bitwise the same).

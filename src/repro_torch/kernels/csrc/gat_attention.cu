@@ -47,8 +47,25 @@
 // Masked slots: gat_attention writes exactly 0 there, and an all-masked row
 // comes out all 0 (JAX: uniform 1/F, then times 0).  sddmm writes +0.0
 // where the TPU kernel's dot * 0.0 gives -0.0 for a negative dot; the two
-// compare equal.  Limits (the wrapper raises past them): F <= 32, heads a
-// power of two up to 32, one warp's shared memory within a block's 227 KB.
+// compare equal.  A masked slot's k row is never read, so an Inf or NaN
+// there does not reach the output (the TPU kernel's 0 * Inf gives NaN).
+//
+// Shapes: scores_kernel takes F <= 32 (a lane a slot), heads a power of
+// two up to 32 (a lane's pair holds one head), one warp's shared memory
+// within a block's 227 KB.  Every other shape with heads dividing D goes
+// to `wide_kernel`, a simple one: a warp a row, the lanes walk the row's
+// slots in passes of 32 and a lane gathers the k row of its own live
+// slot; each (slot, head) dot is its dh products summed in column order
+// (16-byte loads where the head width and the addresses allow, the same
+// order either way); the F x heads scores sit in shared memory (4 F heads
+// bytes a warp); the softmax per head divides by sqrtf(dh), takes -1e30
+// for a masked slot, max and sum by lane-strided loops and xor shuffles,
+// max-subtracted expf, divide.  sddmm takes it with one head, no scale and
+// no softmax, writing the scores straight out.  The choice is by shape
+// alone (`kernel_for` in gat_attention.py makes the same one), so a row's
+// bits depend on (D, heads, F, dtype) and on no other row.  The wrapper
+// raises only where the chosen kernel's warp would pass 227 KB of shared
+// memory.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -160,6 +177,13 @@ __host__ __device__ __forceinline__ int warp_words(int F, int D, int V,
   const int w = 32 / slot_lanes(F) * D + kPart * (D / V) + 64 +
                 (softmax ? (pairs > 32 ? pairs : 32) : 0);
   return (w + 3) / 4 * 4;
+}
+
+// shared memory of one warp of wide_kernel, in 4-byte words (16-byte
+// aligned): the row's F x heads scores for the softmax, none for sddmm
+__host__ __device__ __forceinline__ int wide_words(int F, int heads,
+                                                   bool softmax) {
+  return softmax ? (F * heads + 3) / 4 * 4 : 0;
 }
 
 // at most 64 registers a thread, so 4 full blocks fit an SM
@@ -351,17 +375,115 @@ void go(int IT, long long groups, int warps, size_t smem, cudaStream_t s,
 #undef DEAL_SCORES
 }
 
+// the wide path: one warp a row (see the note at the top).  Lane f % 32
+// holds slot f; every lane reads and writes only its own scores in shared
+// memory, so the shuffles are the only exchange between lanes.
+template <typename T, int V, bool SOFTMAX>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+wide_kernel(const T* __restrict__ q, long long ldq,
+            const T* __restrict__ k, long long ldk,
+            const int32_t* __restrict__ nbr,
+            const uint8_t* __restrict__ mask, float* __restrict__ out,
+            long long N, int F, int D, int heads, bool vec) {
+  extern __shared__ float4 smem4[];
+  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long r = (long long)blockIdx.x * (blockDim.x / 32) + wid;
+  if (r >= N) return;                    // whole warp; no block barrier
+  const int dh = D / heads;
+  float* sc = reinterpret_cast<float*>(smem4) +
+              (long long)wid * wide_words(F, heads, SOFTMAX);
+  const T* qr = q + r * ldq;
+  const float scale = sqrtf((float)dh);
+  for (int f = lane; f < F; f += 32) {
+    const bool live = mask[r * F + f] != 0;
+    const T* kr = k + (live ? (long long)nbr[r * F + f] * ldk : 0);
+    for (int h = 0; h < heads; ++h) {
+      float s = 0.0f;
+      if (live) {
+        for (int c = h * dh; c < (h + 1) * dh; c += V) {
+          Chunk<T, V> qc, kc;
+          qc.load(qr + c, vec);
+          kc.load(kr + c, vec);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const float p = __fmul_rn(to_f32(qc.v[e]), to_f32(kc.v[e]));
+            s = (c == h * dh && e == 0) ? p : __fadd_rn(s, p);
+          }
+        }
+      }
+      if constexpr (SOFTMAX)
+        sc[f * heads + h] = live ? __fdiv_rn(s, scale) : -1e30f;
+      else
+        out[r * F + f] = live ? s : 0.0f;
+    }
+  }
+  if constexpr (SOFTMAX) {
+    for (int h = 0; h < heads; ++h) {
+      float mx = -1e30f;
+      for (int f = lane; f < F; f += 32) mx = fmaxf(mx, sc[f * heads + h]);
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      float sum = 0.0f;
+      for (int f = lane; f < F; f += 32) {
+        const float e = expf(__fsub_rn(sc[f * heads + h], mx));
+        sc[f * heads + h] = e;
+        sum = __fadd_rn(sum, e);
+      }
+      for (int o = 16; o > 0; o >>= 1)
+        sum = __fadd_rn(sum, __shfl_xor_sync(kFull, sum, o));
+      for (int f = lane; f < F; f += 32)
+        out[(r * F + f) * heads + h] =
+            mask[r * F + f] ? __fdiv_rn(sc[f * heads + h], sum) : 0.0f;
+    }
+  }
+}
+
+// whether scores_kernel takes the shape (else wide_kernel does)
+__host__ __forceinline__ bool narrow_takes(int F, int D, int V, int heads,
+                                           bool softmax) {
+  return F <= 32 && heads <= 32 && (heads & (heads - 1)) == 0 &&
+         (size_t)warp_words(F, D, V, heads, softmax) * sizeof(float) <=
+             kSmemMax;
+}
+
 template <typename T, bool SOFTMAX>
 int launch(const void* q, long long ldq, const void* k, long long ldk,
            const int32_t* nbr, const uint8_t* mask, float* out, long long N,
            int F, int D, int heads, int warps, void* stream) {
   if (N <= 0) return 0;
-  if (F < 1 || F > 32 || D < 1 || heads < 1 || heads > 32 ||
-      (heads & (heads - 1)) != 0 || D % heads != 0 || warps < 1 ||
+  if (F < 1 || D < 1 || heads < 1 || D % heads != 0 || warps < 1 ||
       warps > kMaxWarps)
     return cudaErrorInvalidValue;
   constexpr int kVec = 16 / sizeof(T);
   const int V = chunk_cols<T>(D, heads);
+  const bool vec = V == kVec && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   ldq % V == 0 && ldk % V == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!narrow_takes(F, D, V, heads, SOFTMAX)) {
+    const size_t smem =
+        (size_t)warps * wide_words(F, heads, SOFTMAX) * sizeof(float);
+    if (smem > kSmemMax) return cudaErrorInvalidValue;
+    const unsigned grid = (unsigned)((N + warps - 1) / warps);
+    const T* qt = static_cast<const T*>(q);
+    const T* kt = static_cast<const T*>(k);
+#define DEAL_WIDE(VV)                                                   \
+  {                                                                     \
+    auto kern = wide_kernel<T, VV, SOFTMAX>;                            \
+    if (smem > 48 * 1024)                                               \
+      cudaFuncSetAttribute(kern,                                        \
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                           (int)smem);                                  \
+    kern<<<grid, warps * 32, smem, s>>>(qt, ldq, kt, ldk, nbr, mask,    \
+                                        out, N, F, D, heads, vec);      \
+  }
+    if (V == kVec)
+      DEAL_WIDE(kVec)
+    else
+      DEAL_WIDE(1)
+#undef DEAL_WIDE
+    return cudaGetLastError();
+  }
   const size_t smem =
       (size_t)warps * warp_words(F, D, V, heads, SOFTMAX) * sizeof(float);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
@@ -370,12 +492,8 @@ int launch(const void* q, long long ldq, const void* k, long long ldk,
   const int per_lane = D / V;
   const int IT = per_lane <= 1 ? 1 : per_lane <= 2 ? 2 : per_lane <= 4 ? 4
                                                                          : 8;
-  const bool vec = V == kVec && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                   ldq % V == 0 && ldk % V == 0;
   const int rows = 32 / slot_lanes(F);   // rows a warp
   const long long groups = (N + rows - 1) / rows;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (V == kVec)
     go<T, kVec, SOFTMAX>(IT, groups, warps, smem, s, q, ldq, k, ldk, nbr,
                          mask, out, N, F, D, heads, vec);
@@ -388,8 +506,8 @@ int launch(const void* q, long long ldq, const void* k, long long ldk,
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q and k share it).  `warps`
-// (1..8) warps a block, each on groups of 32 / F2 rows.  Returns the
-// launch's cudaError_t.
+// (1..8) warps a block, each on groups of 32 / F2 rows (scores_kernel) or
+// on one row (wide_kernel).  Returns the launch's cudaError_t.
 extern "C" int deal_gat_attention(const void* q, const void* k,
                                   const int32_t* nbr, const uint8_t* mask,
                                   float* out, long long N, int F, int D,

@@ -6,10 +6,12 @@ softmax over the fanout in one pass (GAT attention).
 Masked slots are filled with -1e30 before the softmax and zeroed after
 it.  Replaces the Pallas TPU kernel
 ``src/repro/kernels/gat_attention.py::gat_attention`` (``pallas_call``
-at line 70) with the kernel in ``csrc/gat_attention.cu``.  On a CPU
-tensor the wrapper returns the plain version,
-``ref.gat_attention_ref``.  ``gat_attention.launches`` counts kernel
-launches.
+at line 70) with the kernels in ``csrc/gat_attention.cu``: the narrow
+one (F <= 32, heads a power of two up to 32) and the wide one for every
+other shape, chosen by shape alone (``kernel_for``).  On a CPU tensor
+the wrapper returns the plain version, ``ref.gat_attention_ref``.
+``gat_attention.launches`` counts kernel launches, and
+``gat_attention.launches_wide`` those of them on the wide kernel.
 """
 from __future__ import annotations
 
@@ -52,21 +54,37 @@ def warp_words(F: int, D: int, heads: int, itemsize: int,
     return -(-words // 4) * 4                      # 16-byte aligned
 
 
+def wide_words(F: int, heads: int, softmax: bool) -> int:
+    """Shared memory of one warp of the wide kernel in 4-byte words, as
+    ``wide_words`` in ``csrc/gat_attention.cu``: the row's F x heads
+    scores for the softmax (16-byte aligned), none for sddmm."""
+    return -(-F * heads // 4) * 4 if softmax else 0
+
+
+def kernel_for(F: int, D: int, heads: int, itemsize: int,
+               softmax: bool) -> str:
+    """Which kernel of ``csrc/gat_attention.cu`` takes the shape, as its
+    C ``launch`` chooses: "narrow" (a lane a slot: F <= 32, heads a
+    power of two up to 32, one warp's shared memory within 227 KB), else
+    "wide" (a warp a row).  Dispatch by shape, not a fallback."""
+    if (F <= 32 and heads <= 32 and not heads & (heads - 1)
+            and 4 * warp_words(F, D, heads, itemsize, softmax)
+            <= _SMEM_MAX):
+        return "narrow"
+    return "wide"
+
+
 def block_warps(what, F, D, heads, itemsize, softmax):
-    """Warps a block holds: WARPS, or fewer where their shared memory
-    would pass 227 KB.  Raises past the kernel's limits: F <= 32 slots
-    (one lane each), heads a power of two up to 32 (a lane holds one
-    head), one warp's shared memory within 227 KB."""
-    if F > 32:
-        raise ValueError(f"{what}: F={F} slots a row, the kernel takes at "
-                         "most 32 (one lane each)")
-    if heads > 32 or heads & (heads - 1):
-        raise ValueError(f"{what}: heads={heads}, the kernel takes a power "
-                         "of two up to 32")
+    """Warps a block holds for the kernel ``kernel_for`` picks: WARPS, or
+    fewer where their shared memory would pass 227 KB.  Raises where one
+    warp's shared memory alone would pass it, or without a column."""
     if D < 1:
         raise ValueError(f"{what}: D={D}, the kernel needs a column")
-    words = warp_words(F, D, heads, itemsize, softmax)
-    warps = min(WARPS, _SMEM_MAX // (4 * words))
+    if kernel_for(F, D, heads, itemsize, softmax) == "narrow":
+        words = warp_words(F, D, heads, itemsize, softmax)
+    else:
+        words = wide_words(F, heads, softmax)
+    warps = min(WARPS, _SMEM_MAX // max(4 * words, 1))
     if warps < 1:
         raise ValueError(f"{what}: D={D}, F={F}, heads={heads} need "
                          f"{4 * words} bytes of shared memory a warp, more "
@@ -75,9 +93,11 @@ def block_warps(what, F, D, heads, itemsize, softmax):
 
 
 def launch_rows(what, q, k, nbr, mask, out, heads: int, softmax: bool):
-    """Launch the kernel of gat_attention.cu (a warp on each group of
-    32 / F2 rows) on the current stream: ``deal_gat_attention`` (``softmax``; q and k contiguous) or
-    ``deal_sddmm`` (one head; q and k may be row-strided views)."""
+    """Launch a kernel of gat_attention.cu on the current stream through
+    ``deal_gat_attention`` (``softmax``; q and k contiguous) or
+    ``deal_sddmm`` (one head; q and k may be row-strided views).
+    Returns the kernel launched ("narrow" or "wide"), or None when there
+    was nothing to compute."""
     build.check_args(what, {"q": q, "k": k, "nbr": nbr, "mask": mask},
                      _DTYPES, row_strided=() if softmax else ("q", "k"))
     if k.dtype != q.dtype:
@@ -86,7 +106,7 @@ def launch_rows(what, q, k, nbr, mask, out, heads: int, softmax: bool):
     D = q.shape[1]
     warps = block_warps(what, F, D, heads, q.element_size(), softmax)
     if N == 0 or F == 0:
-        return False
+        return None
     lib = build.library("gat_attention")
     if softmax:
         fn, extra = lib.deal_gat_attention, (heads,)
@@ -98,7 +118,7 @@ def launch_rows(what, q, k, nbr, mask, out, heads: int, softmax: bool):
                  FLOAT_CODES[q.dtype], warps,
                  torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, what)
-    return True
+    return kernel_for(F, D, heads, q.element_size(), softmax)
 
 
 def gat_attention(q, k, nbr, mask, heads: int = 1):
@@ -114,10 +134,12 @@ def gat_attention(q, k, nbr, mask, heads: int = 1):
         raise ValueError(f"gat_attention: no kernel for device {q.device}")
     out = torch.empty(nbr.shape + (heads,), dtype=torch.float32,
                       device=q.device)
-    launched = launch_rows("gat_attention", q, k, nbr, mask, out, heads,
-                           softmax=True)
-    gat_attention.launches += launched
+    kind = launch_rows("gat_attention", q, k, nbr, mask, out, heads,
+                       softmax=True)
+    gat_attention.launches += kind is not None
+    gat_attention.launches_wide += kind == "wide"
     return out
 
 
 gat_attention.launches = 0
+gat_attention.launches_wide = 0

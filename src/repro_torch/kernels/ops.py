@@ -10,8 +10,10 @@ version in ``kernels.ref``.  There is no backend probe and no fallback.
 ``KERNELS`` lists the five kernels with their plain versions, sources
 and the TPU kernels they replace; ``launch_counts`` and
 ``reset_launch_counts`` read and zero their launch counters (the reset
-also zeroes ``flash_attention.launches_tc``, the bf16 tensor-core
-kernel's share of ``flash_attention``'s).
+also zeroes the counts of a kernel's second path:
+``flash_attention.launches_tc``, the bf16 tensor-core kernel's share of
+``flash_attention``'s, and ``gat_attention.launches_wide`` /
+``sddmm.launches_wide``, the wide scoring kernel's).
 """
 from __future__ import annotations
 
@@ -48,3 +50,5 @@ def reset_launch_counts() -> None:
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
     flash_attention.launches_tc = 0
+    gat_attention.launches_wide = 0
+    sddmm.launches_wide = 0

@@ -4,10 +4,12 @@ on the unfused path).
     e[i,f] = <q[i], k[nbr[i,f]]> * mask[i,f]
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/sddmm.py::sddmm``
-(``pallas_call`` at line 48) with the scoring half of the warp-per-row
-kernel in ``csrc/gat_attention.cu``, which gathers only live slots.  On
-a CPU tensor the wrapper returns the plain version, ``ref.sddmm_ref``.
-``sddmm.launches`` counts kernel launches.
+(``pallas_call`` at line 48) with the scoring half of the kernels in
+``csrc/gat_attention.cu`` (narrow or wide, as ``gat_attention.
+kernel_for`` picks), which gather only live slots.  On a CPU tensor the
+wrapper returns the plain version, ``ref.sddmm_ref``.  ``sddmm.launches``
+counts kernel launches, ``sddmm.launches_wide`` those on the wide
+kernel.
 """
 from __future__ import annotations
 
@@ -32,9 +34,11 @@ def sddmm(q, k, nbr, mask):
     if q.device.type != "cuda":
         raise ValueError(f"sddmm: no kernel for device {q.device}")
     out = torch.empty(nbr.shape, dtype=torch.float32, device=q.device)
-    launched = launch_rows("sddmm", q, k, nbr, mask, out, 1, softmax=False)
-    sddmm.launches += launched
+    kind = launch_rows("sddmm", q, k, nbr, mask, out, 1, softmax=False)
+    sddmm.launches += kind is not None
+    sddmm.launches_wide += kind == "wide"
     return out
 
 
 sddmm.launches = 0
+sddmm.launches_wide = 0

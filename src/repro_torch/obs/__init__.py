@@ -1,7 +1,11 @@
-"""Spans and counters for the port — the no-op-unless-enabled core of
-``repro.obs`` (``span`` / ``add`` / ``enabled``), with the same span
-names at the same sites.  Exporters, histograms and the health layer
-are not ported yet.
+"""Spans and metrics for the port — the no-op-unless-enabled core of
+``repro.obs`` (``span`` / ``add`` / ``gauge`` / ``observe`` /
+``enabled``), with the same span and metric names at the same sites.
+Counters, gauges and histograms live in one ``metrics.MetricsRegistry``
+(``Telemetry.metrics``); the serving tier's health and attribution
+layer is ``obs.health``, the flat metric view of ``Session.stats()`` is
+``obs.compat``.  The exporters and the scrape endpoint are not ported
+yet (ROADMAP Queue 1 item 7).
 
 The process default is a disabled telemetry: ``span`` returns a falsy
 shared no-op span after one attribute check, so call sites write
@@ -14,7 +18,10 @@ shared no-op span after one attribute check, so call sites write
 from __future__ import annotations
 
 import time
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
+
+from repro_torch.obs.metrics import MetricsRegistry
 
 # one recorded span: (name, t_start_ns, dur_ns, depth, attrs-or-None)
 SpanTuple = Tuple[str, int, int, int, Optional[dict]]
@@ -72,8 +79,8 @@ class _Span:
         tel = self._tel
         t1 = tel.clock()
         tel.depth -= 1
-        tel.events.append((self.name, self._t0, t1 - self._t0,
-                           self._depth, self.attrs))
+        tel.record(self.name, self._t0, t1 - self._t0, self._depth,
+                   self.attrs)
         return False
 
     def __bool__(self) -> bool:
@@ -86,14 +93,35 @@ class _Span:
 
 
 class Telemetry:
-    """One session's spans (kept in order of completion) and counters."""
+    """One session's spans (kept in order of completion) and metrics."""
 
     def __init__(self, enabled: bool = True, clock=None):
         self.enabled = enabled
         self.clock = clock if clock is not None else time.perf_counter_ns
         self.events: List[SpanTuple] = []
-        self.counters: Dict[str, float] = {}
+        self.metrics = MetricsRegistry()
         self.depth = 0
+
+    @property
+    def counters(self) -> Dict[str, float]:
+        """The counters' values by name."""
+        return {m.name: m.value for m in self.metrics if m.kind == "counter"}
+
+    def now_ns(self) -> int:
+        return self.clock()
+
+    def record(self, name: str, t0: int, dur: int, depth: int,
+               attrs: Optional[dict]) -> None:
+        """Append one completed span (instrumentation that already
+        measured an interval, or a zero-duration event).  As in
+        ``repro.obs``, every span also feeds a ``<name>_ms`` histogram,
+        and a ``<name>.<executor>_ms`` one when it names an executor."""
+        self.events.append((name, int(t0), int(dur), int(depth), attrs))
+        ms = dur / 1e6
+        self.metrics.histogram(name + "_ms").observe(ms)
+        if attrs and attrs.get("executor"):
+            self.metrics.histogram(
+                f"{name}.{attrs['executor']}_ms").observe(ms)
 
 
 DISABLED = Telemetry(enabled=False)
@@ -117,6 +145,16 @@ def install(tel: Optional[Telemetry]) -> Telemetry:
     return prev
 
 
+@contextmanager
+def use(tel: Optional[Telemetry]):
+    """Scoped ``install`` (tests)."""
+    prev = install(tel)
+    try:
+        yield tel
+    finally:
+        install(prev)
+
+
 def span(name: str, attrs: Optional[dict] = None):
     tel = _CURRENT
     if not tel.enabled:
@@ -127,4 +165,16 @@ def span(name: str, attrs: Optional[dict] = None):
 def add(name: str, v: float = 1.0) -> None:
     tel = _CURRENT
     if tel.enabled:
-        tel.counters[name] = tel.counters.get(name, 0.0) + v
+        tel.metrics.counter(name).inc(v)
+
+
+def gauge(name: str, v: float) -> None:
+    tel = _CURRENT
+    if tel.enabled:
+        tel.metrics.gauge(name).set(v)
+
+
+def observe(name: str, v: float) -> None:
+    tel = _CURRENT
+    if tel.enabled:
+        tel.metrics.histogram(name).observe(v)

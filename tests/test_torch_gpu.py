@@ -295,21 +295,29 @@ def test_sddmm_reads_column_slices_in_place(cuda, width, dtype):
 
 
 def test_attention_wrappers_raise_past_the_kernel_limits(cuda):
+    """F = 33, heads = 3 and a narrow warp past 227 KB now take the wide
+    kernel; the one limit left, a wide warp's F x heads scores past
+    227 KB of shared memory, raises before any launch."""
     _, nbr, mask = _graph(cuda, 8, 8, 33, 0)
     h = torch.randn((8, 96), device=cuda)
     before = kops.launch_counts()
-    with pytest.raises(ValueError, match="F=33 slots"):
-        kops.gat_attention(h, h, nbr, mask, heads=4)
-    with pytest.raises(ValueError, match="F=33 slots"):
-        kops.sddmm(h, h, nbr, mask)
-    nbr, mask = nbr[:, :8].contiguous(), mask[:, :8].contiguous()
-    with pytest.raises(ValueError, match="heads=3, the kernel takes a "
-                       "power of two"):
-        kops.gat_attention(h, h, nbr, mask, heads=3)
-    wide = torch.randn((8, 8192), device=cuda)
+    wide = (kops.gat_attention.launches_wide, kops.sddmm.launches_wide)
+    kops.gat_attention(h, h, nbr, mask, heads=4)
+    kops.sddmm(h, h, nbr, mask)
+    n8, m8 = nbr[:, :8].contiguous(), mask[:, :8].contiguous()
+    kops.gat_attention(h, h, n8, m8, heads=3)
+    big = torch.randn((8, 8192), device=cuda)
+    kops.gat_attention(big, big, n8, m8, heads=4)
+    torch.cuda.synchronize()
+    assert kops.gat_attention.launches_wide == wide[0] + 3
+    assert kops.sddmm.launches_wide == wide[1] + 1
+    _, nbr, mask = _graph(cuda, 8, 8, 4096, 0)
+    h = torch.randn((8, 256), device=cuda)
+    after = kops.launch_counts()
     with pytest.raises(ValueError, match="more than a block.s 227 KB"):
-        kops.gat_attention(wide, wide, nbr, mask, heads=4)
-    assert kops.launch_counts() == before
+        kops.gat_attention(h, h, nbr, mask, heads=16)
+    assert kops.launch_counts() == after
+    assert after["gat_attention"] == before["gat_attention"] + 3
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -494,3 +502,213 @@ def test_serve_engine_decodes_on_the_card(cuda):
     assert all(r.done and len(r.out_tokens) == 6 for r in reqs)
     assert stats["tokens"] == 30
     assert kops.launch_counts()["flash_attention"] == 0
+
+
+# ----------------------------------------------------------------------
+# the wide scoring kernel (F > 32, or heads not a power of two up to 32)
+# ----------------------------------------------------------------------
+
+# (N, U, D, F, heads): F = 40 and 64, heads 3 and 6, and one narrow-width
+# head count at F = 64
+WIDE_CASES = [(40, 50, 96, 40, 3), (33, 45, 96, 64, 6), (64, 80, 128, 64, 4),
+              (50, 61, 96, 8, 3), (40, 50, 48, 40, 6)]
+
+
+@pytest.mark.parametrize("N,U,D,F,heads", WIDE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_attention_kernel_matches_plain(cuda, N, U, D, F, heads,
+                                             dtype):
+    """The wide kernel against its plain version (f32 within 5e-7, bf16 at
+    tests/test_kernels.py's tolerance), masked slots 0, an all-masked
+    row 0, a fully live row summing to 1, row subsets and a misaligned
+    view bitwise; sddmm at the same F."""
+    g, nbr, mask = _graph(cuda, N, U, F, N + F + heads)
+    mask[1] = True
+    q = torch.randn((N, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((U, D), generator=g, device=cuda).to(dtype)
+    before = (kops.gat_attention.launches_wide, kops.sddmm.launches_wide)
+    alpha = kops.gat_attention(q, k, nbr, mask, heads=heads)
+    e = kops.sddmm(q, k, nbr, mask)
+    torch.cuda.synchronize()
+    assert kops.gat_attention.launches_wide == before[0] + 1
+    assert kops.sddmm.launches_wide == before[1] + (F > 32)
+    strict = 5e-7 if dtype == torch.float32 else ATOL[dtype]
+    _close(alpha, ref.gat_attention_ref(q, k, nbr, mask, heads), strict,
+           0 if dtype == torch.float32 else 3e-2)
+    _close(e, ref.sddmm_ref(q, k, nbr, mask), ATOL[dtype] * D ** 0.5)
+    assert bool((alpha[~mask] == 0).all()) and bool((alpha[0] == 0).all())
+    _close(alpha[1].sum(0), torch.ones(heads, device=cuda), 1e-5, 0)
+    for rows in (torch.arange(3, N - 4, device=cuda),
+                 torch.randperm(N, generator=g, device=cuda)[:N // 2]):
+        part = kops.gat_attention(q[rows], k, nbr[rows], mask[rows],
+                                  heads=heads)
+        torch.cuda.synchronize()
+        assert torch.equal(part, alpha[rows])
+        assert torch.equal(kops.sddmm(q[rows], k, nbr[rows], mask[rows]),
+                           e[rows])
+    qo, ko = _misaligned(q), _misaligned(k)
+    assert torch.equal(kops.gat_attention(qo, ko, nbr, mask, heads=heads),
+                       alpha)
+    assert torch.equal(kops.sddmm(qo, ko, nbr, mask), e)
+
+
+@pytest.mark.parametrize("width", [96, 97])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_sddmm_reads_column_slices_in_place(cuda, width, dtype):
+    """F = 64 takes the wide kernel: each per-head column slice (width 97
+    leaves rows unaligned) gives the bits of its contiguous copy."""
+    N, U, F, dh = 70, 90, 64, 32
+    g, nbr, mask = _graph(cuda, N, U, F, width)
+    qw = torch.randn((N, width), generator=g, device=cuda).to(dtype)
+    kw = torch.randn((U, width), generator=g, device=cuda).to(dtype)
+    before = kops.sddmm.launches_wide
+    for h in range(3):
+        q, k = qw[:, h * dh:(h + 1) * dh], kw[:, h * dh:(h + 1) * dh]
+        assert not q.is_contiguous()
+        got = kops.sddmm(q, k, nbr, mask)
+        assert torch.equal(got, kops.sddmm(q.contiguous(), k.contiguous(),
+                                           nbr, mask))
+        _close(got, ref.sddmm_ref(q, k, nbr, mask), ATOL[dtype] * dh ** 0.5)
+    assert kops.sddmm.launches_wide == before + 6
+
+
+@pytest.mark.parametrize("F,heads", [(8, 4), (64, 4), (8, 3)])
+@pytest.mark.parametrize("bad", [float("inf"), float("nan")])
+def test_masked_non_finite_rows_do_not_reach_the_scores(cuda, F, heads,
+                                                        bad):
+    """The kernel side of the masked-slot contract (README, "Numerics"):
+    a k row of Inf or NaN reached only through masked slots leaves the
+    output finite, equal to the plain version with that row zeroed; and
+    sddmm writes +0.0 at a masked slot, where the plain version's
+    ``dot * 0.0`` gives -0.0 for a negative dot."""
+    N, U, D = 60, 40, 96
+    g, nbr0, mask = _graph(cuda, N, U, F, F + heads)
+    q = torch.randn((N, D), generator=g, device=cuda)
+    k = torch.randn((U + 1, D), generator=g, device=cuda)
+    k[U] = bad
+    nbr = torch.where(mask, nbr0, torch.full_like(nbr0, U))
+    alpha = kops.gat_attention(q, k, nbr, mask, heads=heads)
+    e = kops.sddmm(q, k, nbr, mask)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(alpha).all()) and bool(
+        torch.isfinite(e).all())
+    k0 = k.clone()
+    k0[U] = 0.0
+    _close(alpha, ref.gat_attention_ref(q, k0, nbr, mask, heads), 5e-7, 0)
+    _close(e, ref.sddmm_ref(q, k0, nbr, mask), ATOL[torch.float32]
+           * D ** 0.5)
+    assert not bool(torch.isfinite(ref.sddmm_ref(q, k, nbr, mask)).all())
+    # signed zeros, with masked slots on real rows: the plain version's
+    # negative dots times 0.0 give -0.0, the kernel writes +0.0
+    plain = ref.sddmm_ref(q, k0, nbr0, mask)
+    e0 = kops.sddmm(q, k0, nbr0, mask)
+    torch.cuda.synchronize()
+    assert bool(torch.signbit(plain[~mask]).any())
+    assert not bool(torch.signbit(e0[~mask]).any())
+    assert bool((e0[~mask] == 0).all())
+
+
+def _gat_cfg(fanout, d_feature, heads, executor="cuda", n_nodes=512):
+    from repro_torch.api import DealConfig
+    return DealConfig.from_dict({
+        "graph": {"dataset": "rmat", "n_nodes": n_nodes, "avg_degree": 40,
+                  "fanout": fanout},
+        "model": {"name": "gat", "n_layers": 2, "d_feature": d_feature,
+                  "heads": heads},
+        "executor": {"name": executor}})
+
+
+@pytest.mark.parametrize("fanout,d_feature,heads,fused", [
+    (64, 32, 4, True), (64, 32, 4, False), (8, 96, 3, True)])
+def test_gat_session_at_wide_shapes_matches_ref(cuda, fanout, d_feature,
+                                                heads, fused):
+    """A gat config at fanout 64, or with 3 heads at d_feature 96, runs
+    infer_all on "cuda" through the wide kernel and matches "ref"."""
+    from repro_torch.api import Session
+    from repro_torch.core.gnn_models import model_spec
+    from repro_torch.core.ops import DenseIO, RefExecutor, run_model
+    cfg = _gat_cfg(fanout, d_feature, heads)
+    cfg.executor.options = {"fused_attention": fused}
+    with Session.build(cfg) as s:
+        kops.reset_launch_counts()
+        H = s.infer_all()
+        torch.cuda.synchronize()
+        wide = (kops.gat_attention.launches_wide if fused
+                else kops.sddmm.launches_wide)
+        assert wide == (2 if fused else 2 * heads)
+        ios = [DenseIO.from_layer_graph(lg, s.device)
+               for lg in s.layer_graphs]
+        want = run_model(RefExecutor(), model_spec("gat", s.params), ios,
+                         s.X)
+        _close(H, want, 1e-4, 3e-3)
+
+
+@pytest.mark.parametrize("model,heads", [("gcn", 1), ("gat", 4)])
+def test_serving_invariants_on_the_card(cuda, model, heads):
+    """chip_smoke.py's [serve] checks at a small size: the delta refresh
+    equals a fresh full epoch bitwise, chunked equals inline, a budgeted
+    store serves the unbudgeted bytes, "cuda" matches "ref", and the
+    refresh runs on gather_spmm (and gat_attention for gat)."""
+    import copy
+
+    from repro_torch.api import DealConfig, Session
+    from repro_torch.gnnserve import DeltaReinference
+    d = {"graph": {"dataset": "rmat", "n_nodes": 4096, "avg_degree": 8,
+                   "fanout": 8},
+         "model": {"name": model, "n_layers": 2, "d_feature": 32,
+                   "heads": heads},
+         "executor": {"name": "cuda"}, "store": {"onboarding": "tail"},
+         "qos": {"staleness_bound": 1 << 30}}
+    rng = np.random.default_rng(0)
+    n = 4096
+    batch = (rng.integers(0, n, (2, 64)), rng.integers(0, n, 16),
+             rng.standard_normal((16, 32)).astype(np.float32))
+
+    def mutate(s):
+        log = s.apply_mutations()
+        log.add_edges(*batch[0])
+        log.update_features(batch[1], batch[2])
+        log.add_nodes(4, np.ones((4, 32), np.float32))
+        log.add_edges(np.arange(n, n + 4), np.arange(4))
+
+    # the chunked engine refreshes one chunk a step under QoS: a tenant
+    # whose SLO the mutations break demands it
+    tenant = {"name": "t", "priority": 1.0, "slot_quota": 1, "rate": 0,
+              "staleness_slo": 1}
+    levels = {}
+    for name, extra in (("inline", {}),
+                        ("chunked", {"refresh": {"chunk_rows": 100},
+                                     "qos": {"tenants": [tenant]}}),
+                        ("budget", {"store": {"onboarding": "tail",
+                                              "budget_rows": 1024}}),
+                        ("ref", {"executor": {"name": "ref"}})):
+        with Session.build(DealConfig.from_dict({**d, **extra})) as s:
+            eng = s.serve()
+            mutate(s)
+            kops.reset_launch_counts()
+            if name == "chunked":
+                from repro_torch.gnnserve import Query
+                eng.submit(Query(uid=0, node_ids=np.arange(8), tenant="t"))
+                eng.run()
+                assert eng.n_refresh_chunks > 2 and eng.log.pending == 0
+            else:
+                s.refresh()
+            counts = kops.launch_counts()
+            if name != "ref":
+                assert counts["gather_spmm"] > 0, counts
+                if model == "gat":
+                    assert counts["gat_attention"] > 0, counts
+            ids = np.arange(s.store.n_nodes)
+            levels[name] = [s.store.lookup(ids, lvl)
+                            for lvl in range(s.store.n_levels)]
+            if name == "inline":
+                oracle = DeltaReinference(
+                    copy.deepcopy(s.reinfer.layer_graphs), model, s.params,
+                    executor=s.executor).full_levels(levels[name][0])
+                for lvl in range(1, len(oracle)):
+                    assert np.array_equal(levels[name][lvl], oracle[lvl])
+    for lvl, want in enumerate(levels["inline"]):
+        assert np.array_equal(levels["chunked"][lvl], want)
+        assert np.array_equal(levels["budget"][lvl], want)
+        np.testing.assert_allclose(levels["ref"][lvl], want, atol=1e-4,
+                                   rtol=3e-3)

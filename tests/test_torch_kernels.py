@@ -324,10 +324,91 @@ def test_attention_block_warps(F, D, heads, itemsize, softmax, want):
     assert want * 4 * warp_words(F, D, heads, itemsize, softmax) <= 232448
 
 
+# the one limit left: a warp's shared memory (the wide kernel's F x heads
+# scores) within a block's 227 KB; and a row needs a column
 @pytest.mark.parametrize("F,D,heads,match", [
-    (33, 128, 4, "F=33 slots"), (8, 96, 3, "heads=3"),
-    (8, 128, 64, "heads=64"), (8, 8192, 4, "more than a block.s 227 KB")])
+    (4096, 128, 16, "262144 bytes .* more than a block.s 227 KB"),
+    (58113, 1, 1, "232464 bytes .* more than a block.s 227 KB"),
+    (1024, 64, 64, "262144 bytes .* more than a block.s 227 KB"),
+    (8, 0, 1, "D=0, the kernel needs a column")])
 def test_attention_block_warps_name_the_kernel_limits(F, D, heads, match):
     from repro_torch.kernels.gat_attention import block_warps
     with pytest.raises(ValueError, match=match):
         block_warps("gat_attention", F, D, heads, 4, True)
+
+
+# which kernel of csrc/gat_attention.cu takes a shape: the narrow one
+# where it did before (F <= 32, heads a power of two up to 32), the wide
+# one for F = 33 and 64 and for heads 3, 6 and 64
+@pytest.mark.parametrize("F,D,heads,itemsize,softmax,want", [
+    (33, 128, 4, 4, True, "wide"), (64, 128, 4, 4, True, "wide"),
+    (64, 32, 1, 4, False, "wide"), (8, 96, 3, 4, True, "wide"),
+    (8, 96, 6, 2, True, "wide"), (8, 128, 64, 4, True, "wide"),
+    (8, 8192, 4, 4, True, "wide"),          # narrow's warp past 227 KB
+    (8, 128, 4, 4, True, "narrow"), (32, 128, 4, 2, True, "narrow"),
+    (1, 64, 4, 4, True, "narrow"), (32, 32, 1, 4, False, "narrow"),
+    (3, 64, 32, 4, True, "narrow"), (8, 2048, 4, 4, True, "narrow")])
+def test_kernel_for_picks_the_wide_kernel_by_shape(F, D, heads, itemsize,
+                                                   softmax, want):
+    from repro_torch.kernels.gat_attention import kernel_for
+    assert kernel_for(F, D, heads, itemsize, softmax) == want
+
+
+@pytest.mark.parametrize("args", [("gat_attention", 64, 128, 4, 4, True),
+                                  ("gat_attention", 8, 96, 3, 4, True),
+                                  ("sddmm", 64, 32, 1, 4, False)])
+def test_block_warps_takes_wide_rows_and_any_heads(args):
+    from repro_torch.kernels.gat_attention import block_warps, wide_words
+    assert block_warps(*args) == 8
+    assert 8 * 4 * wide_words(args[1], args[3], args[5]) <= 232448
+
+
+@pytest.mark.parametrize("N,U,D,F,heads", [(16, 24, 96, 64, 3),
+                                           (24, 16, 96, 8, 3),
+                                           (16, 16, 96, 40, 6)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gat_attention_wide_shapes_match_pallas(N, U, D, F, heads, dtype):
+    """The port's plain gat_attention at the wide kernel's shapes against
+    the Pallas kernel run as tests/test_kernels.py runs it (interpret
+    mode), at that file's tolerances."""
+    from repro.kernels.gat_attention import gat_attention as pallas_gat
+    rng = np.random.default_rng(N + F + heads)
+    qj, qt = _pair(rng.standard_normal((N, D)), dtype)
+    kj, kt = _pair(rng.standard_normal((U, D)), dtype)
+    nj, nt = _ids(rng.integers(0, U, (N, F)))
+    mask = rng.random((N, F)) > 0.25
+    mask[0] = False
+    mj, mt = _mask(mask)
+    got = ops.gat_attention(qt, kt, nt, mt, heads=heads)
+    want = pallas_gat(qj, kj, nj, mj, heads=heads)
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=ATOL[dtype],
+                               rtol=3e-2)
+    assert (got.numpy()[~mask] == 0.0).all()
+
+
+@pytest.mark.parametrize("bad", [np.inf, np.nan])
+def test_plain_spmm_gives_nan_at_a_masked_non_finite_row_as_jax(bad):
+    """The reference side of the masked-slot contract (README,
+    "Numerics"): the TPU kernel and the plain versions compute
+    0.0 * row, so a masked Inf/NaN row makes its output row NaN.  The
+    CUDA kernels skip masked slots (tests/test_torch_gpu.py pins that
+    side)."""
+    from repro.kernels.spmm import spmm as pallas_spmm
+    rng = np.random.default_rng(0)
+    h = rng.standard_normal((16, 128)).astype(np.float32)
+    h[3] = bad
+    nbr = rng.integers(0, 16, (16, 4)).astype(np.int32)
+    nbr[5, 1] = 3
+    mask = np.ones((16, 4), bool)
+    mask[5, 1] = False                     # row 5 reaches row 3 masked
+    mask[nbr == 3] = False
+    w = rng.standard_normal((16, 4)).astype(np.float32)
+    got = ops.spmm(torch.from_numpy(h), torch.from_numpy(w),
+                   torch.from_numpy(nbr), torch.from_numpy(mask)).numpy()
+    want = np.asarray(pallas_spmm(jnp.asarray(h), jnp.asarray(w),
+                                  jnp.asarray(nbr), jnp.asarray(mask)))
+    hit = (nbr == 3).any(axis=1)
+    assert np.isnan(got[hit]).all() and np.isnan(want[hit]).all()
+    assert np.isfinite(got[~hit]).all()
+    np.testing.assert_allclose(got[~hit], want[~hit], atol=2e-5 * 4,
+                               rtol=3e-2)

@@ -254,3 +254,21 @@ def test_fused_load_spmm_refuses_files_without_every_id(tmp_path, fault,
     with pytest.raises(ValueError, match="each of the 256 node ids once"):
         tfp.fused_load_spmm(files, 4, N, D, w, layer_graphs[0],
                             tops.CudaExecutor("cpu"))
+
+
+@pytest.mark.parametrize("M", [1, 300, 16384, 16385, 40000])
+def test_gemm_rows_bits_do_not_depend_on_the_row_count(M):
+    """gemm_rows computes every row in a torch.matmul call of GEMM_ROWS
+    rows, so the rows of any subset carry the bits of the full call (the
+    invariant delta refresh needs), and it is the plain GEMM within
+    rounding."""
+    from repro_torch.core.ops import gemm_rows
+    from repro_torch.kernels.ref import gemm_ref
+    rng = np.random.default_rng(M)
+    h = torch.from_numpy(rng.standard_normal((40000, 24), np.float32))
+    w = torch.from_numpy(rng.standard_normal((24, 16), np.float32))
+    full = gemm_rows(h, w)
+    idx = torch.from_numpy(rng.choice(40000, M, replace=False))
+    assert torch.equal(gemm_rows(h[idx], w), full[idx])
+    np.testing.assert_allclose(full.numpy(), gemm_ref(h, w).numpy(),
+                               atol=1e-5, rtol=1e-5)
