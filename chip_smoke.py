@@ -55,8 +55,29 @@ the run with a non-zero exit code:
    262,144 rows a level (recompute on a miss) gives the same bytes; the
    same steps through "ref" on the card agree within atol 1e-4, rtol
    3e-3; gather_spmm (and gat_attention for gat) launch.
+   [layerwise]: in the gcn, sage and (fused) gat sessions,
+   ``local_<model>_infer`` through "cuda" over the session's layer
+   graphs, X and params: bitwise ``Session.infer_all``, within atol
+   1e-4, rtol 3e-3 of the engine through "ref", with its launches; then
+   (after the feature prep) ``ego_batched_gcn_infer``, the Fig 14
+   baseline, on the stand-in at scale 8 (131,072 nodes; the host's
+   frontier walks at 1M nodes would take too long) in batches of 6% of
+   the nodes, within atol 1e-4, rtol 1e-4 of ``local_gcn_infer`` (and
+   whether it is bitwise), its GEMM rows beside DEAL's 3 N and both
+   times.
 4. fused feature prep: ``fused_load_spmm`` through the cuda executor
    against "ref", counting the gather_spmm launches.
+   [launcher]: ``repro_torch.launch.serve_embeddings``' own functions
+   (``config_from_args``, ``_serve_session``, ``drive``) on gcn in the
+   [serve] phase's world (4 store shards), telemetry on with the scrape
+   endpoint on a free port and a snapshot file under ``build/``: a few
+   ticks of queries and edge mutations whose staleness bound fires a
+   refresh, while a thread scrapes /metrics, /healthz and /stats (each
+   200, ``deal_`` series, /nope 404); then ``dump_trace`` through the
+   port's ``validate_trace`` (coverage >= 0.9; the stage categories
+   construct, sample, featprep, ops, serve, refresh, store; the spans
+   serve.tick and refresh.layer) and ``check_trace``, its coverage and
+   stage breakdown printed, and the endpoint stopped by ``close()``.
 5. flash kernels: ``flash_attention`` at the dense-transformer prefill
    shape (smollm-360m: B=4, S=2048, 15 query heads over 5 kv heads,
    hd=64, causal), a ragged S=1000, a sliding window of 256 and the
@@ -112,6 +133,9 @@ SERVE_QUERIES, SERVE_ROWS = 64, 256
 SERVE_BATCH = {"edge_adds": 4096, "edge_removes": 1024,
                "feature_updates": 1024, "node_adds": 256}
 CHUNK_ROWS, BUDGET_ROWS = 4096, 262144
+EGO_SCALE = 8                    # the ego baseline's world: 131,072 nodes
+EGO_BATCH_FRACTION = 0.06        # benchmarks/bench_e2e.py's batch cap
+LAUNCH_TICKS, LAUNCH_BOUND = 6, 16   # the launcher's run: a refresh fires
 DEVICE = "cuda"
 
 
@@ -642,7 +666,7 @@ def slice_phase(torch, kops, launches, wide):
             finally:
                 obs.install(prev)
             per_op = {}
-            for span_name, _, dur, _, _ in tel.events:
+            for span_name, _, dur, _, _ in tel.tracer.events_in_order():
                 per_op[span_name] = per_op.get(span_name, 0) + dur / 1e6
             H_ref = run_model(RefExecutor(DEVICE), spec, ios, s.X)
             err = assert_close(torch, H, H_ref, 1e-4, 3e-3,
@@ -657,6 +681,8 @@ def slice_phase(torch, kops, launches, wide):
             log(f"[slice] {label} run_model under spans, ms per op kind "
                 "(each op synchronized): " + ", ".join(
                     f"{k} {v:.3f}" for k, v in sorted(per_op.items())))
+            if label != "gat_unfused":
+                layerwise_check(torch, kops, s, label, H, launches)
             lg0 = s.layer_graphs[0]
             del H, H_ref, ios, X
             torch.cuda.empty_cache()
@@ -664,6 +690,248 @@ def slice_phase(torch, kops, launches, wide):
                 serve_session(torch, kops, s, label, launches, wide)
         torch.cuda.empty_cache()
     return lg0
+
+
+# ----------------------------------------------------------------------
+# phase 3, [layerwise]: the layer-wise engines and the ego baseline
+# ----------------------------------------------------------------------
+
+def layerwise_check(torch, kops, s, label, H, launches):
+    """``local_<model>_infer`` over the open slice-phase session's layer
+    graphs, X and params through "cuda": bitwise ``Session.infer_all``'s
+    ``H``, within atol 1e-4, rtol 3e-3 of the same engine through
+    "ref"; its launches go to ``launches``."""
+    from repro_torch.core.layerwise import LOCAL_ENGINES
+    engine = LOCAL_ENGINES[s.cfg.model.name]
+
+    def run(executor):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = engine(s.layer_graphs, s.X, s.params, executor=executor,
+                     device=DEVICE)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    kops.reset_launch_counts()
+    got, ms = run("cuda")
+    counts = kops.launch_counts()
+    want = {k: EXPECTED[label].get(k, 0) for k in counts}
+    check(counts == want, f"[layerwise] {label}: launches {counts}, "
+          f"expected {want}")
+    for k, v in counts.items():
+        launches[k] += v
+    check(torch.equal(got, H), f"[layerwise] local_{label}_infer is not "
+          "bitwise Session.infer_all through the same executor")
+    ref, ref_ms = run("ref")
+    err = assert_close(torch, got, ref, 1e-4, 3e-3,
+                       f"[layerwise] local_{label}_infer cuda vs ref")
+    log(f"[layerwise] local_{label}_infer N={s.n_nodes} D={D}: "
+        f"{ms:.1f} ms (\"ref\" {ref_ms:.1f} ms; DenseIO builds included), "
+        f"launches { {k: v for k, v in counts.items() if v} }; bitwise "
+        f"Session.infer_all; max err vs ref {err:.3e} (atol 1e-4, rtol "
+        "3e-3)")
+
+
+def ego_phase(torch, kops, launches):
+    """``ego_batched_gcn_infer`` (the DGI/SALIENT++-style baseline of Fig
+    14) against ``local_gcn_infer`` on the stand-in at ``EGO_SCALE``,
+    batches of ``EGO_BATCH_FRACTION`` of the nodes: within atol 1e-4,
+    rtol 1e-4, its work in GEMM rows beside DEAL's 3 N, both times."""
+    from repro_torch.api import (DealConfig, ExecutorSpec, GraphSpec,
+                                 ModelSpec, Session)
+    from repro_torch.core.layerwise import (ego_batched_gcn_infer,
+                                            local_gcn_infer)
+    cfg = DealConfig(
+        graph=GraphSpec(dataset="ogbn-papers100M", scale=EGO_SCALE,
+                        fanout=FANOUT, seed=0),
+        model=ModelSpec(name="gcn", n_layers=LAYERS, d_feature=D),
+        executor=ExecutorSpec(name="cuda"))
+    with Session.build(cfg, device=DEVICE) as s:
+        N = s.n_nodes
+        batch = int(N * EGO_BATCH_FRACTION)
+        args = (s.layer_graphs, s.X, s.params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        deal = local_gcn_infer(*args, device=DEVICE)
+        torch.cuda.synchronize()
+        deal_s = time.perf_counter() - t0
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        H, work = ego_batched_gcn_infer(*args, batch, device=DEVICE)
+        torch.cuda.synchronize()
+        ego_s = time.perf_counter() - t0
+        counts = kops.launch_counts()
+    n_batches = -(-N // batch)
+    want = {k: (LAYERS * n_batches if k == "spmm" else 0) for k in counts}
+    check(counts == want, f"[ego] launches {counts}, expected {want}")
+    launches["spmm"] += counts["spmm"]
+    err = assert_close(torch, H, deal, 1e-4, 1e-4,
+                       "[layerwise] ego baseline vs local_gcn_infer")
+    log(f"[layerwise] ego_batched_gcn_infer N={N} (scale {EGO_SCALE}), "
+        f"{n_batches} batches of {batch} targets: {work} GEMM rows against "
+        f"DEAL's {LAYERS * N} ({work / (LAYERS * N):.2f}x), {ego_s:.2f} s "
+        f"against local_gcn_infer's {deal_s:.2f} s; max err {err:.3e} "
+        f"(atol 1e-4, rtol 1e-4), bitwise equal: {torch.equal(H, deal)}; "
+        f"{counts['spmm']} spmm launches")
+
+
+# ----------------------------------------------------------------------
+# phase 4, [launcher]: the serving launcher under telemetry
+# ----------------------------------------------------------------------
+
+def launcher_phase(torch, kops, launches):
+    """``repro_torch.launch.serve_embeddings``' own functions on gcn in
+    the [serve] phase's world, telemetry on with the endpoint on a free
+    port and a snapshot file: ``drive`` for a few ticks while a thread
+    scrapes /metrics, /healthz and /stats; then the dumped trace through
+    ``validate_trace`` (coverage >= 0.9) and ``check_trace``, its stage
+    breakdown, and the endpoint stopped by ``close()``."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from repro_torch.launch import serve_embeddings as se
+    from repro_torch.obs import report
+    from repro_torch.obs.validate import DEFAULT_CATS, validate_trace
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    snap, trace = out / "launcher_snapshot.json", out / "launcher_trace.json"
+    snap.unlink(missing_ok=True)
+    args = se.build_parser().parse_args([
+        "--dataset", "ogbn-papers100M", "--scale", str(N_NODES_SCALE),
+        "--fanout", str(FANOUT), "--layers", str(LAYERS), "--d-feature",
+        str(D), "--model", "gcn", "--n-shards", "4", "--executor", "cuda",
+        "--staleness-bound", str(LAUNCH_BOUND)])
+    cfg = se.config_from_args(args)
+    t = cfg.telemetry
+    t.enabled, t.http_port, t.snapshot_path = True, 0, str(snap)
+    t.snapshot_every_s = 0.5
+    cfg.validate()
+    paths = ("/metrics", "/healthz", "/stats")
+    scrapes = {p: [] for p in paths}
+    failures = []
+    stop = threading.Event()
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            return resp.status, resp.read()
+
+    def scrape(base):
+        while not stop.is_set():
+            for p in paths:
+                try:
+                    scrapes[p].append(get(base + p))
+                except Exception as exc:    # surfaced by the check below
+                    failures.append(f"{p}: {exc!r}")
+            stop.wait(0.2)
+
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with se._serve_session(cfg, DEVICE) as s:
+        t_up = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{s.endpoint.port}"
+        th = threading.Thread(target=scrape, args=(base,), daemon=True)
+        th.start()
+        t1 = time.perf_counter()
+        se.drive(s.engine, ticks=LAUNCH_TICKS, queries_per_tick=4,
+                 mutations_per_tick=8)
+        torch.cuda.synchronize()
+        t_drive = time.perf_counter() - t1
+        stop.set()
+        th.join(timeout=60)
+        check(not th.is_alive(), "[launcher] the scraper hung")
+        counts = kops.launch_counts()
+        for p in paths:                  # once more after the run
+            scrapes[p].append(get(base + p))
+        try:
+            get(base + "/nope")
+            check(False, "[launcher] an unknown path did not 404")
+        except urllib.error.HTTPError as exc:
+            check(exc.code == 404, f"[launcher] /nope gave {exc.code}")
+        st, n = s.engine.stats(), s.n_nodes
+        ep, n_snap = s.endpoint, s.endpoint.n_snapshots
+        doc = s.dump_trace(trace)
+        coverage = s.telemetry.tracer.coverage()
+    check(not failures, f"[launcher] scrapes failed: {failures[:3]}")
+    check(all(code == 200 for p in paths for code, _ in scrapes[p]),
+          "[launcher] a scrape did not return 200")
+    check(b"deal_" in scrapes["/metrics"][-1][1],
+          "[launcher] /metrics holds no deal_ series")
+    health = json.loads(scrapes["/healthz"][-1][1])
+    stats = json.loads(scrapes["/stats"][-1][1])
+    check(stats["n_served"] == st["n_served"] > 0,
+          "[launcher] /stats disagrees with the engine")
+    check(st["n_refreshes"] >= 1, "[launcher] no refresh fired")
+    try:
+        get(base + "/stats")
+        check(False, "[launcher] the endpoint still serves after close()")
+    except (urllib.error.URLError, ConnectionError, OSError):
+        pass
+    check(ep.n_snapshots >= 1 and "stats" in json.loads(snap.read_text()),
+          "[launcher] no snapshot written")
+    check(counts["gather_spmm"] > 0, f"[launcher] launches {counts}")
+    for k, v in counts.items():
+        launches[k] += v
+    cats = tuple(DEFAULT_CATS.split(","))
+    problems, summary = validate_trace(doc, 0.9, cats,
+                                       ("serve.tick", "refresh.layer"))
+    check(not problems, f"[launcher] trace: {problems}")
+    problems = report.check_trace(doc)
+    check(not problems, f"[launcher] check_trace: {problems}")
+    agg = report.stage_breakdown(doc)
+    top = sorted(agg.items(), key=lambda kv: -kv[1]["total_ms"])[:14]
+    spans = sorted((e for e in doc["traceEvents"] if e.get("ph") == "X"),
+                   key=lambda e: e["ts"])
+    by_cat = {}                          # top-level spans only: no overlap
+    for e in spans:
+        if e["args"]["depth"] == 0 and e["name"] != "serve.query":
+            cat = e["name"].split(".", 1)[0]
+            by_cat[cat] = by_cat.get(cat, 0.0) + e["dur"] / 1e3
+    gaps = []                 # stretches of the window no span covers
+    hi, last = spans[0]["ts"] + spans[0]["dur"], spans[0]["name"]
+    for e in spans[1:]:
+        if e["ts"] > hi:
+            gaps.append(((e["ts"] - hi) / 1e3, last, e["name"]))
+        if e["ts"] + e["dur"] > hi:
+            hi, last = e["ts"] + e["dur"], e["name"]
+    tick0 = min(e["ts"] for e in spans if e["name"] == "serve.tick")
+    ops_ms = sum(e["dur"] for e in spans if e["name"].startswith("ops.")
+                 and e["ts"] >= tick0) / 1e3
+    log(f"[launcher] serve_embeddings gcn N={n} on \"cuda\": session "
+        f"build and full "
+        f"epoch {t_up:.1f} s, {LAUNCH_TICKS} ticks and the drain "
+        f"{t_drive:.2f} s, {st['n_served']} queries, {st['n_refreshes']} "
+        f"refreshes (staleness bound {LAUNCH_BOUND}); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    log(f"[launcher] endpoint: {sum(len(v) for v in scrapes.values())} "
+        f"scrapes of {', '.join(paths)}, all 200 (health "
+        f"{health['status']}), /nope 404, stopped by close(); "
+        f"{ep.n_snapshots} snapshots to {snap.relative_to(ROOT)} "
+        f"({n_snap} while serving, one on close)")
+    log(f"[launcher] trace {trace.relative_to(ROOT)}: {summary['n_spans']} "
+        f"spans over {summary['window_ms'] / 1e3:.2f} s, coverage "
+        f"{summary['coverage']:.4f} (tracer {coverage:.4f}; >= 0.9), "
+        f"{summary['n_categories']} categories, validate_trace and "
+        "check_trace pass")
+    log("[launcher] ms per span category, top-level spans (queries "
+        "apart): " + ", ".join(f"{c} {v:.1f}" for c, v in
+                               sorted(by_cat.items(), key=lambda kv: -kv[1]))
+        + "; uncovered: " + ", ".join(
+            f"{ms:.1f} ms after {a} before {b}"
+            for ms, a, b in sorted(gaps, reverse=True)[:3]))
+    log("[launcher] the ticks: serve.refresh ms " + ", ".join(
+        f"{e['dur'] / 1e3:.1f}" for e in spans
+        if e["name"] == "serve.refresh") + "; refresh.frontier ms "
+        + ", ".join(f"{e['dur'] / 1e3:.1f}" for e in spans
+                    if e["name"] == "refresh.frontier")
+        + "; refresh.layer ms (rows) " + ", ".join(
+            f"{e['dur'] / 1e3:.1f} ({e['args']['rows']})" for e in spans
+            if e["name"] == "refresh.layer")
+        + f"; all ops.* spans in the ticks {ops_ms:.1f} ms")
+    log("[launcher] stage breakdown, top spans (count, total ms): "
+        + ", ".join(f"{n} {int(a['count'])} {a['total_ms']:.1f}"
+                    for n, a in top))
 
 
 # ----------------------------------------------------------------------
@@ -816,8 +1084,8 @@ def serve_session(torch, kops, s, label, launches, wide):
         ops.* span synchronizes its op: it holds the op's work on the
         card and the host reads the op triggers (the mean weights where
         the DenseIO build did not make them, gat's target rows)."""
-        return sum(dur for name, _, dur, _, _ in tel.events
-                   if name.startswith(prefix)) / 1e9
+        return sum(ev[2] for ev in tel.tracer.events_in_order()
+                   if ev[0].startswith(prefix)) / 1e9
 
     n = s.n_nodes
     rng = np.random.default_rng(0)
@@ -1286,6 +1554,10 @@ def main() -> int:
     lg0 = slice_phase(torch, kops, launches, wide)
     featprep_phase(torch, kops, lg0, launches)
     del lg0
+    torch.cuda.empty_cache()
+    ego_phase(torch, kops, launches)
+    torch.cuda.empty_cache()
+    launcher_phase(torch, kops, launches)
     torch.cuda.empty_cache()
     n_tc = llm_phase(torch, kops, launches, smi)
     for name, v in launches.items():

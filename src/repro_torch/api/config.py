@@ -6,12 +6,12 @@ JSON round-trip, so a config written for the JAX package (for example
 the same bytes.  ``validate()`` checks names against the port's own
 registries (``api.registry``).
 
-The port runs the offline pipeline (graph, model, executor sections)
-and the single-process serving tier (store, qos, refresh), and validates
+The port runs the offline pipeline (graph, model, executor sections),
+the single-process serving tier (store, qos, refresh) and telemetry
+(spans, exporters, the scrape endpoint and snapshots), and validates
 every section as the JAX package does.  The multi-process cluster tier
-(``cluster.n_shards > 0``) and the telemetry endpoint and snapshots
-(``telemetry.http_port``, ``telemetry.snapshot_path``) validate here but
-raise ``NotImplementedError`` at ``Session.serve()``.
+(``cluster.n_shards > 0``) validates here but raises
+``NotImplementedError`` at ``Session.serve()``.
 """
 from __future__ import annotations
 
@@ -159,9 +159,11 @@ class RefreshSpec:
 
 @dataclasses.dataclass
 class TelemetrySpec:
-    """The port's ``obs`` spans and counters, off by default.  The
-    exporter, endpoint and health fields of the JAX package are carried
-    for the round-trip; only ``enabled`` and ``clock`` act here."""
+    """The port's ``obs`` spans and metrics, off by default: the span
+    ring buffer's ``capacity`` and ``clock``, the scrape endpoint
+    (``http_port`` >= 0; 0 picks a free port) and the periodic JSON
+    snapshot (``snapshot_path`` every ``snapshot_every_s``) that
+    ``Session.serve()`` starts, and the serving tier's health options."""
     enabled: bool = False
     capacity: int = 65536
     clock: str = "monotonic"        # "monotonic" | "fake"
@@ -179,7 +181,8 @@ class TelemetrySpec:
             return None
         from repro_torch import obs
         clock = obs.FakeClock() if self.clock == "fake" else None
-        return obs.Telemetry(enabled=True, clock=clock)
+        return obs.Telemetry(enabled=True, clock=clock,
+                             capacity=self.capacity)
 
 
 @dataclasses.dataclass

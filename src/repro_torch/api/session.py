@@ -21,12 +21,13 @@ params, which is how the two packages are held against each other).
 full epoch (``DeltaReinference.full_levels``, through the bound
 executor) -> versioned store (budget / eviction / tail onboarding) ->
 recompute-on-miss wiring -> continuous-batching engine with optional
-multi-tenant QoS.  The store lives in host memory; each layer of a
-refresh copies its rows' inputs to the device and the outputs back.
-Not ported yet: the cluster tier (``cluster.n_shards > 0``, ROADMAP
-Queue 1 item 8) and the telemetry exporters and endpoint
-(``dump_trace``, ``prometheus_text``, ``telemetry.http_port`` /
-``snapshot_path``, item 7); each raises ``NotImplementedError``.
+multi-tenant QoS -> the telemetry endpoint and snapshot writer when
+``telemetry.http_port >= 0`` or ``telemetry.snapshot_path`` asks for
+them.  The store lives in host memory; each layer of a refresh copies
+its rows' inputs to the device and the outputs back.  ``dump_trace``
+writes the session's spans as a Perfetto trace, ``prometheus_text`` its
+metrics.  Not ported yet: the cluster tier (``cluster.n_shards > 0``,
+ROADMAP Queue 1 item 8) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ class Session:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._closed = False
+        self._endpoint = None
         self.timings: Dict[str, float] = {}
         self.telemetry = cfg.telemetry.build()
         self._prev_telemetry = (obs.install(self.telemetry)
@@ -184,24 +186,17 @@ class Session:
 
     def _check_servable(self) -> None:
         """Raise for the serving options the port does not run yet."""
-        cfg = self.cfg
-        if cfg.cluster.n_shards > 0:
+        if self.cfg.cluster.n_shards > 0:
             raise NotImplementedError(
                 "cluster.n_shards > 0: the multi-process cluster tier is "
                 "not ported yet (ROADMAP Queue 1 item 8)")
-        t = cfg.telemetry
-        if self.telemetry is not None and (t.http_port >= 0
-                                           or t.snapshot_path):
-            raise NotImplementedError(
-                "telemetry.http_port / telemetry.snapshot_path: the "
-                "telemetry endpoint is not ported yet (ROADMAP Queue 1 "
-                "item 7)")
 
     def _attach_engine(self, store):
         """Wire a ready store (+ ``self.reinfer``/``self.graph``) into
-        the serving engine and its health options.  ``serve()`` calls
-        this after the full epoch; checkpoint restore calls it with a
-        restored store instead of running an epoch."""
+        the serving engine, its health options and the telemetry
+        endpoint.  ``serve()`` calls this after the full epoch;
+        checkpoint restore calls it with a restored store instead of
+        running an epoch."""
         from repro_torch.gnnserve import EmbeddingServeEngine
         cfg = self.cfg
         q = cfg.qos
@@ -218,6 +213,12 @@ class Session:
             "burn_threshold": t.burn_threshold,
             "wait_slo_ms": t.wait_slo_ms,
         }
+        if self.telemetry is not None and (t.http_port >= 0
+                                           or t.snapshot_path):
+            from repro_torch.obs.endpoint import TelemetryEndpoint
+            self._endpoint = TelemetryEndpoint(
+                self, port=t.http_port, snapshot_path=t.snapshot_path,
+                snapshot_every_s=t.snapshot_every_s).start()
         return self._engine
 
     @classmethod
@@ -254,8 +255,9 @@ class Session:
 
     @property
     def endpoint(self):
-        """The telemetry endpoint: always None (not ported yet)."""
-        return None
+        """The live telemetry endpoint, or None (configure it via
+        ``telemetry.http_port`` / ``telemetry.snapshot_path``)."""
+        return self._endpoint
 
     @property
     def store(self):
@@ -322,16 +324,37 @@ class Session:
         return out
 
     def dump_trace(self, path) -> Dict[str, Any]:
-        """The Perfetto trace export: not ported yet."""
-        raise NotImplementedError(
-            "dump_trace: the telemetry exporters are not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+        """Write the session's span trace as Chrome/Perfetto trace-event
+        JSON (load it at https://ui.perfetto.dev), with the metrics
+        registry under ``deal_metrics`` and the engine's attribution,
+        top query paths and health under ``deal_attribution``,
+        ``deal_top_queries`` and ``deal_health``.  Returns the document.
+        Needs ``telemetry.enabled: true`` in the config."""
+        self._check_open()
+        if self.telemetry is None:
+            raise ConfigError(
+                "dump_trace needs telemetry enabled: set "
+                "telemetry.enabled = true in the DealConfig")
+        extra: Dict[str, Any] = {}
+        attrib = getattr(self._engine, "attrib", None)
+        health = getattr(self._engine, "health", None)
+        if attrib is not None:
+            extra["deal_attribution"] = attrib.summary()
+            extra["deal_top_queries"] = attrib.top_paths()
+        if health is not None:
+            extra["deal_health"] = health.summary()
+        return obs.dump_chrome_trace(
+            self.telemetry.tracer, path, self.telemetry.metrics,
+            process_name=f"deal.{self.cfg.model.name}",
+            extra=extra or None)
 
     def prometheus_text(self) -> str:
-        """The Prometheus export: not ported yet."""
-        raise NotImplementedError(
-            "prometheus_text: the telemetry exporters are not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+        """The metrics registry in Prometheus exposition format (empty
+        when telemetry is disabled)."""
+        self._check_open()
+        if self.telemetry is None:
+            return ""
+        return obs.prometheus_text(self.telemetry.metrics)
 
     # -- lifecycle ------------------------------------------------------
     def _check_open(self) -> None:
@@ -339,10 +362,15 @@ class Session:
             raise ConfigError("session is closed")
 
     def close(self) -> None:
-        """Release the big arrays (graph, features, store, engine) and
-        hand the process-current telemetry back to whoever held it."""
-        if not self._closed and self.telemetry is not None:
-            obs.install(self._prev_telemetry)
+        """Stop the telemetry endpoint, release the big arrays (graph,
+        features, store, engine) and hand the process-current telemetry
+        back to whoever held it."""
+        if not self._closed:
+            if self._endpoint is not None:
+                self._endpoint.stop()
+                self._endpoint = None
+            if self.telemetry is not None:
+                obs.install(self._prev_telemetry)
         self._closed = True
         for name in ("X", "graph", "layer_graphs", "_H", "params",
                      "executor", "_engine", "reinfer"):

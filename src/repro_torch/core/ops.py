@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.api.registry import register_executor
+from repro_torch.api.registry import EXECUTORS, register_executor
 from repro_torch.core.gnn_models import (LayerSpec, ModelSpec,
                                          gat_head_scores, masked_softmax,
                                          mean_weights)
@@ -275,7 +275,12 @@ class CudaExecutor(RefExecutor):
     instead of materializing ``nbr_resolved`` (bitwise the same).
     ``fused_attention``: collapse GAT's attn_scores -> edge_softmax into
     the one-pass gat_attention kernel through the ``run_layer``
-    peephole; off, scores come from one sddmm launch per head."""
+    peephole; off, scores come from one sddmm launch per head.
+
+    On a CUDA device the constructor builds the kernels that are not
+    built yet (``kernels.build.build_all``), so the nvcc time falls in
+    the caller's span (``session.executor_build``), not in the first
+    launch's."""
 
     name = "cuda"
 
@@ -284,6 +289,9 @@ class CudaExecutor(RefExecutor):
         super().__init__(device)
         self.fused_gather = fused_gather
         self.fused_attention = fused_attention
+        if self.device.type == "cuda":
+            from repro_torch.kernels import build
+            build.build_all()
 
     def spmm(self, H_src, w_edge, io: DenseIO):
         if self.fused_gather and io.table is not None:
@@ -332,3 +340,16 @@ register_executor("ref", lambda device="cuda", **kw: RefExecutor(device,
 register_executor("cuda", lambda device="cuda", **kw: CudaExecutor(device,
                                                                    **kw))
 
+
+def get_executor(executor="cuda", *, device="cuda", **kw):
+    """Resolve a registered executor name ("cuda" | "ref" | anything
+    added via ``api.registry.register_executor``) into an instance on
+    ``device``, or pass an instance through.  Unknown names raise with
+    every registered name listed."""
+    if not isinstance(executor, str):
+        return executor
+    try:
+        factory = EXECUTORS.get(executor)
+    except KeyError as exc:
+        raise ValueError(exc.args[0]) from None
+    return factory(device=device, **kw)

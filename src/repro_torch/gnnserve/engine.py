@@ -283,7 +283,7 @@ class EmbeddingServeEngine:
                  "_track": "queries"}
         for k, v in segs.items():
             attrs[f"{k}_ms"] = round(v / 1e6, 4)
-        tel.record("serve.query", q.submit_ns, e2e, 0, attrs)
+        tel.tracer.record("serve.query", q.submit_ns, e2e, 0, attrs)
 
     def _refresh(self) -> Dict:
         """The gate-free refresh body: ``full_epoch`` calls it directly

@@ -290,11 +290,11 @@ class QoSScheduler:
             now = tel.now_ns()
             for i in preempt:
                 victim = slot_q[i]
-                tel.record("qos.preempt", now, 0, 0,
+                tel.tracer.record("qos.preempt", now, 0, 0,
                                   {"slot": i, "uid": victim.uid,
                                    "tenant": victim.tenant})
             for i, q in admit:
-                tel.record("qos.grant", now, 0, 0,
+                tel.tracer.record("qos.grant", now, 0, 0,
                                   {"slot": i, "uid": q.uid,
                                    "tenant": q.tenant})
         return preempt, admit

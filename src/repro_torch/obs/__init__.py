@@ -1,130 +1,101 @@
-"""Spans and metrics for the port — the no-op-unless-enabled core of
-``repro.obs`` (``span`` / ``add`` / ``gauge`` / ``observe`` /
-``enabled``), with the same span and metric names at the same sites.
-Counters, gauges and histograms live in one ``metrics.MetricsRegistry``
-(``Telemetry.metrics``); the serving tier's health and attribution
-layer is ``obs.health``, the flat metric view of ``Session.stats()`` is
-``obs.compat``.  The exporters and the scrape endpoint are not ported
-yet (ROADMAP Queue 1 item 7).
+"""repro_torch.obs — tracing and metrics for the port, the twin of
+``repro.obs`` with the same span and metric names at the same sites.
 
-The process default is a disabled telemetry: ``span`` returns a falsy
-shared no-op span after one attribute check, so call sites write
+One ``Telemetry`` object pairs a span ``Tracer`` (a ring buffer of
+``capacity`` spans over an injectable clock, ``obs.trace``) with a
+``MetricsRegistry`` (typed counters / gauges / histograms,
+``obs.metrics``).  The exporters turn either into a Perfetto-loadable
+trace JSON or a Prometheus text dump (``obs.export``); ``obs.endpoint``
+serves them over HTTP, ``obs.validate`` and ``obs.report`` check a
+dumped trace.  The serving tier's health and attribution layer is
+``obs.health``, the flat metric view of ``Session.stats()`` is
+``obs.compat``.
 
+Instrumentation sites call the module-level helpers, so no tracer has to
+be threaded through every constructor:
+
+    from repro_torch import obs
+    ...
     with obs.span("sample.layer") as sp:
         ...
-        if sp:
-            sp.set(rows=n)
+        if sp:                       # falsy in no-op mode: the attrs
+            sp.set(rows=n)           # dict is never built
+
+The process default is a disabled telemetry: every helper is a no-op
+whose cost is one attribute check (``tel.enabled``) and which allocates
+nothing.  ``api.Session`` builds a ``Telemetry`` from its config's
+``TelemetrySpec`` and ``install``s it for the session's lifetime; tests
+use the ``use(tel)`` context manager.
 """
 from __future__ import annotations
 
-import time
 from contextlib import contextmanager
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional
 
-from repro_torch.obs.metrics import MetricsRegistry
-
-# one recorded span: (name, t_start_ns, dur_ns, depth, attrs-or-None)
-SpanTuple = Tuple[str, int, int, int, Optional[dict]]
-
-
-class FakeClock:
-    """Deterministic test clock: every read advances by ``step`` ns."""
-
-    def __init__(self, start: int = 0, step: int = 1000):
-        self.t = int(start)
-        self.step = int(step)
-
-    def __call__(self) -> int:
-        t = self.t
-        self.t += self.step
-        return t
-
-
-class NoopSpan:
-    """Shared do-nothing span; falsy so call sites skip building attrs."""
-
-    __slots__ = ()
-
-    def __enter__(self) -> "NoopSpan":
-        return self
-
-    def __exit__(self, *exc) -> bool:
-        return False
-
-    def __bool__(self) -> bool:
-        return False
-
-    def set(self, **attrs) -> None:
-        pass
-
-
-NOOP_SPAN = NoopSpan()
-
-
-class _Span:
-    __slots__ = ("_tel", "name", "attrs", "_t0", "_depth")
-
-    def __init__(self, tel: "Telemetry", name: str, attrs: Optional[dict]):
-        self._tel = tel
-        self.name = name
-        self.attrs = attrs
-
-    def __enter__(self) -> "_Span":
-        self._depth = self._tel.depth
-        self._tel.depth += 1
-        self._t0 = self._tel.clock()
-        return self
-
-    def __exit__(self, *exc) -> bool:
-        tel = self._tel
-        t1 = tel.clock()
-        tel.depth -= 1
-        tel.record(self.name, self._t0, t1 - self._t0, self._depth,
-                   self.attrs)
-        return False
-
-    def __bool__(self) -> bool:
-        return True
-
-    def set(self, **attrs) -> None:
-        if self.attrs is None:
-            self.attrs = {}
-        self.attrs.update(attrs)
+from repro_torch.obs.export import (chrome_trace, dump_chrome_trace,
+                                    prometheus_text)
+from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
+                                     MetricsRegistry)
+from repro_torch.obs.trace import NOOP_SPAN, FakeClock, NoopSpan, Tracer
 
 
 class Telemetry:
-    """One session's spans (kept in order of completion) and metrics."""
+    """One session's telemetry: enabled flag + tracer + metrics."""
 
-    def __init__(self, enabled: bool = True, clock=None):
+    __slots__ = ("enabled", "tracer", "metrics")
+
+    def __init__(self, enabled: bool = True, clock=None,
+                 capacity: int = 65536):
         self.enabled = enabled
-        self.clock = clock if clock is not None else time.perf_counter_ns
-        self.events: List[SpanTuple] = []
+        self.tracer = Tracer(clock=clock, capacity=capacity)
         self.metrics = MetricsRegistry()
-        self.depth = 0
+        # every completed span also feeds a per-name duration histogram
+        # (``ops.spmm`` span -> ``ops.spmm_ms``), with a second
+        # executor-attributed series when the span carries an
+        # ``executor`` attr (``ops.spmm.cuda_ms``)
+        self.tracer.on_record = self._span_metric
+
+    def _span_metric(self, name, dur_ns, attrs) -> None:
+        ms = dur_ns / 1e6
+        self.metrics.histogram(name + "_ms").observe(ms)
+        if attrs:
+            ex = attrs.get("executor")
+            if ex:
+                self.metrics.histogram(f"{name}.{ex}_ms").observe(ms)
 
     @property
     def counters(self) -> Dict[str, float]:
         """The counters' values by name."""
         return {m.name: m.value for m in self.metrics if m.kind == "counter"}
 
+    # -- spans ----------------------------------------------------------
+    def span(self, name: str, attrs: Optional[dict] = None):
+        if not self.enabled:
+            return NOOP_SPAN
+        return self.tracer.span(name, attrs)
+
+    # -- metrics --------------------------------------------------------
+    def add(self, name: str, v: float = 1.0) -> None:
+        if self.enabled:
+            self.metrics.counter(name).inc(v)
+
+    def gauge(self, name: str, v: float) -> None:
+        if self.enabled:
+            self.metrics.gauge(name).set(v)
+
+    def observe(self, name: str, v: float) -> None:
+        if self.enabled:
+            self.metrics.histogram(name).observe(v)
+
     def now_ns(self) -> int:
-        return self.clock()
+        return self.tracer.clock()
 
-    def record(self, name: str, t0: int, dur: int, depth: int,
-               attrs: Optional[dict]) -> None:
-        """Append one completed span (instrumentation that already
-        measured an interval, or a zero-duration event).  As in
-        ``repro.obs``, every span also feeds a ``<name>_ms`` histogram,
-        and a ``<name>.<executor>_ms`` one when it names an executor."""
-        self.events.append((name, int(t0), int(dur), int(depth), attrs))
-        ms = dur / 1e6
-        self.metrics.histogram(name + "_ms").observe(ms)
-        if attrs and attrs.get("executor"):
-            self.metrics.histogram(
-                f"{name}.{attrs['executor']}_ms").observe(ms)
+    def clear(self) -> None:
+        self.tracer.clear()
+        self.metrics.clear()
 
 
-DISABLED = Telemetry(enabled=False)
+DISABLED = Telemetry(enabled=False, capacity=1)
 _CURRENT: Telemetry = DISABLED
 
 
@@ -155,11 +126,14 @@ def use(tel: Optional[Telemetry]):
         install(prev)
 
 
+# -- module-level hot-path helpers (one attribute check, no allocation
+#    when disabled) -------------------------------------------------------
+
 def span(name: str, attrs: Optional[dict] = None):
     tel = _CURRENT
     if not tel.enabled:
         return NOOP_SPAN
-    return _Span(tel, name, attrs)
+    return tel.tracer.span(name, attrs)
 
 
 def add(name: str, v: float = 1.0) -> None:
@@ -178,3 +152,10 @@ def observe(name: str, v: float) -> None:
     tel = _CURRENT
     if tel.enabled:
         tel.metrics.histogram(name).observe(v)
+
+
+__all__ = ["Telemetry", "Tracer", "FakeClock", "MetricsRegistry",
+           "Counter", "Gauge", "Histogram", "NoopSpan", "NOOP_SPAN",
+           "DISABLED", "chrome_trace", "dump_chrome_trace",
+           "prometheus_text", "current", "enabled", "install", "use",
+           "span", "add", "gauge", "observe"]

@@ -210,7 +210,7 @@ class HealthMonitor:
         if tel.enabled:
             # a zero-duration structured event in the span stream: the
             # report CLI and Perfetto both see WHEN the alert fired
-            tel.record("health.alert", tel.now_ns(), 0, 0,
+            tel.tracer.record("health.alert", tel.now_ns(), 0, 0,
                               dict(alert))
 
     def _clear(self, kind: str, subject: str) -> None:

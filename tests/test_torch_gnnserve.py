@@ -22,7 +22,7 @@ from repro.core.graph import csr_from_edges as jcsr  # noqa: E402
 from repro.core.graph import rmat_edges as jrmat  # noqa: E402
 from repro.core.sampler import sample_layer_graphs as jsample  # noqa: E402
 from repro_torch import gnnserve as tgs  # noqa: E402
-from repro_torch.api import DealConfig, Session  # noqa: E402
+from repro_torch.api import ConfigError, DealConfig, Session  # noqa: E402
 from repro_torch.core.gnn_models import params_from_numpy  # noqa: E402
 from repro_torch.core.graph import csr_from_edges, rmat_edges  # noqa: E402
 from repro_torch.core.ops import CudaExecutor, RefExecutor  # noqa: E402
@@ -422,19 +422,23 @@ def test_serve_without_a_card_raises_unless_cpu(monkeypatch):
 
 
 def test_what_is_not_ported_raises_naming_its_roadmap_item():
+    """The cluster tier (item 8) and the distributed executor (item 5)
+    raise; the telemetry surface of item 7 is ported: without telemetry
+    ``dump_trace`` raises a ConfigError and ``prometheus_text`` is
+    empty, with it ``serve()`` starts the endpoint."""
     with Session.build(DealConfig.from_dict(_cfg()), device="cpu") as s:
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(ConfigError, match="telemetry"):
             s.dump_trace("/dev/null")
-        with pytest.raises(NotImplementedError, match="item 7"):
-            s.prometheus_text()
+        assert s.prometheus_text() == ""
     d = _cfg(cluster={"n_shards": 2})
     with Session.build(DealConfig.from_dict(d), device="cpu") as s:
         with pytest.raises(NotImplementedError, match="item 8"):
             s.serve()
     d = _cfg(telemetry={"enabled": True, "http_port": 0})
     with Session.build(DealConfig.from_dict(d), device="cpu") as s:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            s.serve()
+        s.serve()
+        assert s.endpoint is not None and s.endpoint.port
+    assert s.endpoint is None
     _, tp = _params("gcn")
     with pytest.raises(NotImplementedError, match="item 5"):
         tgs.DeltaReinference([], "gcn", tp, executor="dist")

@@ -712,3 +712,81 @@ def test_serving_invariants_on_the_card(cuda, model, heads):
         assert np.array_equal(levels["budget"][lvl], want)
         np.testing.assert_allclose(levels["ref"][lvl], want, atol=1e-4,
                                    rtol=3e-3)
+
+
+def _small_world(n=2048, fanout=8, d=32, seed=0):
+    from repro_torch.core.graph import csr_from_edges, rmat_edges
+    from repro_torch.core.sampler import sample_layer_graphs
+    src, dst = rmat_edges(n, 8 * n, seed=seed)
+    lgs = sample_layer_graphs(csr_from_edges(src, dst, n), fanout=fanout,
+                              n_layers=3, seed=seed)
+    X = np.random.default_rng(seed).standard_normal((n, d),
+                                                    dtype=np.float32)
+    return lgs, X
+
+
+@pytest.mark.parametrize("model", ["gcn", "sage", "gat"])
+def test_local_engines_cuda_match_ref_on_the_card(cuda, model):
+    """The layer-wise engines through the kernels against "ref" on the
+    card, with each model's kernels launched."""
+    from repro_torch.core import gnn_models
+    from repro_torch.core.layerwise import LOCAL_ENGINES
+    lgs, X = _small_world()
+    gen = torch.Generator().manual_seed(0)
+    dims = [32, 32, 32, 16]
+    params = gnn_models.params_to(
+        gnn_models.init_gat(gen, dims, heads=4) if model == "gat"
+        else getattr(gnn_models, f"init_{model}")(gen, dims), cuda)
+    kops.reset_launch_counts()
+    got = LOCAL_ENGINES[model](lgs, X, params)
+    counts = kops.launch_counts()
+    want = LOCAL_ENGINES[model](lgs, X, params, executor="ref")
+    assert got.device.type == "cuda" and got.shape == (2048, 16)
+    _close(got, want, 1e-4, 3e-3)
+    assert counts["spmm"] == 3, counts
+    if model == "gat":
+        assert counts["gat_attention"] == 3, counts
+
+
+@pytest.mark.parametrize("batch_size", [100, 2048])
+def test_ego_baseline_on_the_card_is_bitwise_layerwise(cuda, batch_size):
+    from repro_torch.core import gnn_models
+    from repro_torch.core.layerwise import (ego_batched_gcn_infer,
+                                            local_gcn_infer)
+    lgs, X = _small_world()
+    params = gnn_models.params_to(gnn_models.init_gcn(
+        torch.Generator().manual_seed(0), [32, 32, 32, 16]), cuda)
+    want = local_gcn_infer(lgs, X, params)
+    kops.reset_launch_counts()
+    got, work = ego_batched_gcn_infer(lgs, X, params, batch_size)
+    assert kops.launch_counts()["spmm"] >= 3
+    assert got.device.type == "cuda"
+    assert torch.equal(got, want)
+    assert work >= 3 * 2048
+
+
+def test_dump_trace_from_the_card_validates(cuda, tmp_path):
+    """A traced serving run through the launcher's functions on the card:
+    the trace (kernel builds included, under session.executor_build)
+    passes the port's validator and report check at coverage 0.9."""
+    import json
+
+    from repro_torch.api import DealConfig
+    from repro_torch.launch import serve_embeddings as se
+    from repro_torch.obs import report
+    from repro_torch.obs.validate import DEFAULT_CATS, validate_trace
+    cfg = DealConfig.from_dict({
+        "graph": {"dataset": "rmat", "n_nodes": 4096, "avg_degree": 8,
+                  "fanout": 8},
+        "model": {"name": "gcn", "n_layers": 2, "d_feature": 32},
+        "executor": {"name": "cuda"}, "qos": {"staleness_bound": 8},
+        "telemetry": {"enabled": True}})
+    with se._serve_session(cfg) as s:
+        se.drive(s.engine, ticks=4, mutations_per_tick=4)
+        doc = s.dump_trace(tmp_path / "trace.json")
+    assert doc == json.loads((tmp_path / "trace.json").read_text())
+    problems, summary = validate_trace(
+        doc, 0.9, tuple(DEFAULT_CATS.split(",")),
+        ("serve.tick", "refresh.layer", "session.executor_build"))
+    assert problems == [], problems
+    assert report.check_trace(doc) == []

@@ -185,7 +185,7 @@ def test_chunk_spans_and_counters_emitted(world):
     tel = obs.Telemetry()
     with obs.use(tel):
         stats = _run_job(ri, store, g2, batch, 32)
-    names = [ev[0] for ev in tel.events]
+    names = [ev[0] for ev in tel.tracer.events_in_order()]
     assert names.count("refresh.chunk") == stats["n_chunks"]
     assert names.count("refresh.layer") == stats["n_chunks"]
     assert "refresh.resample" in names and "refresh.frontier" in names

@@ -173,13 +173,14 @@ def test_telemetry_records_the_same_span_names():
         want = {ev[0] for ev in s.telemetry.tracer.events}
     with Session.build(DealConfig.from_dict(d), device="cpu") as s:
         s.infer_all()
-        assert {ev[0] for ev in s.telemetry.events} == want
+        got = {ev[0] for ev in s.telemetry.tracer.events_in_order()}
+        assert got == want
     d = _cfg_dict("gat", "cuda")
     d["telemetry"] = {"enabled": True, "clock": "fake"}
     prev = obs.current()
     with Session.build(DealConfig.from_dict(d), device="cpu") as s:
         s.infer_all()
-        names = {ev[0] for ev in s.telemetry.events}
+        names = {ev[0] for ev in s.telemetry.tracer.events_in_order()}
         assert obs.current() is s.telemetry
     assert obs.current() is prev
     for name in ("construct.dataset", "construct.shuffle", "sample.layer",
