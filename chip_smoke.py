@@ -78,6 +78,25 @@ the run with a non-zero exit code:
    construct, sample, featprep, ops, serve, refresh, store; the spans
    serve.tick and refresh.layer) and ``check_trace``, its coverage and
    stage breakdown printed, and the endpoint stopped by ``close()``.
+   [dist]: the distributed executor on a 4 x 2 mesh of shards, all on
+   the card (no interconnect is measured): ``Session.build(cfg)
+   .infer_all()`` with executor "dist" for gcn, sage and gat (1 head:
+   dist GAT has heads = 1 semantics), each within atol 1e-4, rtol 3e-3
+   of the single-card "cuda" executor on the same params, with the
+   plan build (``dist.bind``), the epoch and the bytes each primitive
+   copied; ``DistributedLayerwise`` for gat with 4 heads on 2 x 4
+   against the 1-head result; on gcn's layer 0 the dist SPMM and SDDMM
+   through the kernels against their plain versions, grouped against
+   monolithic, the graph-exchange and all-gather SPMMs, the deal_ring
+   and cagnet GEMMs and SDDMM approach (i) against DEAL's, and per
+   layer the bytes DEAL's SPMM copies (exactly M x ``comm_volume``'s
+   unique-row figure; the padded figure and the graph exchange's
+   beside it); then ``serve()`` and a trickle (64 edge adds, 16
+   feature updates, 8 node adds) through ``refresh()`` on the mesh,
+   every level bitwise a dist full epoch, and a second session whose
+   ``dist_local_cutover`` routes part of the same refresh to the local
+   "cuda" executor (within atol 1e-4, rtol 3e-3).  spmm and sddmm must
+   launch on the mesh, gather_spmm on the local routes.
 5. flash kernels: ``flash_attention`` at the dense-transformer prefill
    shape (smollm-360m: B=4, S=2048, 15 query heads over 5 kv heads,
    hd=64, causal), a ragged S=1000, a sliding window of 256 and the
@@ -136,6 +155,9 @@ CHUNK_ROWS, BUDGET_ROWS = 4096, 262144
 EGO_SCALE = 8                    # the ego baseline's world: 131,072 nodes
 EGO_BATCH_FRACTION = 0.06        # benchmarks/bench_e2e.py's batch cap
 LAUNCH_TICKS, LAUNCH_BOUND = 6, 16   # the launcher's run: a refresh fires
+DIST_MESH = (4, 2)               # examples/allnode_inference.py's mesh
+DIST_HEADS_MESH = (2, 4)         # gat's 4 heads need HEADS | M
+DIST_TRICKLE = {"edge_adds": 64, "feature_updates": 16, "node_adds": 8}
 DEVICE = "cuda"
 
 
@@ -1249,6 +1271,325 @@ def serve_session(torch, kops, s, label, launches, wide):
 
 
 # ----------------------------------------------------------------------
+# phase 4, [dist]: the distributed executor on a P x M mesh of shards
+# ----------------------------------------------------------------------
+
+def _trickle(rng, n):
+    """A trickle batch as log calls: DIST_TRICKLE's node adds (each wired
+    by 2 in-edges and 1 out-edge), the rest of its edge adds at random,
+    its feature updates."""
+    import numpy as np
+    k = DIST_TRICKLE["node_adds"]
+    new = np.arange(n, n + k)
+    wire_src = np.concatenate([rng.integers(0, n, 2 * k), new])
+    wire_dst = np.concatenate([np.repeat(new, 2), rng.integers(0, n, k)])
+    rest = DIST_TRICKLE["edge_adds"] - wire_src.size
+    fid = rng.choice(n, DIST_TRICKLE["feature_updates"], replace=False)
+    return [("add_nodes", (k, rng.standard_normal((k, D), np.float32))),
+            ("add_edges", (rng.integers(0, n, rest),
+                           rng.integers(0, n, rest))),
+            ("add_edges", (wire_src, wire_dst)),
+            ("update_features", (fid, rng.standard_normal(
+                (fid.size, D), np.float32)))]
+
+
+def dist_phase(torch, kops, launches):
+    """``Session.build(cfg).infer_all()`` with executor "dist" on the
+    DIST_MESH mesh for gcn, sage and gat (1 head), each within atol 1e-4,
+    rtol 3e-3 of the single-card "cuda" executor on the same params;
+    ``DistributedLayerwise`` for gat with 4 heads on DIST_HEADS_MESH
+    against the 1-head result; then on gcn's layer 0: the primitives
+    with the kernels against their plain versions, grouped against
+    monolithic, the SPMM and GEMM baselines, and the bytes each DEAL
+    SPMM layer copies against ``comm_volume``; then serving through the
+    mesh (``serve()``, one trickle batch through ``refresh()``, every
+    level bitwise a dist full epoch) and a second session whose local
+    cutover routes part of the same refresh off the mesh."""
+    from repro_torch import obs
+    from repro_torch.api import (DealConfig, ExecutorSpec, GraphSpec,
+                                 ModelSpec, PartitionSpec, QoSSpec,
+                                 RefreshSpec, Session, StoreSpec)
+    from repro_torch.core.gnn_models import model_spec
+    from repro_torch.core.layerwise import DistributedLayerwise
+    from repro_torch.core.ops import (CudaExecutor, DenseIO, DistExecutor,
+                                      run_model)
+    from repro_torch.launch.mesh import make_host_mesh
+
+    P, M = DIST_MESH
+
+    def cfg_for(model, cutover=0):
+        return DealConfig(
+            graph=GraphSpec(dataset="ogbn-papers100M", scale=N_NODES_SCALE,
+                            fanout=FANOUT, seed=0),
+            model=ModelSpec(name=model, n_layers=LAYERS, d_feature=D),
+            partition=PartitionSpec(p=P, m=M),
+            executor=ExecutorSpec(name="dist"),
+            store=StoreSpec(n_shards=4, onboarding="tail"),
+            qos=QoSSpec(staleness_bound=1 << 30),
+            refresh=RefreshSpec(dist_local_cutover=cutover))
+
+    def counted(fn, want_launched):
+        """fn() with the launch counts set to 0 just before and added to
+        ``launches`` just after; the kernels in ``want_launched`` must
+        have launched."""
+        kops.reset_launch_counts()
+        value = fn()
+        torch.cuda.synchronize()
+        counts = kops.launch_counts()
+        for k, v in counts.items():
+            launches[k] += v
+        for k in want_launched:
+            check(counts[k] > 0, f"[dist] {k} never launched: {counts}")
+        return value, {k: v for k, v in counts.items() if v}
+
+    def single_card(s, params):
+        spec = model_spec(s.cfg.model.name, params)
+        ios = [DenseIO.from_layer_graph(lg, s.device)
+               for lg in s.layer_graphs]
+        return run_model(CudaExecutor(DEVICE), spec, ios, s.X)
+
+    results = {}
+    for model in ("gcn", "sage", "gat"):
+        t0 = time.perf_counter()
+        s = Session.build(cfg_for(model), device=DEVICE)
+        t_build = time.perf_counter() - t0
+        check(isinstance(s.executor, DistExecutor)
+              and (s.executor.P, s.executor.M) == (P, M),
+              f"[dist] {model}: executor {s.executor.name}")
+        tel = obs.Telemetry()
+        with obs.use(tel):
+            H, counts = counted(s.infer_all, ["spmm"] + (
+                ["sddmm"] if model == "gat" else []))
+        per_op = {}
+        for name, _, dur, _, _ in tel.tracer.events_in_order():
+            if name == "dist.bind" or name.startswith("ops."):
+                per_op[name] = per_op.get(name, 0) + dur / 1e9
+        bind_s = per_op.pop("dist.bind")
+        check(tuple(H.shape) == (s.n_nodes, D) and H.device.type == DEVICE
+              and bool(torch.isfinite(H).all()),
+              f"[dist] {model}: output {tuple(H.shape)} on {H.device}")
+        want = single_card(s, s.params)
+        err = assert_close(torch, H, want, 1e-4, 3e-3,
+                           f"[dist] {model} {P}x{M} vs single-card cuda")
+        ex = s.executor
+        log(f"[dist] {model} {P}x{M}: N={s.n_nodes}, session built in "
+            f"{t_build:.1f} s; infer_all {s.timings['infer_s']:.4f} s, of "
+            f"which dist.bind (plan + layouts) {bind_s:.4f} s, s per op "
+            "kind (each op synchronized): " + ", ".join(
+                f"{k[4:]} {v:.4f}" for k, v in sorted(per_op.items()))
+            + "; bytes "
+            f"copied: spmm {ex.comm['spmm']}, sddmm {ex.comm['sddmm']}, "
+            f"gemm {ex.comm['gemm']}; launches {counts}; max err vs "
+            f"single-card cuda {err:.3e} (atol 1e-4, rtol 3e-3)")
+        if model == "gat":
+            hp, hm = DIST_HEADS_MESH
+            mesh = make_host_mesh(hp, hm, DEVICE)
+
+            def heads4():
+                eng = DistributedLayerwise(mesh, s.layer_graphs, "gat",
+                                           dict(s.params, heads=HEADS))
+                return eng.infer(s.X)
+            H4, counts = counted(heads4, ["spmm", "sddmm"])
+            err4 = assert_close(torch, H4, H, 1e-4, 3e-3,
+                                f"[dist] gat {HEADS} heads on {hp}x{hm} vs "
+                                "1 head")
+            log(f"[dist] gat {HEADS} heads on {hp}x{hm} "
+                f"(DistributedLayerwise): max err vs 1 head on {P}x{M} "
+                f"{err4:.3e} (heads=1 semantics); launches {counts}")
+        if model == "gcn":
+            dist_layer_checks(torch, s)
+            results["serve"] = dist_serve(torch, s, counted, _trickle)
+            s.close()
+            torch.cuda.empty_cache()
+            dist_cutover(torch, cfg_for, counted, results["serve"])
+        s.close()
+        del H, want
+        torch.cuda.empty_cache()
+
+
+def dist_layer_checks(torch, s):
+    """On the open gcn session's layer 0 (not counted: comparisons):
+    dist SPMM and SDDMM through the kernels against their plain versions
+    (the tolerances of tests/test_kernels.py), grouped against
+    monolithic, the graph-exchange and all-gather SPMMs and the
+    deal_ring and cagnet GEMMs against DEAL's, and per layer the bytes
+    the DEAL SPMM copies against ``comm_volume``."""
+    from repro_torch.core import primitives as prim
+    from repro_torch.core.ops import DistExecutor
+    from repro_torch.core.partition import comm_volume
+    ex = s.executor
+    mesh = ex.mesh
+    lgs = s.layer_graphs
+    ios = ex.bind(lgs, need_sddmm=True)
+    vol = comm_volume(ex.plan, D)
+    H = ex.prepare(s.X)
+    for l, io in enumerate(ios):
+        ex.comm.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ex.spmm(H, io.mean_w, io)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        v = vol[f"layer{l}"]
+        check(ex.comm["spmm"] == mesh.M * v["deal_feature_exchange_B"],
+              f"[dist] layer {l}: spmm copied {ex.comm['spmm']} bytes, "
+              f"M x comm_volume = {mesh.M * v['deal_feature_exchange_B']}")
+        log(f"[dist] bytes layer {l}: DEAL SPMM copied {ex.comm['spmm']} "
+            f"(= M x comm_volume's deal_feature_exchange_B "
+            f"{v['deal_feature_exchange_B']}; {v['unique_rows']} unique "
+            f"rows), padded as the JAX plan ships {ex.comm['spmm_padded']}; "
+            f"graph exchange would copy M x {v['graph_exchange_B']} "
+            f"({v['duplicated_edge_rows']} edge rows); {ms:.2f} ms host "
+            "clock, grouped")
+    io = ios[0]
+    W = s.params["w"][0]
+
+    def run(executor, what, *args):
+        xch = prim.Exchange(mesh)
+        out = what(executor, xch, *args)
+        torch.cuda.synchronize()
+        return out.to_global(DEVICE)
+
+    def spmm_of(e, io_):
+        return run(e, lambda e_, x: e_.spmm(H, io_.mean_w, io_))
+
+    kern = spmm_of(ex, io)
+    plain_ex = DistExecutor(mesh, kernels="ref")
+    plain = spmm_of(plain_ex, io)
+    e1 = assert_close(torch, kern, plain, ATOL["float32"] * FANOUT, 3e-2,
+                      "[dist] spmm kernels vs plain")
+    q = ex.gemm(H, s.params["w"][1])
+    scores = run(ex, lambda e_, x: prim.sddmm_ring(
+        q, H, io.deal, x, True, "cuda"))
+    scores_plain = run(ex, lambda e_, x: prim.sddmm_ring(
+        q, H, io.deal, x, True, "ref"))
+    e2 = assert_close(torch, scores, scores_plain,
+                      ATOL["float32"] * D ** 0.5, 3e-2,
+                      "[dist] sddmm kernels vs plain")
+    mono_ex = DistExecutor(mesh, grouped=False)
+    mono = spmm_of(mono_ex, io)
+    e3 = assert_close(torch, mono, kern, 1e-5, 1e-5,
+                      "[dist] spmm monolithic vs grouped")
+    # the two schedules of §3.5: CUDA events around a layer's SPMM
+    # against the host's clock over the same calls (equal: the host's
+    # launches set the pace, not the card)
+    clocks = {}
+    for mode, e in (("grouped", ex), ("monolithic", mono_ex)):
+        def one():
+            e.spmm(H, io.mean_w, io)
+        dev_ms = time_ms(torch, one, reps=5, warmup=1)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            one()
+        torch.cuda.synchronize()
+        clocks[mode] = (dev_ms, (time.perf_counter() - t) / 5 * 1e3)
+    errs = {}
+    for variant in ("graph_exchange", "allgather"):
+        e = DistExecutor(mesh, spmm_variant=variant)
+        io_v = e.bind(lgs[:1])[0]
+        errs[variant] = assert_close(torch, spmm_of(e, io_v), kern, 1e-5,
+                                     1e-5, f"[dist] spmm {variant} vs deal")
+        errs[variant + "_B"] = e.comm["spmm"]
+    hw = ex.gemm(H, W).to_global(DEVICE)
+    for variant in ("deal_ring", "cagnet"):
+        e = DistExecutor(mesh, gemm_variant=variant)
+        errs[variant] = assert_close(torch, e.gemm(H, W).to_global(DEVICE),
+                                     hw, 1e-4, 1e-4,
+                                     f"[dist] gemm {variant} vs deal")
+    dup = run(ex, lambda e_, x: prim.sddmm_ring(q, H, io.deal, x, True,
+                                                "cuda", "dup"))
+    e4 = assert_close(torch, dup, scores, 2e-4, 1e-4,
+                      "[dist] sddmm dup vs deal")
+    log(f"[dist] layer 0 on {mesh}: spmm kernels vs plain {e1:.3e}, sddmm "
+        f"kernels vs plain {e2:.3e} (tests/test_kernels.py tolerances); "
+        f"monolithic vs grouped spmm {e3:.3e}; graph_exchange "
+        f"{errs['graph_exchange']:.3e} ({errs['graph_exchange_B']} bytes), "
+        f"allgather {errs['allgather']:.3e} ({errs['allgather_B']} bytes) "
+        f"vs deal; gemm deal_ring {errs['deal_ring']:.3e}, cagnet "
+        f"{errs['cagnet']:.3e} vs deal; sddmm dup vs deal {e4:.3e}")
+    log("[dist] layer 0's SPMM, ms per call (CUDA events / host clock, "
+        "median of 5 / mean of 5): " + ", ".join(
+            f"{mode} {d:.3f} / {h:.3f}" for mode, (d, h) in clocks.items()))
+
+
+def dist_serve(torch, s, counted, trickle):
+    """``serve()`` and one trickle batch through ``refresh()`` on the
+    open gcn dist session (no cutover): every level of the refreshed
+    store is bitwise a dist full epoch over the mutated layer graphs
+    and features (the routed executor of the refresh itself).  Returns
+    the refreshed levels and the refresh's last frontier."""
+    import numpy as np
+    t = time.perf_counter()
+    eng, counts = counted(s.serve, ["spmm"])
+    epoch_s = time.perf_counter() - t
+    n = s.n_nodes
+    batch = trickle(np.random.default_rng(0), n)
+    for name, args in batch:
+        getattr(s.apply_mutations(), name)(*args)
+    t = time.perf_counter()
+    stats, rcounts = counted(s.refresh, ["spmm", "gather_spmm"])
+    refresh_s = time.perf_counter() - t
+    ri = s.reinfer
+    st = s.stats()
+    ids = np.arange(s.store.n_nodes, dtype=np.int64)
+    levels = [s.store.lookup(ids, lvl) for lvl in range(LAYERS + 1)]
+    t = time.perf_counter()
+    oracle = ri.full_levels(levels[0])      # comparison: not counted
+    oracle_s = time.perf_counter() - t
+    for lvl in range(1, LAYERS + 1):
+        check(np.array_equal(levels[lvl], oracle[lvl]),
+              f"[dist] serve: level {lvl} is not bitwise a dist full epoch")
+    log(f"[dist] serve gcn {s.executor.mesh}: full epoch {epoch_s:.3f} s "
+        f"(launches {counts}); trickle of {DIST_TRICKLE} refreshed in "
+        f"{refresh_s:.3f} s, frontier {stats['frontier_sizes']} rows, "
+        f"launches {rcounts}; every level bitwise a dist full epoch "
+        f"({oracle_s:.3f} s); refresh_cutover {st['refresh_cutover']}, "
+        f"plan_cache {st['plan_cache']}")
+    del oracle
+    return levels, stats["frontier_sizes"]
+
+
+def dist_cutover(torch, cfg_for, counted, served):
+    """A second gcn dist session with ``dist_local_cutover`` at the first
+    refresh's last frontier: the same trickle's first layer routes to
+    the local executor ("cuda") and the last stays on the mesh; every
+    level within atol 1e-4, rtol 3e-3 of the uncut refresh (routing
+    changes which reduction produced the bits)."""
+    import numpy as np
+
+    from repro_torch.api import Session
+    levels, frontier = served
+    cutover = int(frontier[-1])
+    with Session.build(cfg_for("gcn", cutover), device=DEVICE) as s:
+        s.serve()
+        ri = s.reinfer
+        before = (ri.n_local_cutovers, ri.n_dist_layers)
+        for name, args in _trickle(np.random.default_rng(0), s.n_nodes):
+            getattr(s.apply_mutations(), name)(*args)
+        t = time.perf_counter()
+        _, counts = counted(s.refresh, ["gather_spmm", "spmm"])
+        refresh_s = time.perf_counter() - t
+        n_local = ri.n_local_cutovers - before[0]
+        n_dist = ri.n_dist_layers - before[1]
+        check(n_local > 0 and n_dist > 0,
+              f"[dist] cutover {cutover}: {n_local} local and {n_dist} "
+              "dist layers; both routes must run")
+        ids = np.arange(s.store.n_nodes, dtype=np.int64)
+        errs = [assert_close(torch, torch.from_numpy(s.store.lookup(ids,
+                                                                    lvl)),
+                             torch.from_numpy(levels[lvl]), 1e-4, 3e-3,
+                             f"[dist] cutover level {lvl} vs uncut")
+                for lvl in range(1, LAYERS + 1)]
+        st = s.stats()
+        log(f"[dist] cutover at {cutover} rows: refresh {refresh_s:.3f} s, "
+            f"{n_local} layer(s) local, {n_dist} on the mesh, launches "
+            f"{counts}; max err vs the uncut refresh {max(errs):.3e} (atol "
+            f"1e-4, rtol 3e-3); refresh_cutover {st['refresh_cutover']}, "
+            f"plan_cache {st['plan_cache']}")
+
+
+# ----------------------------------------------------------------------
 # phase 5: the flash attention kernel
 # ----------------------------------------------------------------------
 
@@ -1558,6 +1899,10 @@ def main() -> int:
     ego_phase(torch, kops, launches)
     torch.cuda.empty_cache()
     launcher_phase(torch, kops, launches)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist_phase(torch, kops, launches)
+    log(f"[dist] phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     n_tc = llm_phase(torch, kops, launches, smi)
     for name, v in launches.items():

@@ -1,18 +1,21 @@
 """End-to-end driver for the PyTorch port — the paper's workload (Fig 2):
-compute embeddings for ALL nodes of a graph.
+compute embeddings for ALL nodes of a graph, distributed over a (P x M)
+mesh.
 
-Runs the pipeline on one device: edge list -> DEAL CSR construction ->
-layer-wise 1-hop sampling -> layer-by-layer inference through the
-"cuda" executor (the hand-written kernels), via
-``repro_torch.launch.infer_gnn``.
+Runs the full pipeline: edge list -> DEAL CSR construction -> layer-wise
+1-hop sampling -> 1-D + feature collaborative partition -> distributed
+layer-by-layer inference with the §3.4 primitives, via
+``repro_torch.launch.infer_gnn``.  The mesh's P x M shards live in this
+one process (on one card they all share it; every message between them
+is still a copy), so unlike the JAX example nothing is respawned.
 
+  PYTHONPATH=src python examples/torch_allnode_inference.py      # 4x2 mesh
   PYTHONPATH=src python examples/torch_allnode_inference.py --local
-  PYTHONPATH=src python examples/torch_allnode_inference.py --local \
+  PYTHONPATH=src python examples/torch_allnode_inference.py \
       --device cpu --scale 0.125
 
-Without ``--local`` the JAX example runs a (P x M) device mesh; the
-port's distributed executor is not ported yet (ROADMAP Queue 1 item 5),
-so that mode raises ``NotImplementedError``.
+``--local`` runs one device: the "cuda" executor (the hand-written
+kernels) on a card, the plain versions on the CPU.
 """
 import argparse
 import pathlib
@@ -34,15 +37,12 @@ def main(argv=None):
                     help="cuda (default; fails without a card) or cpu")
     args = ap.parse_args(argv)
 
-    if not args.local:
-        raise NotImplementedError(
-            f"a {args.p} x {args.m} mesh needs the distributed executor, "
-            "which is not ported yet (ROADMAP Queue 1 item 5); run with "
-            "--local")
     from repro_torch.launch.infer_gnn import main as infer_main
+    p, m = (1, 1) if args.local else (args.p, args.m)
     return infer_main(["--dataset", args.dataset, "--model", args.model,
-                       "--p", "1", "--m", "1", "--scale", str(args.scale),
-                       "--device", args.device])
+                       "--p", str(p), "--m", str(m), "--scale",
+                       str(args.scale), "--device", args.device]
+                      + (["--local"] if args.local else []))
 
 
 if __name__ == "__main__":

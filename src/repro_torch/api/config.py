@@ -6,10 +6,11 @@ JSON round-trip, so a config written for the JAX package (for example
 the same bytes.  ``validate()`` checks names against the port's own
 registries (``api.registry``).
 
-The port runs the offline pipeline (graph, model, executor sections),
-the single-process serving tier (store, qos, refresh) and telemetry
-(spans, exporters, the scrape endpoint and snapshots), and validates
-every section as the JAX package does.  The multi-process cluster tier
+The port runs the offline pipeline (graph, model, partition and
+executor sections, the distributed executor included), the
+single-process serving tier (store, qos, refresh) and telemetry (spans,
+exporters, the scrape endpoint and snapshots), and validates every
+section as the JAX package does.  The multi-process cluster tier
 (``cluster.n_shards > 0``) validates here but raises
 ``NotImplementedError`` at ``Session.serve()``.
 """
@@ -22,9 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from repro_torch.api import registry as _reg
 
 # executors of the JAX package that the port does not have yet
-_NOT_PORTED = {"pallas": "its kernels are the port's \"cuda\" executor",
-               "dist": "the distributed executor is not ported yet, "
-                       "ROADMAP Queue 1 item 5"}
+_NOT_PORTED = {"pallas": "its kernels are the port's \"cuda\" executor"}
 
 
 class ConfigError(ValueError):
@@ -67,8 +66,9 @@ class ModelSpec:
 
 @dataclasses.dataclass
 class PartitionSpec:
-    """The 1-D collaborative partition geometry (``p`` graph x ``m``
-    feature partitions); the port's single-card executors ignore it."""
+    """The 1-D collaborative partition geometry: ``p`` graph partitions
+    x ``m`` feature partitions (the dist executor's mesh); the
+    single-device executors ignore it."""
     p: int = 2
     m: int = 1
 
@@ -77,9 +77,15 @@ class PartitionSpec:
 class ExecutorSpec:
     """Backend selection.  ``fused_gather`` is the cuda executor's fused
     gather+spmm switch; ``block_table`` (a tuned block-size table in the
-    JAX package) has no counterpart in the port yet and must stay None."""
+    JAX package) has no counterpart in the port yet and must stay None.
+
+    ``fallback_to_ref`` is carried for the JAX package's configs: there
+    a trivial (p*m <= 1) "dist" becomes its jnp "ref" executor.  The
+    port's "ref" is the plain versions, which the card must not fall
+    back to, so a trivial "dist" runs as a one-shard ``DistExecutor``
+    (its kernels launch) whatever this field says."""
     name: str = "ref"               # a registered executor
-    fallback_to_ref: bool = True    # dist on a trivial mesh (JAX package)
+    fallback_to_ref: bool = True    # read by the JAX package only
     options: Dict[str, Any] = dataclasses.field(default_factory=dict)
     fused_gather: Optional[bool] = None
     block_table: Optional[str] = None
@@ -92,8 +98,10 @@ class ExecutorSpec:
 
     def build(self, partition: Optional[PartitionSpec] = None, *,
               n_nodes: Optional[int] = None, device="cuda"):
-        """Resolve this spec into an executor instance on ``device``.
-        Raises ``ConfigError`` naming the field and what the port has."""
+        """Resolve this spec into an executor instance on ``device``; for
+        "dist", the geometry checks and the mesh of ``partition`` on
+        ``device`` (``launch.mesh.make_host_mesh``).  Raises
+        ``ConfigError`` naming the field and what the port has."""
         _load_builtin_plugins()
         has = ", ".join(_reg.EXECUTORS.names())
         if self.name in _NOT_PORTED and self.name not in _reg.EXECUTORS:
@@ -109,7 +117,20 @@ class ExecutorSpec:
                 "executor.block_table: the port has no tuned block table "
                 "yet; leave it null (the port has executors: " + has + ")")
         factory = _reg.EXECUTORS.get(self.name)
-        return factory(device=device, **self._options())
+        if self.name != "dist":
+            return factory(device=device, **self._options())
+        part = partition or PartitionSpec()
+        p, m = part.p, part.m
+        if n_nodes is not None and n_nodes % p != 0:
+            raise ConfigError(
+                f"partition.p: {p} must divide the node count {n_nodes}")
+        if m & (m - 1) != 0:
+            raise ConfigError(
+                f"partition.m: {m} must be a power of two "
+                "(row-subset pad buckets)")
+        from repro_torch.launch.mesh import make_host_mesh
+        return factory(device=device, mesh=make_host_mesh(p, m, device),
+                       **self.options)
 
 
 @dataclasses.dataclass
@@ -147,11 +168,14 @@ class QoSSpec:
 @dataclasses.dataclass
 class RefreshSpec:
     """Delta re-inference knobs: the content-addressed resample seed,
-    the dist executor's frontier-size cutover (carried; the port has no
-    dist executor yet), and ``chunk_rows``: the delta frontier splits
-    into chunks of this many rows that the engine interleaves with
-    tenant gathers, one a serve step (0 = the whole refresh inline).
-    Any value serves the bits of the inline refresh."""
+    the dist frontier-size cutover — a refresh layer whose gathered
+    universe is below ``dist_local_cutover`` rows runs on a local
+    executor instead of the mesh (0 = never cut over; routing decisions
+    surface in ``Session.stats()`` and the ``refresh.route`` spans) —
+    and ``chunk_rows``: the delta frontier splits into chunks of this
+    many rows that the engine interleaves with tenant gathers, one a
+    serve step (0 = the whole refresh inline).  Any value serves the
+    bits of the inline refresh."""
     sample_seed: int = 0
     dist_local_cutover: int = 0
     chunk_rows: int = 0
@@ -564,6 +588,11 @@ class DealConfig:
                                 or ov[k] < 1):
                     e.append(f"{path}.{k}: must be an int >= 1, got "
                              f"{ov[k]!r}")
+        if cl.n_shards > 0 and ex.name == "dist":
+            e.append("cluster.n_shards: the dist executor inside "
+                     "cluster workers needs per-process device flags; "
+                     "run dist single-process or workers with "
+                     "ref/cuda")
 
         if e:
             raise ConfigError("invalid DealConfig:\n  - "

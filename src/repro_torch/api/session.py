@@ -11,8 +11,9 @@ and the single-process serving tier.
 
 ``build`` runs the same stages as ``repro.api.session.Session``: dataset
 -> distributed CSR construction -> layer-wise sampling -> features and
-params -> executor.  The features come from the same numpy generator as
-in the JAX package, so X is identical in both.  The params come from a
+params -> executor (for "dist", a P x M mesh on the session's device).
+The features come from the same numpy generator as in the JAX package,
+so X is identical in both.  The params come from a
 ``torch.Generator`` seeded with the graph seed, or from ``params=``
 (for example ``core.gnn_models.params_from_numpy`` of the JAX package's
 params, which is how the two packages are held against each other).
@@ -59,6 +60,10 @@ class Session:
         self.telemetry = cfg.telemetry.build()
         self._prev_telemetry = (obs.install(self.telemetry)
                                 if self.telemetry is not None else None)
+        # session-scoped subset-plan cache counters: stats() reports
+        # THIS session's hits/misses, not every session in the process
+        from repro_torch.core.partition import install_plan_cache_counters
+        self._plan_cache_counters = install_plan_cache_counters()
         self._build_pipeline(params)
         self._H: Optional[torch.Tensor] = None
         self._engine = None
@@ -127,20 +132,31 @@ class Session:
     # -- offline: all-node inference ------------------------------------
     def infer_all(self) -> torch.Tensor:
         """One full layer-by-layer epoch for ALL nodes through the bound
-        executor; a tensor on the session's device.  Cached."""
+        executor; a tensor on the session's device (the dist executor's
+        shards gathered into it).  Cached."""
         self._check_open()
         if self._H is not None:
             return self._H
         from repro_torch.core.gnn_models import model_spec
-        from repro_torch.core.ops import DenseIO, run_model
+        from repro_torch.core.ops import DenseIO, DistExecutor, run_model
         spec = model_spec(self.cfg.model.name, self.params)
         lgs = self.layer_graphs[:len(spec.layers)]
+        ex = self.executor
         t0 = time.perf_counter()
         with obs.span("session.infer_all",
                       {"model": self.cfg.model.name}
                       if obs.enabled() else None) as sp:
-            ios = [DenseIO.from_layer_graph(lg, self.device) for lg in lgs]
-            H = run_model(self.executor, spec, ios, self.X)
+            if isinstance(ex, DistExecutor):
+                need_sddmm = any(op.kind == "attn_scores"
+                                 for layer in spec.layers
+                                 for op in layer.ops)
+                ios = ex.bind(lgs, need_sddmm=need_sddmm)
+            else:
+                ios = [DenseIO.from_layer_graph(lg, self.device)
+                       for lg in lgs]
+            H = run_model(ex, spec, ios, self.X)
+            if isinstance(ex, DistExecutor):
+                H = H.to_global(self.device)
             if H.is_cuda:
                 torch.cuda.synchronize(H.device)   # honest infer_s
             if sp:
@@ -286,8 +302,8 @@ class Session:
         """Pipeline timings + construction stats, plus the serve / store /
         QoS counter tree once the engine exists, with the keys of
         ``repro.api.session.Session.stats``: ``refresh_cutover``,
-        ``plan_cache`` (0 until the distributed executor brings a
-        subset-plan cache), ``metrics`` (the flat unified view, with
+        ``plan_cache`` (``build_subset_plan_cached``'s hits and misses
+        in this session), ``metrics`` (the flat unified view, with
         live telemetry merged on top when enabled), and ``attribution``
         / ``health`` once the engine has served under telemetry."""
         self._check_open()
@@ -307,7 +323,7 @@ class Session:
                 "n_dist": self.reinfer.n_dist_layers,
                 "n_tail": self.reinfer.n_tail_routed}
             out["refresh_cutover"] = cutover
-        out["plan_cache"] = {"hits": 0, "misses": 0}
+        out["plan_cache"] = dict(self._plan_cache_counters)
         out["metrics"] = compat.unified_metrics(
             engine_stats=engine_stats,
             construct_stats=self.construct_stats,
@@ -371,6 +387,9 @@ class Session:
                 self._endpoint = None
             if self.telemetry is not None:
                 obs.install(self._prev_telemetry)
+            from repro_torch.core.partition import \
+                uninstall_plan_cache_counters
+            uninstall_plan_cache_counters(self._plan_cache_counters)
         self._closed = True
         for name in ("X", "graph", "layer_graphs", "_H", "params",
                      "executor", "_engine", "reinfer"):

@@ -7,7 +7,9 @@ and run against a backend —
 
   * ``local_*`` — single-card engines; ``executor`` is "cuda" (the
     hand-written kernels, the default) or "ref" (plain PyTorch), on
-    ``device`` ("cuda" by default; "cpu" runs the plain versions).
+    ``device`` ("cuda" by default; "cpu" runs the plain versions);
+  * ``DistributedLayerwise`` — ``DistExecutor`` on a P x M mesh
+    (``launch.mesh``) using the §3.4 primitives and the static CommPlan.
 
 Plus the ego-network baseline (DGI/SALIENT++-style batched inference)
 of the Fig 14 comparison: the same math on the same sampled layer
@@ -17,9 +19,6 @@ runs through the same executor primitives.  Every GEMM of an executor
 has the same row count a call (``core.ops.gemm_rows``) and the kernels
 sum each row's slots in order, so on one executor the baseline gives
 the bits of ``local_gcn_infer``.
-
-The distributed engine (``DistributedLayerwise``) waits for the
-distributed executor (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -30,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.gnn_models import mean_weights, model_spec
-from repro_torch.core.ops import DenseIO, get_executor, run_model
+from repro_torch.core.ops import (DenseIO, DistExecutor, get_executor,
+                                  run_model)
 from repro_torch.core.sampler import LayerGraph
 
 
@@ -118,3 +118,34 @@ def ego_batched_gcn_infer(layer_graphs: List[LayerGraph], X, params,
         out[torch.as_tensor(targets, device=dev)] = H[
             torch.as_tensor(rows, device=dev)]
     return out, work_rows
+
+
+# ----------------------------------------------------------------------
+# distributed engine
+# ----------------------------------------------------------------------
+
+class DistributedLayerwise:
+    """DEAL distributed inference: a thin driver binding the model spec
+    to a ``DistExecutor`` on a P x M mesh.  ``infer`` returns the global
+    embeddings on the mesh's first device."""
+
+    def __init__(self, mesh, layer_graphs: List[LayerGraph], model: str,
+                 params, *, spmm_variant: str = "deal",
+                 gemm_variant: str = "deal", sddmm_variant: str = "deal",
+                 grouped: bool = True):
+        self.mesh = mesh
+        self.model = model
+        self.params = params
+        self.layer_graphs = layer_graphs
+        self.ex = DistExecutor(mesh, spmm_variant=spmm_variant,
+                               gemm_variant=gemm_variant,
+                               sddmm_variant=sddmm_variant, grouped=grouped)
+        self.P = self.ex.P
+        self.M = self.ex.M
+        self.spec = model_spec(model, params)
+        self.ios = self.ex.bind(layer_graphs[:len(self.spec.layers)],
+                                need_sddmm=(model == "gat"))
+        self.plan = self.ex.plan
+
+    def infer(self, X) -> torch.Tensor:
+        return run_model(self.ex, self.spec, self.ios, X).to_global()

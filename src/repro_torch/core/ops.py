@@ -11,10 +11,17 @@ layer graph (Deal §3.4), is declared once per model in
                     ``attend`` as one spmm over all heads.  The kernels
                     mask ragged rows and columns themselves, so nothing
                     is padded.
+  ``DistExecutor``  ("dist") the §3.4 primitives (``core.primitives``)
+                    on a P x M ``launch.mesh.Mesh`` with the static
+                    CommPlan — plus a ROW-SUBSET mode (``run_rows``) that
+                    executes one layer for a frontier of rows, split per
+                    partition (the distributed delta refresh).  Values
+                    on the mesh are ``primitives.Sharded``.
 
-Every executor lives on one device.  On a CUDA device the kernels run;
-on the CPU the same executor code runs the plain versions (the wrappers
-dispatch on the tensors' device), which is how the tests reach it.
+"ref" and "cuda" live on one device, "dist" on its mesh's.  On a CUDA
+device the kernels run; on the CPU the same executor code runs the plain
+versions (the wrappers dispatch on the tensors' device), which is how
+the tests reach it.
 GEMM is ``torch.matmul`` in full f32: ``resolve_device`` turns TF32
 off for matmuls and cuDNN when it selects a CUDA device.  Every GEMM
 call has the same number of rows (``GEMM_ROWS``; see ``gemm_rows``), so
@@ -23,16 +30,22 @@ refresh of a few rows then equals the full epoch bitwise.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence
+import collections
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import obs
 from repro_torch.api.registry import EXECUTORS, register_executor
+from repro_torch.core import primitives as prim
 from repro_torch.core.gnn_models import (LayerSpec, ModelSpec,
                                          gat_head_scores, masked_softmax,
                                          mean_weights)
+from repro_torch.core.partition import build_plan, build_subset_plan_cached
+from repro_torch.core.primitives import Sharded
 from repro_torch.core.sampler import LayerGraph
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
@@ -206,7 +219,9 @@ def run_layer(ex, layer: LayerSpec, io, h_tgt, h_src, heads: int = 1):
                 raise ValueError(f"unknown layer op {kind!r}")
             if sp:
                 # make the span honest under async launches; value-neutral
-                if out.is_cuda:
+                if isinstance(out, Sharded):
+                    out.synchronize()
+                elif out.is_cuda:
                     torch.cuda.synchronize(out.device)
                 sp.set(executor=getattr(ex, "name", type(ex).__name__),
                        rows=int(out.shape[0]))
@@ -332,24 +347,245 @@ class CudaExecutor(RefExecutor):
 
 
 # ----------------------------------------------------------------------
+# DistExecutor — the §3.4 primitives + CommPlan, full or row-subset
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DistIO:
+    """Graph binding for DistExecutor: one layer's receive layouts per
+    partition (``deal``: the unique-row ring, which SDDMM always uses;
+    ``spmm``: the SPMM variant's own, the same object for "deal") and its
+    mean edge weights and live mask, row-sharded over the mesh."""
+    deal: Optional[List[prim.RingLayout]]
+    spmm: List[prim.RingLayout]
+    mean_w: Sharded
+    mask: Sharded
+
+
+class DistExecutor:
+    """Deal's distributed backend on a P x M mesh (``launch.mesh``).
+
+    Full-graph mode: ``bind`` builds the static CommPlan for a list of
+    layer graphs and returns per-layer ``DistIO``s.  Row-subset mode:
+    ``run_rows`` executes ONE layer for a frontier of rows, splitting
+    the frontier per partition by the same 1-D ownership as the full
+    plan, so a row's bits are those of a full epoch through this
+    executor.
+
+    ``kernels`` is "cuda" (each shard's spmm / sddmm through the
+    kernels' wrappers, which launch on a CUDA device) or "ref" (their
+    plain versions on any device).  ``comm`` counts the bytes every
+    primitive's messages moved (``spmm``, ``sddmm``, ``gemm``) and, for
+    SPMM, what the JAX package's padded static shapes would move
+    (``spmm_padded``).
+
+    GAT note: edge scores use the full-width dot (heads=1 semantics; the
+    sum over the model axis assembles the full-D product), as in the
+    JAX package; ``heads`` must divide M.
+    """
+
+    name = "dist"
+
+    def __init__(self, mesh, *, spmm_variant: str = "deal",
+                 gemm_variant: str = "deal", sddmm_variant: str = "deal",
+                 grouped: bool = True, subset_floor: int = 64,
+                 kernels: str = "cuda"):
+        for what, v, ok in (("spmm_variant", spmm_variant,
+                             prim.SPMM_VARIANTS),
+                            ("gemm_variant", gemm_variant,
+                             prim.GEMM_VARIANTS),
+                            ("sddmm_variant", sddmm_variant,
+                             prim.SDDMM_VARIANTS),
+                            ("kernels", kernels, prim.KERNELS)):
+            if v not in ok:
+                raise ValueError(f"{what}: {v!r} is not one of {ok}")
+        self.mesh = mesh
+        self.P, self.M = mesh.P, mesh.M
+        self.device = mesh.devices[0]
+        # pow2-bucket floor for row-subset plans (the JAX package's
+        # compile-cache knob, kept so the plans equal its own)
+        self.subset_floor = subset_floor
+        self.spmm_variant = spmm_variant
+        self.gemm_variant = gemm_variant
+        self.sddmm_variant = sddmm_variant
+        self.grouped = grouped
+        self.kernels = kernels
+        self.comm = collections.Counter()
+        self.plan = None
+        if mesh.is_cuda and kernels == "cuda":
+            from repro_torch.kernels import build
+            build.build_all()
+
+    def _xch(self):
+        return prim.Exchange(self.mesh)
+
+    def _io(self, plan, r_loc: int, u_loc: int, fanout: int,
+            mask: np.ndarray, need_sddmm: bool, nbr=None,
+            mirror_src=None) -> DistIO:
+        """One layer's binding from a LayerPlan or SubsetPlan; ``mask``
+        is the (rows, F) live mask of the output rows."""
+        v = self.spmm_variant
+        deal = (prim.ring_layouts(plan, r_loc, u_loc, fanout)
+                if v == "deal" or need_sddmm else None)
+        if v == "graph_exchange":
+            spmm = prim.ring_layouts(plan, r_loc, u_loc, fanout,
+                                     mirror_src=mirror_src)
+        elif v == "allgather":
+            spmm = prim.gather_layouts(*nbr)
+        else:
+            spmm = deal
+        return DistIO(deal=deal, spmm=spmm,
+                      mean_w=prim.shard_rows(self.mesh, mean_weights(mask),
+                                             split_cols=False),
+                      mask=prim.shard_rows(self.mesh, mask,
+                                           split_cols=False))
+
+    # -- full-graph binding ---------------------------------------------
+    def bind(self, layer_graphs: Sequence[LayerGraph],
+             need_sddmm: bool = False) -> List[DistIO]:
+        with obs.span("dist.bind") as bsp:
+            self.plan = build_plan(list(layer_graphs), self.P, self.M)
+            ios = []
+            for l, lp in enumerate(self.plan.layers):
+                lg = layer_graphs[l]
+                ios.append(self._io(
+                    lp, lp.n_local, lp.n_local, lp.fanout, lg.mask,
+                    need_sddmm,
+                    nbr=(self.plan.nbr_local[l], self.plan.mask_local[l]),
+                    mirror_src=lp.mirror_src))
+            if bsp:
+                bsp.set(n_layers=len(ios), P=self.P, M=self.M)
+        return ios
+
+    # -- executor primitives --------------------------------------------
+    def prepare(self, X):
+        return prim.shard_rows(self.mesh, X)
+
+    def gemm(self, H, W):
+        xch = self._xch()
+        out = prim.gemm(H, torch.as_tensor(W), xch, self.gemm_variant,
+                        gemm_rows)
+        self.comm["gemm"] += xch.bytes
+        return out
+
+    def spmm(self, H_src, w_edge, io: DistIO):
+        xch = self._xch()
+        if self.spmm_variant == "allgather":
+            out = prim.spmm_allgather(H_src, w_edge, io.spmm, xch,
+                                      self.kernels)
+        else:
+            out = prim.spmm_ring(H_src, w_edge, io.spmm, xch, self.grouped,
+                                 self.kernels)
+        self.comm["spmm"] += xch.bytes
+        width = sum(b.shape[1] for b in H_src.blocks[0])
+        self.comm["spmm_padded"] += sum(
+            lay.pad_rows for lay in io.spmm) * width * \
+            H_src.blocks[0][0].element_size()
+        return out
+
+    def attn_scores(self, q, k, io: DistIO, heads: int):
+        if self.M % heads:
+            raise ValueError(f"heads={heads} must divide the model axis "
+                             f"M={self.M} (feature parts align to heads)")
+        xch = self._xch()
+        s = prim.sddmm_ring(q, k, io.deal, xch, self.grouped, self.kernels,
+                            self.sddmm_variant)
+        self.comm["sddmm"] += xch.bytes
+        scale = math.sqrt(q.shape[1])      # the full width: heads=1
+        return s.map(lambda b: b / scale)
+
+    def edge_softmax(self, s, io: DistIO):
+        return Sharded(self.mesh, [[masked_softmax(b, mb) for b, mb in
+                                    zip(rs, rm)] for rs, rm in
+                                   zip(s.blocks, io.mask.blocks)],
+                       split_cols=False)
+
+    def attend(self, alpha, v, io: DistIO, heads: int):
+        return self.spmm(v, alpha, io)
+
+    # -- row-subset mode (distributed delta refresh) --------------------
+    def run_rows(self, layer: LayerSpec, lg: LayerGraph, rows: np.ndarray,
+                 read_level: Callable, level: int, heads: int = 1,
+                 *, n_nodes: Optional[int] = None):
+        """Execute ``layer`` for the sorted row subset ``rows``, frontier
+        split per partition.  ``read_level(level, ids)`` supplies input
+        rows (the store's staged view during a refresh).  Returns the
+        (pre-activation) padded output as a ``Sharded`` plus (take,
+        n_src): the real rows' indices into its global rows and the
+        universe-row work count.
+
+        ``n_nodes`` pins the partition geometry to the pre-growth main
+        range when the layer graph has an unfolded tail appended — every
+        row (and masked neighbour) passed here must stay below it."""
+        if self.spmm_variant != "deal":
+            raise ValueError("row-subset mode needs the unique-row "
+                             "exchange plan (spmm_variant=\"deal\")")
+        if self.M & (self.M - 1):
+            raise ValueError(f"model axis M={self.M} must be a power of "
+                             "two (pad buckets)")
+        with obs.span("dist.subset_plan") as psp:
+            sp = build_subset_plan_cached(lg, rows, self.P,
+                                          m_align=self.M,
+                                          floor=self.subset_floor,
+                                          n_nodes=n_nodes)
+            if psp:
+                psp.set(rows=int(rows.size), src_rows=int(sp.n_src_rows),
+                        level=level)
+        r_loc, u_loc = sp.row_ids.shape[1], sp.src_ids.shape[1]
+        io = self._io(sp, r_loc, u_loc, sp.fanout,
+                      sp.row_mask.reshape(-1, sp.fanout), True)
+        with obs.span("dist.exchange") as xsp:
+            src_rows = read_level(level, sp.src_ids.reshape(-1))
+            H_src = self.prepare(src_rows)
+            if xsp:
+                nbytes = int(np.asarray(src_rows).nbytes)
+                xsp.set(bytes=nbytes, rows=int(sp.n_src_rows),
+                        level=level)
+                obs.add("dist.exchanged_bytes", nbytes)
+                obs.add("dist.src_rows", int(sp.n_src_rows))
+        h_tgt = lambda: self.prepare(                    # noqa: E731
+            read_level(level, sp.row_ids.reshape(-1)))
+        H = run_layer(self, layer, io, h_tgt, H_src, heads)
+        return H, sp.take, sp.n_src_rows
+
+
+# ----------------------------------------------------------------------
 # factory — backends resolve through the port's executor registry
 # ----------------------------------------------------------------------
+
+def _make_dist(device="cuda", mesh=None, **kw):
+    if mesh is None:
+        raise ValueError("dist executor needs a mesh= argument "
+                         "(launch.mesh.make_host_mesh)")
+    return DistExecutor(mesh, **kw)
+
 
 register_executor("ref", lambda device="cuda", **kw: RefExecutor(device,
                                                                  **kw))
 register_executor("cuda", lambda device="cuda", **kw: CudaExecutor(device,
                                                                    **kw))
+register_executor("dist", _make_dist)
 
 
-def get_executor(executor="cuda", *, device="cuda", **kw):
-    """Resolve a registered executor name ("cuda" | "ref" | anything
-    added via ``api.registry.register_executor``) into an instance on
-    ``device``, or pass an instance through.  Unknown names raise with
-    every registered name listed."""
+def local_executor_name(device) -> str:
+    """The single-device executor that stands in for the mesh where the
+    JAX package uses its jnp "ref" (the refresh's local cutover and tail
+    route): the kernels ("cuda") on a card, the plain versions ("ref")
+    on the CPU."""
+    return "cuda" if torch.device(device).type == "cuda" else "ref"
+
+
+def get_executor(executor="cuda", *, device="cuda", mesh=None, **kw):
+    """Resolve a registered executor name ("cuda" | "ref" | "dist" |
+    anything added via ``api.registry.register_executor``) into an
+    instance on ``device`` ("dist": on ``mesh``), or pass an instance
+    through.  Unknown names raise with every registered name listed."""
     if not isinstance(executor, str):
         return executor
     try:
         factory = EXECUTORS.get(executor)
     except KeyError as exc:
         raise ValueError(exc.args[0]) from None
+    if mesh is not None:
+        kw["mesh"] = mesh
     return factory(device=device, **kw)

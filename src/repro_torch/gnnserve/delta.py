@@ -13,12 +13,22 @@ forward-affected set is computable in closed form BEFORE any compute
 where ``consumers_l`` is the REVERSE of layer l's fanout matrix (who
 sampled me?) — the same frontier machinery as ``core.sharing``'s
 backward dependency walk, run forward.  Re-inference then re-runs ONLY
-those rows through the bound executor (``core.ops``: "ref" or "cuda"),
-on one device: the rows' inputs are gathered from the store on the
-host, copied to the executor's device, and the outputs copied back.
-The layer math comes from the same declarative spec as the offline
-epoch.  The distributed executor's row-subset mode is not ported yet
-(ROADMAP Queue 1 item 5).
+those rows through the bound executor (``core.ops``); the rows' inputs
+are gathered from the store on the host, copied to the executor's
+device(s), and the outputs copied back.  The layer math comes from the
+same declarative spec as the offline epoch, and the backend is
+selectable —
+
+  ref / cuda   single-device row-subset mode: neighbor ids translated
+               onto the gathered universe through a scratch table (the
+               gather_spmm kernel on "cuda");
+  dist         ``DistExecutor.run_rows``: the frontier is split per
+               partition and recomputed through the §3.4 primitives on
+               the mesh (a per-refresh SubsetPlan built over the same
+               1-D ownership as the full CommPlan).  Rows that are or
+               read a tail-onboarded node, and (with a local cutover)
+               small frontiers, route to the local executor: "cuda" on
+               a card, "ref" on the CPU (``core.ops.local_executor_name``).
 
 A delta-refreshed row is BITWISE equal to a from-scratch epoch through
 the SAME executor: the CUDA kernels compute a row from that row's inputs
@@ -41,28 +51,13 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.api.registry import EXECUTORS
 from repro_torch.core.gnn_models import model_spec
 from repro_torch.core.graph import Graph
-from repro_torch.core.ops import DenseIO, run_layer
+from repro_torch.core.ops import (DenseIO, get_executor,
+                                  local_executor_name, run_layer)
+from repro_torch.core.partition import invalidate_subset_plans, pad_bucket
 from repro_torch.core.sampler import LayerGraph
 from repro_torch.gnnserve.store import EmbeddingStore
-
-_DIST_MSG = ("the distributed executor's row-subset refresh is not ported "
-             "yet (ROADMAP Queue 1 item 5)")
-
-
-def pad_bucket(n: int, floor: int = 8) -> int:
-    """Pad bucket (``repro.core.partition.pad_bucket``): next power of
-    two, floored."""
-    return max(floor, 1 << max(0, int(n - 1).bit_length()))
-
-
-def invalidate_subset_plans(lg: LayerGraph) -> None:
-    """Drop cached frontier plans after an in-place layer-graph mutation
-    (``repro.core.partition.invalidate_subset_plans``; only the
-    distributed executor caches them)."""
-    getattr(lg, "_subset_plan_cache", {}).clear()
 
 
 # ----------------------------------------------------------------------
@@ -254,16 +249,6 @@ def _pow2(n: int, floor: int = 256) -> int:
     return pad_bucket(n, floor)
 
 
-def _resolve_executor(executor, device):
-    """An executor instance, or a name resolved through the port's
-    registry on ``device``."""
-    if not isinstance(executor, str):
-        return executor
-    if executor == "dist":
-        raise NotImplementedError(_DIST_MSG)
-    return EXECUTORS.get(executor)(device=device)
-
-
 def _remap(nbr_rows: np.ndarray, mask_rows: np.ndarray, universe: np.ndarray):
     """Map global neighbor ids onto positions in `universe`; masked slots
     pin to position 0 (see module docstring)."""
@@ -277,8 +262,9 @@ class DeltaReinference:
 
     ``layer_graphs`` are held by reference and mutated in place by
     ``resample_rows``; reverse indexes for mutated layers are rebuilt
-    lazily at the next refresh.  ``executor`` is an executor instance,
-    or a registered name ("ref" | "cuda") built on ``device``.
+    lazily at the next refresh.  ``executor`` is an executor instance
+    (a ``DistExecutor`` for mesh refresh), or a registered name ("ref" |
+    "cuda") built on ``device``.
     """
 
     def __init__(self, layer_graphs: Sequence[LayerGraph], model: str,
@@ -290,21 +276,32 @@ class DeltaReinference:
         self.model = model
         self.params = params
         self.spec = model_spec(model, params)
-        self.executor = _resolve_executor(executor, device)
+        self.executor = get_executor(executor, device=device)
         self.sample_seed = sample_seed
         self.rows_gemm = 0
         self.rev_rebuilds = 0
         self.rev_splices = 0
-        # the distributed executor's routing state (its frontier-size
-        # cutover, and the main-partition extent that tail rows are
-        # routed around), carried so stats() and checkpoints keep the
-        # JAX package's shape; the counters stay 0 on one device
+        # frontier-size cutover (dist executor only): a layer whose
+        # universe (rows_gemm unit) is below the threshold routes to a
+        # lazily-built LOCAL executor instead of the mesh — the mesh's
+        # messages and a cold subset plan dominate tiny frontiers.  0 =
+        # off (the default: routing changes which reduction produced the
+        # bits, so dist-vs-dist bitwise equivalence only holds with the
+        # cutover disabled or thresholds equal).
         self.local_cutover = int(local_cutover)
         self.n_local_cutovers = 0
         self.n_dist_layers = 0
+        # main-partition extent for the dist executor: tail-onboarded
+        # rows (ids >= n_main) never fit the `n % P == 0` subset-plan
+        # geometry, so any row that IS or READS a tail node routes
+        # through the local executor instead (see _layer_rows_dist).
+        # Frozen for the lifetime of this instance — re-partitioning the
+        # grown graph would change per-row reduction orders and break
+        # bitwise equality with the epochs already served.
         self.n_main = (int(self.layer_graphs[0].n_nodes)
                        if self.layer_graphs else 0)
         self.n_tail_routed = 0
+        self._local_ex = None
         self._table_pool: List[np.ndarray] = []
         self._rev: List[Optional[ReverseIndex]] = \
             [None] * len(self.layer_graphs)
@@ -318,6 +315,15 @@ class DeltaReinference:
             self._rev[l] = build_reverse_index(self.layer_graphs[l])
             self.rev_rebuilds += 1
         return self._rev[l]
+
+    def _local_executor(self):
+        """The single-device executor that tail rows and (with a cutover)
+        tiny dist frontiers route to, on the mesh's first device."""
+        if self._local_ex is None:
+            dev = self.executor.device
+            self._local_ex = get_executor(local_executor_name(dev),
+                                          device=dev)
+        return self._local_ex
 
     def _scratch_table(self, n: int) -> np.ndarray:
         """Node-count-sized int32 scratch for the fused id translation,
@@ -393,8 +399,73 @@ class DeltaReinference:
 
     def _layer_rows_dist(self, l: int, rows: np.ndarray, read_level,
                          ex) -> np.ndarray:
-        """The mesh's row-subset mode with tail routing: not ported."""
-        raise NotImplementedError(_DIST_MSG)
+        """Dist dispatch with tail-partition routing: rows that are, or
+        sample, a tail-onboarded node (id >= n_main) cannot enter the
+        ``n % P == 0`` subset-plan geometry without re-partitioning (and
+        re-partitioning would change reduction orders, i.e. bits), so
+        they route through the local executor; the remaining rows keep
+        the frozen main geometry.  Outputs merge order-preserving."""
+        lg = self.layer_graphs[l]
+        n_main = self.n_main
+        if lg.n_nodes > n_main:
+            touches = rows >= n_main
+            if rows.size:
+                touches = touches | (
+                    (lg.nbr[rows] >= n_main) & lg.mask[rows]).any(axis=1)
+            if touches.any():
+                tail_rows = rows[touches]
+                main_rows = rows[~touches]
+                self.n_tail_routed += int(tail_rows.size)
+                with obs.span("refresh.route") as sp:
+                    if sp:
+                        sp.set(route="tail-local", layer=l,
+                               rows=int(tail_rows.size), n_main=n_main)
+                h_tail = self._layer_rows_single(
+                    l, tail_rows, read_level, self._local_executor())
+                if main_rows.size == 0:
+                    return h_tail
+                h_main = self._layer_rows_dist_main(
+                    l, main_rows, read_level, ex)
+                out = np.empty((rows.size, h_tail.shape[1]), h_tail.dtype)
+                out[touches] = h_tail
+                out[~touches] = h_main
+                return out
+        return self._layer_rows_dist_main(l, rows, read_level, ex)
+
+    def _layer_rows_dist_main(self, l: int, rows: np.ndarray, read_level,
+                              ex) -> np.ndarray:
+        lg = self.layer_graphs[l]
+        spec = self.spec
+        layer = spec.layers[l]
+        nbrs = lg.nbr[rows][lg.mask[rows]]
+        U = np.unique(np.concatenate([rows, nbrs.astype(np.int64)]))
+        if self.local_cutover and U.size < self.local_cutover:
+            # tiny frontier: the mesh's messages and a cold subset plan
+            # cost more than computing it on one device
+            self.n_local_cutovers += 1
+            with obs.span("refresh.route") as sp:
+                if sp:
+                    sp.set(route="local", layer=l,
+                           rows=int(rows.size), universe=int(U.size),
+                           threshold=self.local_cutover)
+            return self._layer_rows_single(l, rows, read_level,
+                                           self._local_executor())
+        self.n_dist_layers += 1
+        if self.local_cutover:
+            with obs.span("refresh.route") as sp:
+                if sp:
+                    sp.set(route="dist", layer=l,
+                           rows=int(rows.size),
+                           universe=int(U.size),
+                           threshold=self.local_cutover)
+        h, take, n_src = ex.run_rows(
+            layer, lg, rows, read_level, l, spec.heads,
+            n_nodes=self.n_main if lg.n_nodes > self.n_main else None)
+        self.rows_gemm += n_src
+        if l < self.n_layers - 1:
+            h = spec.activation(h)
+        # the copy to the host waits for every shard's stream
+        return h.to_global("cpu").numpy()[take]
 
     def _layer_rows_single(self, l: int, rows: np.ndarray, read_level,
                            ex) -> np.ndarray:

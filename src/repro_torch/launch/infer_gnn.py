@@ -2,15 +2,20 @@
 pipeline, Fig 2): argparse -> ``DealConfig`` -> ``api.Session``.
 
   PYTHONPATH=src python -m repro_torch.launch.infer_gnn \
-      --dataset ogbn-products --model gcn            # on the card
+      --dataset ogbn-products --model gcn --p 4 --m 2  # mesh, on the card
+  PYTHONPATH=src python -m repro_torch.launch.infer_gnn \
+      --dataset ogbn-products --p 4 --m 2 --device cpu # mesh on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.infer_gnn --local  # 1 device
 
   # dump the effective config, then reproduce the run from it alone
   python -m repro_torch.launch.infer_gnn --model gat --dump-config run.json
   python -m repro_torch.launch.infer_gnn --config run.json --device cpu
 
-Configs are those of the JAX launcher (``repro.launch.infer_gnn``); the
-port's executors are "cuda" (the hand-written kernels, the default) and
-"ref" (plain PyTorch).
+Configs are those of the JAX launcher (``repro.launch.infer_gnn``), and
+so is the default executor: "dist", the §3.4 primitives on a ``--p`` x
+``--m`` mesh of shards in this one process (on one card all shards share
+it).  ``--local`` runs one device instead: "cuda" (the hand-written
+kernels) on a card, "ref" (plain PyTorch) on the CPU.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import argparse
 
 from repro_torch.api import (ConfigError, DealConfig, ExecutorSpec,
                              GraphSpec, ModelSpec, PartitionSpec, Session)
+from repro_torch.core.ops import local_executor_name
 
 
 def _run_session(cfg: DealConfig, device: str):
@@ -35,13 +41,17 @@ def _run_session(cfg: DealConfig, device: str):
         n_edges = s.graph.n_edges
         H = s.infer_all()
         t_inf = s.timings["infer_s"]
+        mesh = getattr(s.executor, "mesh", None)
         print(f"[infer] embeddings {tuple(H.shape)} for ALL nodes in "
               f"{t_inf:.2f}s ({n_edges/max(t_inf, 1e-9)/1e6:.2f} M edges/s, "
-              f"executor={s.executor.name}, device={s.device})")
+              f"executor={s.executor.name}, device={s.device})"
+              + (f" on {mesh}" if mesh is not None else ""))
         return H
 
 
 def config_from_args(args) -> DealConfig:
+    executor = (local_executor_name(args.device)
+                if args.executor == "dist" and args.local else args.executor)
     return DealConfig(
         graph=GraphSpec(dataset=args.dataset, scale=args.scale,
                         fanout=args.fanout, seed=args.seed,
@@ -49,7 +59,7 @@ def config_from_args(args) -> DealConfig:
         model=ModelSpec(name=args.model, n_layers=args.layers,
                         d_feature=args.d_feature),
         partition=PartitionSpec(p=args.p, m=args.m),
-        executor=ExecutorSpec(name=args.executor))
+        executor=ExecutorSpec(name=executor))
 
 
 def main(argv=None):
@@ -71,9 +81,12 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scale", type=float, default=1.0,
                     help="scale the dataset's node count")
-    ap.add_argument("--executor", default="cuda",
-                    help="backend: cuda kernels / ref plain PyTorch (or "
-                         "any registered executor)")
+    ap.add_argument("--local", action="store_true",
+                    help="one device instead of the mesh: the cuda "
+                         "executor on a card, ref on the CPU")
+    ap.add_argument("--executor", default="dist",
+                    help="backend: dist mesh / cuda kernels / ref plain "
+                         "PyTorch (or any registered executor)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu")
     args = ap.parse_args(argv)

@@ -17,12 +17,13 @@ driver loop here only generates traffic and prints stats.
       --trace trace.json
   PYTHONPATH=src python -m repro_torch.obs.validate trace.json
 
-``--executor`` is "cuda" (the hand-written kernels, the default) or
-"ref" (plain PyTorch); ``--device cuda`` (the default) raises without a
-card, ``--device cpu`` runs the plain versions.  The distributed
-executor (``--executor dist``) and the cluster tier
-(``--cluster-shards``) are not ported yet: the config check and
-``Session.serve()`` raise for them (ROADMAP Queue 1 items 5 and 8).
+``--executor`` is "cuda" (the hand-written kernels, the default), "ref"
+(plain PyTorch) or "dist": the epoch AND every delta refresh through
+the distributed executor (per-partition frontier split on a ``--p`` x
+``--m`` mesh of shards in this process); ``--device cuda`` (the default)
+raises without a card, ``--device cpu`` runs the plain versions.  The
+cluster tier (``--cluster-shards``) is not ported yet:
+``Session.serve()`` raises for it (ROADMAP Queue 1 item 8).
 
 ``--budget-rows R --evict-policy {lru,heat}`` caps each evictable store
 level at R resident rows (recompute-on-miss rebuilds evicted rows,
@@ -247,7 +248,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--staleness-bound", type=int, default=64)
     ap.add_argument("--executor", default="cuda",
                     help="delta-refresh backend: cuda kernels / ref plain "
-                         "PyTorch (or any registered executor)")
+                         "PyTorch / dist mesh (or any registered "
+                         "executor)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu")
     ap.add_argument("--p", type=int, default=4, help="graph partitions")

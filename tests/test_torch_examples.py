@@ -47,7 +47,11 @@ def test_example_without_a_card_raises(name, args, expect):
 
 
 def test_allnode_mesh_mode_names_the_roadmap_item():
-    proc = _run("torch_allnode_inference.py", ["--device", "cpu"])
-    assert proc.returncode != 0
-    assert "NotImplementedError" in proc.stderr
-    assert "Queue 1 item 5" in proc.stderr
+    """The mesh mode (ROADMAP Queue 1 item 5, ported) runs the P x M
+    shards in the example's one process: no respawn."""
+    proc = _run("torch_allnode_inference.py",
+                ["--scale", "0.03125", "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert ("embeddings (256, 64) for ALL nodes" in proc.stdout
+            and "executor=dist" in proc.stdout
+            and "Mesh(4 x 2 on cpu)" in proc.stdout), proc.stdout[-3000:]

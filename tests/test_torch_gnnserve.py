@@ -422,8 +422,8 @@ def test_serve_without_a_card_raises_unless_cpu(monkeypatch):
 
 
 def test_what_is_not_ported_raises_naming_its_roadmap_item():
-    """The cluster tier (item 8) and the distributed executor (item 5)
-    raise; the telemetry surface of item 7 is ported: without telemetry
+    """The cluster tier (item 8) raises; the telemetry surface of item 7
+    is ported: without telemetry
     ``dump_trace`` raises a ConfigError and ``prometheus_text`` is
     empty, with it ``serve()`` starts the endpoint."""
     with Session.build(DealConfig.from_dict(_cfg()), device="cpu") as s:
@@ -439,9 +439,11 @@ def test_what_is_not_ported_raises_naming_its_roadmap_item():
         s.serve()
         assert s.endpoint is not None and s.endpoint.port
     assert s.endpoint is None
+    # the distributed executor (item 5) is ported: by name it needs a
+    # mesh, as in the JAX package
     _, tp = _params("gcn")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tgs.DeltaReinference([], "gcn", tp, executor="dist")
+    with pytest.raises(ValueError, match="needs a mesh"):
+        tgs.DeltaReinference([], "gcn", tp, executor="dist", device="cpu")
 
 
 def test_serving_validation_matches_repro():

@@ -790,3 +790,98 @@ def test_dump_trace_from_the_card_validates(cuda, tmp_path):
         ("serve.tick", "refresh.layer", "session.executor_build"))
     assert problems == [], problems
     assert report.check_trace(doc) == []
+
+
+def _dist_cfg(model, executor="dist", p=4, m=2, **extra):
+    d = {"graph": {"dataset": "rmat", "n_nodes": 4096, "avg_degree": 8,
+                   "fanout": 8},
+         "model": {"name": model, "n_layers": 2, "d_feature": 32},
+         "partition": {"p": p, "m": m}, "executor": {"name": executor},
+         "store": {"onboarding": "tail"},
+         "qos": {"staleness_bound": 1 << 30}}
+    d.update(extra)
+    return d
+
+
+@pytest.mark.parametrize("model", ["gcn", "sage", "gat"])
+def test_dist_session_matches_cuda_on_the_card(cuda, model):
+    """A 4 x 2 dist Session (8 shards on the card) against the
+    single-card "cuda" Session with the same params, its shards'
+    aggregation and scoring on the kernels; grouped and monolithic
+    agree, and so do the kernels and their plain versions."""
+    from repro_torch.api import DealConfig, Session
+    from repro_torch.core.gnn_models import model_spec
+    from repro_torch.core.ops import DistExecutor, run_model
+    with Session.build(DealConfig.from_dict(_dist_cfg(model, "cuda"))) as s:
+        want = s.infer_all()
+        params = s.params
+    with Session.build(DealConfig.from_dict(_dist_cfg(model)),
+                       params=params) as s:
+        kops.reset_launch_counts()
+        got = s.infer_all()
+        counts = kops.launch_counts()
+        assert got.device.type == "cuda" and got.shape == want.shape
+        _close(got, want, 1e-4, 3e-3)
+        assert counts["spmm"] > 0, counts
+        assert (counts["sddmm"] > 0) == (model == "gat"), counts
+        spec = model_spec(model, params)
+        ios = s.executor.bind(s.layer_graphs, need_sddmm=True)
+        for kw in ({"grouped": False}, {"kernels": "ref"}):
+            other = DistExecutor(s.executor.mesh, **kw)
+            _close(run_model(other, spec, ios, s.X).to_global(), got,
+                   1e-5, 1e-5)
+
+
+def test_dist_refresh_is_bitwise_a_dist_full_epoch_on_the_card(cuda):
+    """chip_smoke.py's [dist] serving check at a small size: with no
+    cutover every level of the refreshed store equals a dist full epoch
+    bitwise; the tail route launches gather_spmm, the mesh spmm."""
+    from repro_torch.api import DealConfig, Session
+    rng = np.random.default_rng(0)
+    n = 4096
+    with Session.build(DealConfig.from_dict(_dist_cfg("gcn"))) as s:
+        s.serve()
+        log = s.apply_mutations()
+        log.add_edges(rng.integers(0, n, 64), rng.integers(0, n, 64))
+        log.update_features(rng.choice(n, 16, replace=False),
+                            rng.standard_normal((16, 32)).astype(np.float32))
+        log.add_nodes(4, np.ones((4, 32), np.float32))
+        log.add_edges(np.arange(n, n + 4), np.arange(4))
+        log.add_edges(np.arange(4), np.arange(n, n + 4))
+        kops.reset_launch_counts()
+        s.refresh()
+        counts = kops.launch_counts()
+        assert counts["spmm"] > 0 and counts["gather_spmm"] > 0, counts
+        ids = np.arange(s.store.n_nodes)
+        levels = [s.store.lookup(ids, lvl) for lvl in range(3)]
+        oracle = s.reinfer.full_levels(levels[0])
+        for lvl in (1, 2):
+            assert np.array_equal(levels[lvl], oracle[lvl]), lvl
+        cut = s.stats()["refresh_cutover"]
+        assert cut["n_tail"] > 0 and cut["n_dist"] > 0
+
+
+def test_dist_shards_on_distinct_cards(cuda):
+    """Shards placed round-robin over every visible card (messages
+    between cards are peer copies) give the one-card result, grouped and
+    monolithic.  Needs two or more cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.core import gnn_models
+    from repro_torch.core.layerwise import DistributedLayerwise, LOCAL_ENGINES
+    from repro_torch.launch.mesh import make_host_mesh
+    lgs, X = _small_world()
+    gen = torch.Generator().manual_seed(0)
+    dims = [32, 32, 32, 16]
+    mesh = make_host_mesh(4, 2)
+    cards = min(torch.cuda.device_count(), 8)
+    assert len(mesh.distinct_devices()) == cards
+    for model in ("gcn", "gat"):
+        params = gnn_models.params_to(
+            gnn_models.init_gat(gen, dims, heads=1) if model == "gat"
+            else gnn_models.init_gcn(gen, dims), cuda)
+        want = LOCAL_ENGINES[model](lgs, X, params)
+        for grouped in (True, False):
+            got = DistributedLayerwise(mesh, lgs, model, params,
+                                       grouped=grouped).infer(X)
+            _close(got, want, 1e-4, 3e-3)

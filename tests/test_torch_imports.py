@@ -108,18 +108,18 @@ def _span_names(root):
 
 def test_span_names_missing_from_the_port_are_items_5_and_8():
     """Every span of the JAX package is recorded by the port too, but
-    those of the distributed executor (item 5: ``dist.*`` and the
-    refresh's dist-vs-local ``refresh.route``) and of the cluster tier
-    (item 8: ``serve.cluster_launch``).  (``refresh.subset_plan`` appears
-    in the JAX package's docstrings only: no call records it.)"""
+    the cluster tier's (item 8: ``serve.cluster_launch``).  The
+    distributed executor's (item 5: ``dist.*`` and the refresh's
+    dist-vs-local ``refresh.route``) are ported.  (``refresh.subset_plan``
+    appears in the JAX package's docstrings only: no call records it.)"""
     ours = _span_names(ROOT / "src" / "repro_torch")
     theirs = _span_names(ROOT / "src" / "repro")
-    missing = theirs - ours
-    assert {n for n in missing if not n.startswith("dist.")} == {
-        "refresh.route", "serve.cluster_launch"}
+    assert theirs - ours == {"serve.cluster_launch"}
     assert "refresh.subset_plan" not in theirs
-    assert {n for n in missing if n.startswith("dist.")} == {
-        n for n in theirs if n.startswith("dist.")}
+    dist = {n for n in theirs if n.startswith("dist.")}
+    assert dist == {"dist.bind", "dist.subset_plan", "dist.exchange",
+                    "dist.subset_plan_build"}
+    assert dist | {"refresh.route"} <= ours
     for name in ("serve.tick", "serve.drain", "featprep.scan_all",
                  "featprep.redistribute", "featprep.fused", "serve.query",
                  "health.alert", "qos.grant", "qos.preempt", "ops."):

@@ -44,6 +44,24 @@ def test_traced_run_on_the_cpu_validates(tmp_path, capsys, executor):
         assert summary["coverage"] >= 0.9
 
 
+def test_dist_executor_serves_through_the_launcher(tmp_path, capsys):
+    """``--executor dist``: the epoch and every refresh on a 4 x 2 mesh
+    of CPU shards; the trace carries the mesh's spans and passes both
+    packages' validators."""
+    path = tmp_path / "trace.json"
+    se.main(SMALL + ["--device", "cpu", "--executor", "dist", "--p", "4",
+                     "--m", "2", "--ticks", "3", "--trace", str(path)])
+    out = capsys.readouterr().out
+    assert "executor=dist" in out and "[fresh] last refresh" in out
+    doc = json.loads(path.read_text())
+    cats = tuple(DEFAULT_CATS.split(","))
+    spans = ("serve.tick", "refresh.layer", "dist.subset_plan",
+             "dist.subset_plan_build", "dist.exchange")
+    for validate in (validate_trace, jvalidate):
+        problems, _ = validate(doc, 0.9, cats, spans)
+        assert problems == [], problems
+
+
 def test_dump_config_round_trips_to_the_jax_launchers_bytes(tmp_path,
                                                             monkeypatch,
                                                             capsys):
@@ -64,8 +82,8 @@ def test_dump_config_round_trips_to_the_jax_launchers_bytes(tmp_path,
 
 
 def test_unported_executor_and_cluster_raise_through_the_session():
-    with pytest.raises(SystemExit, match="item 5"):
-        se.main(SMALL + ["--device", "cpu", "--executor", "dist"])
+    with pytest.raises(SystemExit, match="'pallas' is not in the port"):
+        se.main(SMALL + ["--device", "cpu", "--executor", "pallas"])
     with pytest.raises(NotImplementedError, match="item 8"):
         se.main(SMALL + ["--device", "cpu", "--executor", "ref",
                          "--cluster-shards", "2"])

@@ -119,10 +119,11 @@ def test_launcher_dump_and_config_round_trip(tmp_path, capsys):
 def test_end_to_end_pipeline_local():
     """tests/test_system.py's local pipeline through the port's launcher
     flags: edge list -> distributed CSR -> sample -> all-node inference
-    on the cuda executor, here on CPU tensors."""
+    on one device (``--local``: the plain versions on the CPU; without it
+    the launcher's default is the dist mesh, as the JAX launcher's)."""
     H = infer_gnn.main(["--dataset", "ogbn-products", "--model", "gcn",
                         "--p", "2", "--fanout", "4", "--layers", "2",
-                        "--d-feature", "16", "--device", "cpu"])
+                        "--d-feature", "16", "--device", "cpu", "--local"])
     assert H.shape[1] == 16 and torch.isfinite(H).all()
 
 
@@ -136,7 +137,7 @@ def test_validation_uses_the_ports_registries():
     msg = str(ei.value)
     for frag in ("graph.dataset", "graph.fanout", "model.name",
                  "model.heads", "executor.name", "executor.block_table",
-                 "registered: cuda, ref"):
+                 "registered: cuda, dist, ref"):
         assert frag in msg, frag
     with pytest.raises(ConfigError, match="unknown field"):
         DealConfig.from_dict({"graph": {"fanuot": 4}})
@@ -145,9 +146,8 @@ def test_validation_uses_the_ports_registries():
 
 
 @pytest.mark.parametrize("spec,match", [
-    (ExecutorSpec(name="pallas"), "the port has: cuda, ref"),
-    (ExecutorSpec(name="dist"), "not ported yet"),
-    (ExecutorSpec(name="nope"), "registered: cuda, ref"),
+    (ExecutorSpec(name="pallas"), "the port has: cuda, dist, ref"),
+    (ExecutorSpec(name="nope"), "registered: cuda, dist, ref"),
     (ExecutorSpec(name="cuda", block_table="default"), "block_table"),
 ])
 def test_executor_spec_build_refuses_what_the_port_lacks(spec, match):
