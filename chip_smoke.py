@@ -21,6 +21,13 @@ the run with a non-zero exit code:
    attend: w a strided (R, 8, 4) view) bitwise the four per-head
    launches; gat_attention and sddmm bitwise on row subsets, and sddmm
    on strided per-head column slices against their contiguous copies.
+   [tune]: ``tuning.ensure_tuned`` for spmm and gather_spmm at those
+   shapes over their grid of 15 tilings (rows x chunks a block) into a
+   fresh table under ``build/``, each tiling timed with CUDA events
+   (median of 20) and its output bitwise the default tiling's; the
+   slice phase's gcn session binds that table
+   (``ExecutorSpec(name="cuda", block_table=...)``), picks the winner,
+   and its ``infer_all`` is bitwise an untuned executor's epoch.
    [gat-wide]: the wide scoring kernel (a warp a row; F > 32 or heads
    not a power of two) against the same plain versions: gat_attention
    on the layer graph sampled at fanout 64 (D = 128, 4 heads; quantized
@@ -97,6 +104,21 @@ the run with a non-zero exit code:
    ``dist_local_cutover`` routes part of the same refresh to the local
    "cuda" executor (within atol 1e-4, rtol 3e-3).  spmm and sddmm must
    launch on the mesh, gather_spmm on the local routes.
+   [cluster]: ``Session.build(cfg).serve()`` with ``cluster.n_shards =
+   2`` on the stand-in at 1,048,576 nodes (gat, 4 heads, fused
+   attention, tail onboarding): two worker processes on the card, each
+   building the world, behind the router; the ready wait; against a
+   single-process engine on the parent session's own world, 64 queries
+   of 256 rows bitwise before and after one trickle commit (64 edge
+   adds, 16 feature updates, 8 node adds), whose refresh, WAL and
+   checkpoint times each worker reports; every shard's store digests
+   equal the single process's; shard 1 killed with SIGKILL and
+   restarted (build, restore and replay times) while shard 0 runs the
+   ``checkpoint`` op (its time), digests equal again;
+   the router's /healthz scraped once; the workers' own launch counts
+   (their ``status``) added to the totals, with gather_spmm and
+   gat_attention launched; every process's peak memory; no worker left
+   after ``close()``.
 5. flash kernels: ``flash_attention`` at the dense-transformer prefill
    shape (smollm-360m: B=4, S=2048, 15 query heads over 5 kv heads,
    hd=64, causal), a ragged S=1000, a sliding window of 256 and the
@@ -134,6 +156,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -158,6 +181,13 @@ LAUNCH_TICKS, LAUNCH_BOUND = 6, 16   # the launcher's run: a refresh fires
 DIST_MESH = (4, 2)               # examples/allnode_inference.py's mesh
 DIST_HEADS_MESH = (2, 4)         # gat's 4 heads need HEADS | M
 DIST_TRICKLE = {"edge_adds": 64, "feature_updates": 16, "node_adds": 8}
+TUNE_TABLE = ROOT / "build" / "tuned_blocks_smoke.json"   # [tune]'s table
+TUNE_REPEATS = 20                # CUDA-event timings a tiling, median
+CLUSTER_SHARDS = 2
+# [cluster]'s RPC and readiness limits (s): a commit's RPC covers the
+# refresh, the WAL append and the compressed checkpoint of a 1,048,576-
+# node world, which pass the defaults' 60 s (PERF.md, section 5)
+CLUSTER_TIMEOUT_S = 900.0
 DEVICE = "cuda"
 
 
@@ -605,6 +635,99 @@ def gat_wide_phase(torch, kops, lg, lg64, rows):
 
 
 # ----------------------------------------------------------------------
+# [tune]: the block-size autotuner over the spmm kernels' tilings
+# ----------------------------------------------------------------------
+
+def tune_phase(torch, kops, lg):
+    """``tuning.ensure_tuned`` for spmm and gather_spmm at the main
+    path's shapes into a fresh table (``TUNE_TABLE``), every candidate
+    timed with CUDA events (median of ``TUNE_REPEATS``); each
+    candidate's output bitwise the default tiling's.  The slice phase's
+    gcn session then binds the table (``ExecutorSpec(name="cuda",
+    block_table=TUNE_TABLE)``, ``tuned_gcn_check``).  Returns the
+    winners."""
+    from repro_torch import tuning
+    from repro_torch.kernels.spmm import default_tiling
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    nbr = torch.as_tensor(lg.nbr, device=dev)
+    mask = torch.as_tensor(lg.mask, device=dev)
+    R, F = nbr.shape
+    h = torch.randn((R, D), generator=gen, device=dev)
+    w = torch.rand((R, F), generator=gen, device=dev)
+    table = torch.randperm(R, generator=gen, device=dev).to(torch.int32)
+    calls = {"spmm": lambda **kw: kops.spmm(h, w, nbr, mask, **kw),
+             "gather_spmm": lambda **kw: kops.gather_spmm(
+                 h, table, w, nbr, mask, **kw)}
+    TUNE_TABLE.parent.mkdir(exist_ok=True)
+    TUNE_TABLE.unlink(missing_ok=True)
+    tb = tuning.BlockTable(path=TUNE_TABLE)
+    winners = {}
+    for name, call in calls.items():
+        base = call()
+        timed = []
+
+        def make_call(blocks, call=call):
+            def fn():
+                call(**blocks)
+            fn.blocks = blocks
+            return fn
+
+        def timer(fn, repeats, timed=timed):
+            t = tuning.cuda_event_timer(fn, repeats)
+            timed.append((fn.blocks, t))
+            return t
+
+        t0 = time.perf_counter()
+        best = tuning.ensure_tuned(tb, name, make_call, N=R, D=D,
+                                   timer=timer, repeats=TUNE_REPEATS,
+                                   backend=dev.type)
+        search_s = time.perf_counter() - t0
+        for blocks, _ in timed:
+            check(torch.equal(call(**blocks), base),
+                  f"[tune] {name}: tiling {blocks} differs from the "
+                  "default's bits")
+        check(tuning.BlockTable.load(TUNE_TABLE).lookup(
+            name, N=R, D=D, backend=dev.type) == best,
+            f"[tune] {name}: the saved table does not hold {best}")
+        default = dict(zip(("block_rows", "block_cols"),
+                           default_tiling(D, 16 // h.element_size())))
+        log(f"[tune] {name} R={R} F={F} D={D} f32: {len(timed)} tilings "
+            f"searched in {search_s:.1f} s, ms (CUDA events, median of "
+            f"{TUNE_REPEATS}) " + ", ".join(
+                f"{b['block_rows']}x{b['block_cols']} {t * 1e3:.4f}"
+                for b, t in timed)
+            + f"; winner {best['block_rows']}x{best['block_cols']} "
+            f"(default {default['block_rows']}x{default['block_cols']}); "
+            "every tiling bitwise the default's")
+        winners[name] = best
+    return winners
+
+
+def tuned_gcn_check(torch, kops, s, H, winners):
+    """On the slice phase's gcn session, whose executor is
+    ``ExecutorSpec(name="cuda", block_table=TUNE_TABLE)``: it picked
+    [tune]'s winner, and its ``infer_all`` (``H``) is bitwise the same
+    epoch through an untuned ``CudaExecutor`` on the same world (not
+    counted: a comparison)."""
+    from repro_torch.core.gnn_models import model_spec
+    from repro_torch.core.ops import CudaExecutor, DenseIO, run_model
+    picked = s.executor._pick_blocks("spmm", s.n_nodes, D, torch.float32)
+    check(picked == winners["spmm"],
+          f"[tune] the tuned session picked {picked}, not "
+          f"{winners['spmm']}")
+    ios = [DenseIO.from_layer_graph(lg, s.device) for lg in s.layer_graphs]
+    untuned = run_model(CudaExecutor(DEVICE), model_spec("gcn", s.params),
+                        ios, s.X)
+    check(torch.equal(H, untuned),
+          "[tune] the tuned gcn infer_all is not bitwise the untuned one")
+    log(f"[tune] gcn Session.infer_all through ExecutorSpec(name=\"cuda\", "
+        f"block_table={TUNE_TABLE.relative_to(ROOT)}) ran spmm at "
+        f"{picked['block_rows']}x{picked['block_cols']}: bitwise the "
+        "untuned executor's epoch")
+
+
+# ----------------------------------------------------------------------
 # phase 3: the slice through Session.infer_all
 # ----------------------------------------------------------------------
 
@@ -616,9 +739,10 @@ EXPECTED = {
 }
 
 
-def slice_phase(torch, kops, launches, wide):
-    """infer_all for each model; the gcn and gat (fused) sessions then
-    run the serving phase (``serve_session``)."""
+def slice_phase(torch, kops, launches, wide, winners):
+    """infer_all for each model (gcn's executor bound to [tune]'s table,
+    checked by ``tuned_gcn_check``); the gcn and gat (fused) sessions
+    then run the serving phase (``serve_session``)."""
     from repro_torch import obs
     from repro_torch.api import (DealConfig, ExecutorSpec, GraphSpec,
                                  ModelSpec, QoSSpec, Session, StoreSpec)
@@ -633,8 +757,9 @@ def slice_phase(torch, kops, launches, wide):
                             fanout=FANOUT, seed=0),
             model=ModelSpec(name=model, n_layers=LAYERS, d_feature=D,
                             heads=heads),
-            executor=ExecutorSpec(name="cuda",
-                                  options={"fused_attention": fused}),
+            executor=ExecutorSpec(
+                name="cuda", options={"fused_attention": fused},
+                block_table=str(TUNE_TABLE) if label == "gcn" else None),
             store=StoreSpec(n_shards=4, onboarding="tail"),
             qos=QoSSpec(staleness_bound=1 << 30))
         t0 = time.perf_counter()
@@ -703,6 +828,8 @@ def slice_phase(torch, kops, launches, wide):
             log(f"[slice] {label} run_model under spans, ms per op kind "
                 "(each op synchronized): " + ", ".join(
                     f"{k} {v:.3f}" for k, v in sorted(per_op.items())))
+            if label == "gcn":
+                tuned_gcn_check(torch, kops, s, H, winners)
             if label != "gat_unfused":
                 layerwise_check(torch, kops, s, label, H, launches)
             lg0 = s.layer_graphs[0]
@@ -1590,6 +1717,234 @@ def dist_cutover(torch, cfg_for, counted, served):
 
 
 # ----------------------------------------------------------------------
+# phase 4, [cluster]: the multi-process cluster tier through Session.serve
+# ----------------------------------------------------------------------
+
+def _local_engine(s):
+    """A single-process serving engine on the open session's own world
+    (its graph, layer graphs, X, params and "cuda" executor), as
+    ``Session.serve`` builds one for a config without shards."""
+    import copy
+
+    from repro_torch.gnnserve import (DeltaReinference, EmbeddingServeEngine,
+                                      store_from_inference)
+    cfg = s.cfg
+    reinfer = DeltaReinference(
+        [copy.deepcopy(lg) for lg in s.layer_graphs], cfg.model.name,
+        s.params, sample_seed=cfg.refresh.sample_seed, executor=s.executor)
+    levels = reinfer.full_levels(s.X)
+    store = store_from_inference(s.X, levels[1:], n_shards=cfg.store.n_shards,
+                                 onboarding=cfg.store.onboarding)
+    q = cfg.qos
+    return EmbeddingServeEngine(store, reinfer, s.graph,
+                                batch_slots=q.batch_slots,
+                                rows_per_step=q.rows_per_step,
+                                staleness_bound=q.staleness_bound)
+
+
+def _store_digests(store):
+    """The worker's ``digest`` op over a store in this process: sha256 of
+    every level's rows for all nodes, and of the shard bounds."""
+    import hashlib
+
+    import numpy as np
+    ids = np.arange(store.n_nodes, dtype=np.int64)
+    out = {f"level{lvl}": hashlib.sha256(store.lookup(ids, lvl).tobytes())
+           .hexdigest() for lvl in range(store.n_levels)}
+    out["bounds"] = hashlib.sha256(
+        np.ascontiguousarray(store.bounds).tobytes()).hexdigest()
+    return out
+
+
+def cluster_phase(torch, kops, launches):
+    """``Session.build(cfg).serve()`` with ``cluster.n_shards = 2`` on the
+    stand-in at 1,048,576 nodes (gat, 4 heads, fused attention, tail
+    onboarding): two worker processes on the card, each building the
+    world, behind the router.  Against a single-process engine on the
+    parent session's own world: 64 queries of 256 rows bitwise before
+    and after one trickle commit (DIST_TRICKLE), and every shard's store
+    digests equal to the single process's; the commit's refresh and
+    checkpoint times split; shard 1 killed with SIGKILL and restarted
+    (restore and replay times) while shard 0 runs the checkpoint op,
+    digests equal again; the router's
+    /healthz scraped once; the workers' gather_spmm and gat_attention
+    launches added to the totals; every worker gone after ``close()``."""
+    import json as _json
+    import resource
+    import urllib.request
+
+    import numpy as np
+
+    from repro_torch.api import (ClusterSpec, DealConfig, ExecutorSpec,
+                                 GraphSpec, ModelSpec, QoSSpec, Session,
+                                 StoreSpec)
+    from repro_torch.gnnserve import Query
+    from repro_torch.gnnserve.cluster import ClusterEngine
+
+    cfg = DealConfig(
+        graph=GraphSpec(dataset="ogbn-papers100M", scale=N_NODES_SCALE,
+                        fanout=FANOUT, seed=0),
+        model=ModelSpec(name="gat", n_layers=LAYERS, d_feature=D,
+                        heads=HEADS),
+        executor=ExecutorSpec(name="cuda"),
+        store=StoreSpec(n_shards=4, onboarding="tail"),
+        qos=QoSSpec(staleness_bound=1 << 30),
+        cluster=ClusterSpec(n_shards=CLUSTER_SHARDS, http_port=0,
+                            ready_timeout_s=CLUSTER_TIMEOUT_S,
+                            hang_timeout_s=CLUSTER_TIMEOUT_S))
+    torch.cuda.empty_cache()            # the workers share the card
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = Session.build(cfg, device=DEVICE)
+    t_build = time.perf_counter() - t0
+    procs = []
+    try:
+        eng = s.serve()
+        dep = s.cluster
+        procs = list(dep.procs)
+        check(isinstance(eng, ClusterEngine) and dep.device == DEVICE,
+              f"[cluster] serve() gave {type(eng).__name__} on "
+              f"{dep.device}")
+        sts = dep.router.statuses()
+        log(f"[cluster] gat {HEADS} heads, N={s.n_nodes}: parent session "
+            f"built in {t_build:.1f} s; {CLUSTER_SHARDS} workers ready in "
+            f"{dep.ready_wait_s:.1f} s (" + "; ".join(
+                f"shard {st['shard']}: build {st['timings']['build_s']:.1f}"
+                f" s, full epoch {st['timings']['epoch_s']:.1f} s"
+                for st in sts) + ")")
+        n = s.n_nodes
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        local = _local_engine(s)
+        local_epoch_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        for k, v in kops.launch_counts().items():
+            launches[k] += v
+        rng = np.random.default_rng(0)
+
+        def queries(uid0):
+            """The same 64 queries through both engines, bitwise."""
+            ids = [rng.integers(0, local.store.n_nodes, SERVE_ROWS)
+                   for _ in range(SERVE_QUERIES)]
+            took = []
+            for engine in (eng, local):
+                qs = [Query(uid0 + i, x.copy()) for i, x in enumerate(ids)]
+                t = time.perf_counter()
+                for q in qs:
+                    engine.submit(q)
+                engine.run()
+                took.append(time.perf_counter() - t)
+                check(all(q.done for q in qs), "[cluster] a query hung")
+                if engine is eng:
+                    got = qs
+            for a, b in zip(got, qs):
+                check(a.served_version == b.served_version
+                      and np.array_equal(a.out, b.out),
+                      f"[cluster] query {a.uid}: the router's rows are not "
+                      "bitwise the single process's")
+            return took
+
+        kops.reset_launch_counts()
+        q_before = queries(0)
+        batch = _trickle(np.random.default_rng(1), n)
+        for engine in (eng, local):
+            for name, args in batch:
+                getattr(engine.mutate(), name)(*args)
+        t = time.perf_counter()
+        eng.refresh()
+        cluster_refresh_s = time.perf_counter() - t
+        t = time.perf_counter()
+        stats = local.refresh()
+        local_refresh_s = time.perf_counter() - t
+        q_after = queries(100)
+        torch.cuda.synchronize()
+        for k, v in kops.launch_counts().items():
+            launches[k] += v
+        sts = dep.router.statuses()
+        log(f"[cluster] {SERVE_QUERIES} queries x {SERVE_ROWS} rows: router "
+            f"{q_before[0]:.3f} s, single process {q_before[1]:.3f} s; "
+            f"trickle {DIST_TRICKLE} (frontier {stats['frontier_sizes']}): "
+            f"the router's commit {cluster_refresh_s:.2f} s (" + "; ".join(
+                f"shard {st['shard']}: apply + refresh "
+                f"{st['timings']['commit_apply_s']:.2f} s, WAL "
+                f"{st['timings']['commit_wal_s']:.3f} s, checkpoint "
+                f"{st['timings']['commit_checkpoint_s']:.2f} s"
+                for st in sts) + f"), single process {local_refresh_s:.2f} s;"
+            f" {SERVE_QUERIES} queries after it: router {q_after[0]:.3f} s, "
+            f"single process {q_after[1]:.3f} s; every row bitwise")
+        want = _store_digests(local.store)
+        ckpt = Path(dep.run_dir) / "shard1.ckpt.npz"
+        log(f"[cluster] checkpoint {ckpt.name}: "
+            f"{ckpt.stat().st_size / 2**30:.2f} GiB (np.savez_compressed)")
+        for d in dep.router.digests():
+            check(d["digests"] == want,
+                  "[cluster] a shard's store is not bitwise the single "
+                  "process's")
+        # the workers' launches: each process counts from 0 at its start
+        worker_launches = {k: 0 for k in kops.KERNELS}
+        for st in sts:
+            for k, v in st["kernel_launches"].items():
+                worker_launches[k] += v
+        mem = {st["shard"]: st["memory"] for st in sts}
+
+        def checkpoint_op():
+            """Shard 0's checkpoint op (the same save as a commit's),
+            timed round trip, while shard 1 restarts."""
+            t = time.perf_counter()
+            dep.router.channels[0].request("checkpoint")
+            return time.perf_counter() - t
+
+        with ThreadPoolExecutor(1) as pool:
+            ckpt_op = pool.submit(checkpoint_op)
+            t = time.perf_counter()
+            dep.kill_worker(1)
+            dep.restart_worker(1)
+            restart_s = time.perf_counter() - t
+            ckpt_op_s = ckpt_op.result()
+        st1 = dep.router.statuses()[1]
+        for k, v in st1["kernel_launches"].items():
+            worker_launches[k] += v
+        check(st1["restored"], "[cluster] shard 1 did not restore its "
+              "checkpoint")
+        digs = dep.router.digests()
+        check(all(d["digests"] == want for d in digs),
+              "[cluster] shard 1 did not rejoin bitwise")
+        log(f"[cluster] shard 1 killed (SIGKILL) and restarted in "
+            f"{restart_s:.1f} s: build {st1['timings']['build_s']:.1f} s, "
+            f"restore {st1['timings']['restore_s']:.1f} s, replay "
+            f"{st1['timings']['replay_s']:.3f} s ({st1['replayed']} WAL "
+            "entries); every shard's digests equal the single process's; "
+            f"meanwhile shard 0's checkpoint op took {ckpt_op_s:.2f} s")
+        url = f"http://127.0.0.1:{dep.endpoint.port}/healthz"
+        with urllib.request.urlopen(url, timeout=60) as r:
+            doc = _json.loads(r.read())
+        check(doc["status"] in ("ok", "alerting")
+              and [sh["shard"] for sh in doc["shards"]] == [0, 1],
+              f"[cluster] /healthz: {doc}")
+        for k in ("gather_spmm", "gat_attention"):
+            check(worker_launches[k] > 0,
+                  f"[cluster] the workers never launched {k}: "
+                  f"{worker_launches}")
+        for k, v in worker_launches.items():
+            launches[k] += v
+        parent_rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        log(f"[cluster] /healthz {doc['status']}; the workers' launches "
+            f"{ {k: v for k, v in worker_launches.items() if v} }; peak "
+            f"memory: parent host {parent_rss / 2**20:.2f} GiB (the whole "
+            f"run), card {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            "GiB (the phase); before the kill, " + "; ".join(
+                f"shard {i} host {m['host_peak_rss_bytes'] / 2**30:.2f} GiB, "
+                f"card {m['device_peak_bytes'] / 2**30:.2f} GiB"
+                for i, m in sorted(mem.items())))
+        procs = list(dep.procs)
+    finally:
+        s.close()
+    check(all(p is None or p.poll() is not None for p in procs),
+          "[cluster] a worker outlived close()")
+    log("[cluster] close(): every worker process has exited")
+
+
+# ----------------------------------------------------------------------
 # phase 5: the flash attention kernel
 # ----------------------------------------------------------------------
 
@@ -1883,6 +2238,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     rows = kernel_phase(torch, kops, lg)
     torch.cuda.empty_cache()
+    winners = tune_phase(torch, kops, lg)
+    torch.cuda.empty_cache()
     gat_wide_phase(torch, kops, lg, lg64, rows)
     del src_e, dst_e, g, lg64
     torch.cuda.empty_cache()
@@ -1892,7 +2249,7 @@ def main() -> int:
     launches = {name: 0 for name in kops.KERNELS}
     wide = {"gat_attention": 0, "sddmm": 0}
     gemm_check(torch)
-    lg0 = slice_phase(torch, kops, launches, wide)
+    lg0 = slice_phase(torch, kops, launches, wide, winners)
     featprep_phase(torch, kops, lg0, launches)
     del lg0
     torch.cuda.empty_cache()
@@ -1903,6 +2260,10 @@ def main() -> int:
     t0 = time.perf_counter()
     dist_phase(torch, kops, launches)
     log(f"[dist] phase took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cluster_phase(torch, kops, launches)
+    log(f"[cluster] phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     n_tc = llm_phase(torch, kops, launches, smi)
     for name, v in launches.items():

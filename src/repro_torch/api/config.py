@@ -6,13 +6,12 @@ JSON round-trip, so a config written for the JAX package (for example
 the same bytes.  ``validate()`` checks names against the port's own
 registries (``api.registry``).
 
-The port runs the offline pipeline (graph, model, partition and
-executor sections, the distributed executor included), the
-single-process serving tier (store, qos, refresh) and telemetry (spans,
-exporters, the scrape endpoint and snapshots), and validates every
-section as the JAX package does.  The multi-process cluster tier
-(``cluster.n_shards > 0``) validates here but raises
-``NotImplementedError`` at ``Session.serve()``.
+The port runs every section: the offline pipeline (graph, model,
+partition and executor, the distributed executor and the tuned block
+table included), the serving tier (store, qos, refresh), telemetry
+(spans, exporters, the scrape endpoint and snapshots) and the
+multi-process cluster tier (``cluster.n_shards > 0``), and validates
+each as the JAX package does.
 """
 from __future__ import annotations
 
@@ -24,6 +23,8 @@ from repro_torch.api import registry as _reg
 
 # executors of the JAX package that the port does not have yet
 _NOT_PORTED = {"pallas": "its kernels are the port's \"cuda\" executor"}
+# built-in executors whose kernels take no tuned tiling
+_NO_TILING = ("ref", "dist")
 
 
 class ConfigError(ValueError):
@@ -76,8 +77,12 @@ class PartitionSpec:
 @dataclasses.dataclass
 class ExecutorSpec:
     """Backend selection.  ``fused_gather`` is the cuda executor's fused
-    gather+spmm switch; ``block_table`` (a tuned block-size table in the
-    JAX package) has no counterpart in the port yet and must stay None.
+    gather+spmm switch; ``block_table`` its tuned tiling table
+    (``tuning.resolve_block_table``: "default" = the port's
+    ``configs/tuned_blocks_torch.json``, or a path).  Left at None,
+    either is omitted, so executors that do not take them never see
+    them; the built-in "ref" and "dist" take no tiling and refuse a
+    table.
 
     ``fallback_to_ref`` is carried for the JAX package's configs: there
     a trivial (p*m <= 1) "dist" becomes its jnp "ref" executor.  The
@@ -94,6 +99,8 @@ class ExecutorSpec:
         opts = dict(self.options)
         if self.fused_gather is not None:
             opts.setdefault("fused_gather", self.fused_gather)
+        if self.block_table is not None:
+            opts.setdefault("block_table", self.block_table)
         return opts
 
     def build(self, partition: Optional[PartitionSpec] = None, *,
@@ -112,10 +119,10 @@ class ExecutorSpec:
             raise ConfigError(
                 f"executor.name: unknown executor {self.name!r}; "
                 f"registered: {has}")
-        if self.block_table is not None:
+        if self.block_table is not None and self.name in _NO_TILING:
             raise ConfigError(
-                "executor.block_table: the port has no tuned block table "
-                "yet; leave it null (the port has executors: " + has + ")")
+                f"executor.block_table: the {self.name!r} executor takes "
+                "no tiling; a tuned block table needs \"cuda\"")
         factory = _reg.EXECUTORS.get(self.name)
         if self.name != "dist":
             return factory(device=device, **self._options())
@@ -211,9 +218,10 @@ class TelemetrySpec:
 
 @dataclasses.dataclass
 class ClusterSpec:
-    """Multi-process serving tier: validated and carried; ``n_shards >
-    0`` raises ``NotImplementedError`` at ``Session.serve()`` (ROADMAP
-    Queue 1 item 8)."""
+    """Multi-process serving tier: ``n_shards > 0`` makes
+    ``Session.serve()`` spawn that many shard-worker processes (each on
+    the session's device) behind an RPC router
+    (``gnnserve.cluster``)."""
     n_shards: int = 0
     host: str = "127.0.0.1"
     ports: Tuple[int, ...] = ()
@@ -430,9 +438,10 @@ class DealConfig:
                 ex.fused_gather, bool):
             e.append("executor.fused_gather: must be a bool or None, "
                      f"got {ex.fused_gather!r}")
-        if ex.block_table is not None:
-            e.append("executor.block_table: the port has no tuned block "
-                     f"table yet; must be null, got {ex.block_table!r}")
+        if ex.block_table is not None and not isinstance(
+                ex.block_table, str):
+            e.append("executor.block_table: must be a str or None, "
+                     f"got {ex.block_table!r}")
 
         if st.n_shards < 1:
             e.append(f"store.n_shards: must be >= 1, got {st.n_shards}")

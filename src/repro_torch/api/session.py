@@ -27,8 +27,11 @@ multi-tenant QoS -> the telemetry endpoint and snapshot writer when
 them.  The store lives in host memory; each layer of a refresh copies
 its rows' inputs to the device and the outputs back.  ``dump_trace``
 writes the session's spans as a Perfetto trace, ``prometheus_text`` its
-metrics.  Not ported yet: the cluster tier (``cluster.n_shards > 0``,
-ROADMAP Queue 1 item 8) raises ``NotImplementedError``.
+metrics.  With ``cluster.n_shards > 0``, ``serve`` instead launches the
+cluster tier (``gnnserve.cluster.ClusterDeployment``: shard-worker
+processes on the session's device, each building this config's world,
+behind an RPC router) and returns its ``ClusterEngine``, the same engine
+surface serving the same bytes.
 """
 from __future__ import annotations
 
@@ -67,6 +70,7 @@ class Session:
         self._build_pipeline(params)
         self._H: Optional[torch.Tensor] = None
         self._engine = None
+        self._cluster = None
         self.reinfer = None
 
     @classmethod
@@ -171,12 +175,28 @@ class Session:
     def serve(self):
         """Stand up (once) and return the serving engine: full epoch ->
         versioned store (budget / eviction / tail onboarding) ->
-        ``EmbeddingServeEngine`` with the config's QoS schedule."""
+        ``EmbeddingServeEngine`` with the config's QoS schedule.
+
+        With ``cluster.n_shards > 0`` the engine is a router-backed
+        ``ClusterEngine`` instead: shard-worker processes are spawned on
+        this session's device (each builds the same world from this
+        config), readiness is health-checked, and the returned facade
+        routes transparently — same surface, same served bytes."""
         self._check_open()
         if self._engine is not None:
             return self._engine
         cfg = self.cfg
-        self._check_servable()
+        if cfg.cluster.n_shards > 0:
+            from repro_torch.gnnserve.cluster import ClusterDeployment
+            with obs.span("serve.cluster_launch") as sp:
+                self._cluster = ClusterDeployment(cfg, device=self.device)
+                if sp:
+                    sp.set(n_shards=cfg.cluster.n_shards)
+            # the workers paid the epoch; the deployment's ready wait
+            # (spawn -> world build -> socket up) is the launch cost
+            self.timings["epoch_s"] = self._cluster.ready_wait_s
+            self._engine = self._cluster.engine
+            return self._engine
         from repro_torch.gnnserve import (DeltaReinference, attach_recompute,
                                           store_from_inference)
         st = cfg.store
@@ -199,13 +219,6 @@ class Session:
         if st.budget_rows:
             attach_recompute(store, self.reinfer)
         return self._attach_engine(store)
-
-    def _check_servable(self) -> None:
-        """Raise for the serving options the port does not run yet."""
-        if self.cfg.cluster.n_shards > 0:
-            raise NotImplementedError(
-                "cluster.n_shards > 0: the multi-process cluster tier is "
-                "not ported yet (ROADMAP Queue 1 item 8)")
 
     def _attach_engine(self, store):
         """Wire a ready store (+ ``self.reinfer``/``self.graph``) into
@@ -251,18 +264,18 @@ class Session:
         if cfg.cluster.n_shards > 0:
             raise ConfigError(
                 "cluster.n_shards: from_checkpoint restores a single-"
-                "process engine")
+                "process engine; cluster workers restore their own "
+                "checkpoints via the deployment's run_dir")
         session = cls(cfg, device=device, params=params)
-        session._check_servable()
         from repro_torch.gnnserve.checkpoint import restore_into_session
         restore_into_session(session, path)
         return session
 
     @property
     def cluster(self):
-        """The live cluster deployment: always None (the cluster tier is
-        not ported yet)."""
-        return None
+        """The live ``ClusterDeployment`` (None in single-process
+        mode)."""
+        return self._cluster
 
     @property
     def engine(self):
@@ -305,7 +318,10 @@ class Session:
         ``plan_cache`` (``build_subset_plan_cached``'s hits and misses
         in this session), ``metrics`` (the flat unified view, with
         live telemetry merged on top when enabled), and ``attribution``
-        / ``health`` once the engine has served under telemetry."""
+        / ``health`` once the engine has served under telemetry.  A
+        cluster session returns the router-merged tree (the same
+        schema) plus a ``cluster`` subtree: per-shard statuses, restart
+        count, router stats."""
         self._check_open()
         from repro_torch.obs import compat
         out: Dict[str, Any] = {"n_nodes": self.n_nodes,
@@ -313,7 +329,16 @@ class Session:
                                **{f"t_{k}": v
                                   for k, v in self.timings.items()}}
         engine_stats = refresh_stats = cutover = None
-        if self._engine is not None:
+        if self._cluster is not None:
+            merged = self._cluster.stats()
+            out.update(merged)
+            engine_stats = {
+                k: v for k, v in merged.items()
+                if k not in ("attribution", "health", "cluster",
+                             "refresh_cutover")}
+            refresh_stats = self._engine.last_refresh_stats
+            cutover = merged.get("refresh_cutover")
+        elif self._engine is not None:
             engine_stats = self._engine.stats()
             refresh_stats = self._engine.last_refresh_stats
             out.update(engine_stats)
@@ -333,10 +358,11 @@ class Session:
             live=(self.telemetry.metrics.to_dict()
                   if self.telemetry is not None else None),
             cutover=cutover)
-        if self._engine is not None and self._engine.attrib is not None:
-            out["attribution"] = self._engine.attrib.summary()
-        if self._engine is not None and self._engine.health is not None:
-            out["health"] = self._engine.health.summary()
+        if self._cluster is None and self._engine is not None:
+            if self._engine.attrib is not None:
+                out["attribution"] = self._engine.attrib.summary()
+            if self._engine.health is not None:
+                out["health"] = self._engine.health.summary()
         return out
 
     def dump_trace(self, path) -> Dict[str, Any]:
@@ -378,13 +404,17 @@ class Session:
             raise ConfigError("session is closed")
 
     def close(self) -> None:
-        """Stop the telemetry endpoint, release the big arrays (graph,
-        features, store, engine) and hand the process-current telemetry
-        back to whoever held it."""
+        """Stop the telemetry endpoint and the cluster deployment (its
+        workers), release the big arrays (graph, features, store,
+        engine) and hand the process-current telemetry back to whoever
+        held it."""
         if not self._closed:
             if self._endpoint is not None:
                 self._endpoint.stop()
                 self._endpoint = None
+            if self._cluster is not None:
+                self._cluster.shutdown()
+                self._cluster = None
             if self.telemetry is not None:
                 obs.install(self._prev_telemetry)
             from repro_torch.core.partition import \

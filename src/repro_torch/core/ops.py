@@ -38,7 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import obs
+from repro_torch import obs, tuning
 from repro_torch.api.registry import EXECUTORS, register_executor
 from repro_torch.core import primitives as prim
 from repro_torch.core.gnn_models import (LayerSpec, ModelSpec,
@@ -291,6 +291,12 @@ class CudaExecutor(RefExecutor):
     ``fused_attention``: collapse GAT's attn_scores -> edge_softmax into
     the one-pass gat_attention kernel through the ``run_layer``
     peephole; off, scores come from one sddmm launch per head.
+    ``block_table``: a ``tuning.BlockTable`` source ("default" = the
+    port's ``configs/tuned_blocks_torch.json``, a path, or a table)
+    consulted per (kernel, shape bucket, dtype) for the spmm and
+    gather_spmm tilings; a miss keeps the wrapper's default tiling.  A
+    tiling never changes a row's order of sums, so tuned and untuned
+    are bitwise the same.
 
     On a CUDA device the constructor builds the kernels that are not
     built yet (``kernels.build.build_all``), so the nvcc time falls in
@@ -300,19 +306,41 @@ class CudaExecutor(RefExecutor):
     name = "cuda"
 
     def __init__(self, device="cuda", fused_gather: bool = True,
-                 fused_attention: bool = True):
+                 fused_attention: bool = True, block_table=None):
         super().__init__(device)
         self.fused_gather = fused_gather
         self.fused_attention = fused_attention
+        self._blocks = tuning.resolve_block_table(block_table)
+        self._block_memo: Dict[tuple, Dict[str, int]] = {}
         if self.device.type == "cuda":
             from repro_torch.kernels import build
             build.build_all()
 
+    def _pick_blocks(self, kernel: str, R: int, D: int,
+                     dtype) -> Dict[str, int]:
+        """The tiling keywords for one launch: the table's entry for the
+        call's shape bucket, or {} (the wrapper's default tiling) when
+        no table is bound or the key misses.  Memoized per bucket."""
+        if self._blocks is None:
+            return {}
+        dtype = str(dtype).replace("torch.", "")
+        key = (kernel, tuning.shape_bucket(R), tuning.shape_bucket(D),
+               dtype)
+        got = self._block_memo.get(key)
+        if got is None:
+            got = self._blocks.lookup(kernel, N=R, D=D, dtype=dtype,
+                                      backend=self.device.type) or {}
+            self._block_memo[key] = got
+        return got
+
     def spmm(self, H_src, w_edge, io: DenseIO):
+        R, D = io.nbr.shape[0], H_src.shape[1]
         if self.fused_gather and io.table is not None:
-            return kops.gather_spmm(H_src, io.table, w_edge, io.nbr,
-                                    io.mask)
-        return kops.spmm(H_src, w_edge, io.nbr_resolved, io.mask)
+            return kops.gather_spmm(
+                H_src, io.table, w_edge, io.nbr, io.mask,
+                **self._pick_blocks("gather_spmm", R, D, H_src.dtype))
+        return kops.spmm(H_src, w_edge, io.nbr_resolved, io.mask,
+                         **self._pick_blocks("spmm", R, D, H_src.dtype))
 
     def attn_scores(self, q, k, io: DenseIO, heads: int):
         """Unfused scores: one sddmm per head over head-major column

@@ -1,5 +1,6 @@
 """gnnserve — online embedding serving on one card, the port's twin of
-``repro.gnnserve`` (single process; the cluster tier is not ported yet).
+``repro.gnnserve`` (single process, and the multi-process cluster tier
+in ``gnnserve.cluster``).
 
 The offline pipeline (graph -> layer-wise sampling -> all-node epoch)
 produces embeddings for ALL nodes.  gnnserve keeps every level of that

@@ -56,6 +56,15 @@ def default_tiling(D: int, vec: int):
     return max(64 // block_cols, 1), block_cols
 
 
+def check_tiling(what, block_rows: int, block_cols: int) -> None:
+    """Raise unless (block_rows, block_cols) is a tiling the kernel
+    takes: at least one row and one chunk, at most 1024 threads a
+    block.  The autotuner prunes its grid with this check."""
+    if block_rows < 1 or block_cols < 1 or block_rows * block_cols > 1024:
+        raise ValueError(f"{what}: tiling ({block_rows}, {block_cols}); "
+                         "the kernel takes at most 1024 threads a block")
+
+
 def launch_spmm(what, h, table, w, nbr, mask, block_rows, block_cols):
     """Launch ``deal_spmm`` (``table`` None for plain spmm) on the
     current stream of h's device.  Returns (out (R, D), launched)."""
@@ -71,9 +80,7 @@ def launch_spmm(what, h, table, w, nbr, mask, block_rows, block_cols):
         vec = 1
     rows, cols = default_tiling(D, vec)
     rows, cols = block_rows or rows, block_cols or cols
-    if rows < 1 or cols < 1 or rows * cols > 1024:
-        raise ValueError(f"{what}: tiling ({rows}, {cols}); the kernel "
-                         "takes at most 1024 threads a block")
+    check_tiling(what, rows, cols)
     out = torch.empty((R, D), dtype=h.dtype, device=h.device)
     if R == 0 or D == 0:
         return out, False

@@ -21,9 +21,17 @@ driver loop here only generates traffic and prints stats.
 (plain PyTorch) or "dist": the epoch AND every delta refresh through
 the distributed executor (per-partition frontier split on a ``--p`` x
 ``--m`` mesh of shards in this process); ``--device cuda`` (the default)
-raises without a card, ``--device cpu`` runs the plain versions.  The
-cluster tier (``--cluster-shards``) is not ported yet:
-``Session.serve()`` raises for it (ROADMAP Queue 1 item 8).
+raises without a card, ``--device cpu`` runs the plain versions.
+
+``--cluster-shards N`` serves through the multi-process cluster tier: N
+shard-worker processes on the same device behind the RPC router.
+``--kill-shard i`` is its failure drill: SIGKILL shard i halfway through
+the drive, restart it, and require every shard's store digests to be
+equal (checkpoint + WAL replay) before the drive finishes.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_embeddings \
+      --config configs/examples/smoke.json --ticks 6 --device cpu \
+      --cluster-shards 2 --kill-shard 1
 
 ``--budget-rows R --evict-policy {lru,heat}`` caps each evictable store
 level at R resident rows (recompute-on-miss rebuilds evicted rows,
@@ -85,6 +93,10 @@ def _serve_session(cfg: DealConfig, device="cuda") -> Session:
     if s.endpoint is not None and s.endpoint.port is not None:
         print(f"[telemetry] scrape http://127.0.0.1:{s.endpoint.port}"
               "/metrics, /healthz, /stats")
+    if s.cluster is not None:
+        print(f"[cluster] {cfg.cluster.n_shards} shard workers behind "
+              f"the router (ready in {s.cluster.ready_wait_s:.2f}s, "
+              f"run dir {s.cluster.run_dir})")
     return s
 
 
@@ -281,9 +293,34 @@ def build_parser() -> argparse.ArgumentParser:
                          "trace of the whole run (construct -> epoch -> "
                          "serve loop) on exit; load at ui.perfetto.dev")
     ap.add_argument("--cluster-shards", type=int, default=0,
-                    help="serve through the multi-process cluster tier "
-                         "(not ported yet: Session.serve() raises)")
+                    help="serve through the multi-process cluster tier: "
+                         "spawn this many shard-worker processes behind "
+                         "the RPC router (0 = single-process)")
+    ap.add_argument("--kill-shard", type=int, default=-1,
+                    help="cluster failure drill: SIGKILL this shard "
+                         "halfway through the drive, restart it, and "
+                         "require it to rejoin bitwise-equal via "
+                         "checkpoint + WAL replay")
     return ap
+
+
+def kill_drill(s: Session, shard: int) -> None:
+    """SIGKILL one worker of the session's cluster, restart it, and
+    require every shard's store digests to be equal (it restored its
+    checkpoint and replayed its WAL segment).  Raises SystemExit when
+    they differ."""
+    dep = s.cluster
+    dep.kill_worker(shard)
+    dep.restart_worker(shard)
+    digs = dep.router.digests()
+    if any(d["digests"] != digs[0]["digests"] for d in digs[1:]):
+        raise SystemExit(f"shard {shard} did NOT rejoin bitwise-equal "
+                         "after checkpoint + WAL replay")
+    st = dep.router.statuses()[shard]
+    print(f"[cluster] killed shard {shard}; its restart restored its "
+          f"checkpoint (restored={st['restored']}), replayed "
+          f"{st['replayed']} WAL entries and rejoined bitwise-equal "
+          f"({len(digs)} shard digests match)")
 
 
 def main(argv=None):
@@ -308,12 +345,25 @@ def main(argv=None):
         cfg.telemetry.enabled = True
     if args.cluster_shards:
         cfg.cluster.n_shards = args.cluster_shards
+    if args.kill_shard >= 0 and not (
+            0 <= args.kill_shard < cfg.cluster.n_shards):
+        raise SystemExit("--kill-shard needs a cluster shard index "
+                         "(--cluster-shards or cluster.n_shards in "
+                         "--config)")
     s = _serve_session(cfg, args.device)
     with s:
-        drive(s.engine, ticks=args.ticks,
-              queries_per_tick=args.queries_per_tick,
-              mutations_per_tick=args.mutations_per_tick,
-              nodes_per_tick=args.nodes_per_tick)
+        drive_kw = dict(queries_per_tick=args.queries_per_tick,
+                        mutations_per_tick=args.mutations_per_tick,
+                        nodes_per_tick=args.nodes_per_tick)
+        if args.kill_shard >= 0:
+            # kill one worker mid-stream, prove the rejoin is bitwise,
+            # then finish the drive
+            head = max(1, args.ticks // 2)
+            drive(s.engine, ticks=head, **drive_kw)
+            kill_drill(s, args.kill_shard)
+            drive(s.engine, ticks=args.ticks - head, **drive_kw)
+        else:
+            drive(s.engine, ticks=args.ticks, **drive_kw)
         if args.trace:
             doc = s.dump_trace(args.trace)
             tr = s.telemetry.tracer

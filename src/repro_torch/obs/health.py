@@ -50,8 +50,8 @@ zero):
       AND exceed ``backlog_factor`` x the tightest tenant SLO: refresh
       is not keeping up with the mutation stream.
     * ``route_flap`` — the dist-vs-local refresh route (the frontier
-      cutover of the distributed executor, not ported yet) flipped
-      direction >= ``flap_threshold`` times within the window:
+      cutover of the distributed executor, ``refresh.dist_local_cutover``)
+      flipped direction >= ``flap_threshold`` times within the window:
       frontier sizes are hovering at the cutover and every flip pays a
       cold plan or a cold mesh dispatch.
 """

@@ -2,8 +2,8 @@
 tests/test_endpoint.py): ``/metrics``, ``/healthz`` and ``/stats`` serve
 parallel readers while the engine keeps serving, an unknown path is a
 404, the snapshot writer leaves a parseable file, and ``close()`` stops
-the server.  (The cluster router's endpoint waits for the cluster tier,
-ROADMAP Queue 1 item 8.)"""
+the server; and the cluster router's endpoint over stub shards, serving
+the JAX package's documents."""
 import json
 import threading
 import urllib.error
@@ -121,3 +121,74 @@ def test_json_sanitize_turns_torch_and_numpy_into_json():
                    "i": 4, "f": 0.5, "a0": 7, "nan": None,
                    "1": [[0, 1], None, True]}
     json.dumps(got)
+
+
+class _StubRouter:
+    def __init__(self, per_shard):
+        self.per_shard = per_shard
+
+    def health(self):
+        from repro_torch.gnnserve.cluster import merge_health
+        return merge_health(self.per_shard)
+
+    def statuses(self):
+        return [{"shard": i, "pid": 1000 + i, "pending": 0}
+                for i in range(len(self.per_shard))]
+
+    def router_stats(self):
+        return {"n_shards": len(self.per_shard), "n_lookups": 3,
+                "n_subqueries": 5, "n_scatter": 2, "n_commits": 1,
+                "n_retries": 0, "seq": [1, 1], "pending_mutations": 0}
+
+
+class _StubDeployment:
+    def __init__(self, per_shard):
+        self.router = _StubRouter(per_shard)
+
+    def stats(self):
+        return {"n_served": 3, "cluster": {"n_shards": 2}}
+
+
+def test_router_endpoint_aggregates_shard_health_states():
+    """The mirror of tests/test_endpoint.py's router-endpoint test on the
+    port's ``RouterEndpoint``: concurrent scrapes of every route, ANY
+    alerting shard makes the aggregate alert, and the documents are the
+    JAX package's."""
+    from repro.gnnserve.cluster import RouterEndpoint as JRouterEndpoint
+    from repro_torch.gnnserve.cluster import RouterEndpoint
+    ok = {"n_alerts": 0, "alerts": [], "burn_rate": {},
+          "wait_burn_rate": {}, "firing": [], "status": "ok"}
+    alerting = {"n_alerts": 1,
+                "alerts": [{"kind": "refresh_backlog"}],
+                "burn_rate": {"ui": 3.0}, "wait_burn_rate": {},
+                "firing": ["refresh_backlog"], "status": "alerting"}
+    dep = _StubDeployment([ok, alerting])
+    ep = RouterEndpoint(dep).start()
+    jep = JRouterEndpoint(dep).start()
+    try:
+        base = f"http://127.0.0.1:{ep.port}"
+        failures = []
+        threads = [threading.Thread(
+            target=_scrape_all,
+            args=(base, ["/healthz", "/shards", "/stats"], 10,
+                  failures)) for _ in range(6)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+        assert failures == []
+        doc = json.loads(_get(f"{base}/healthz"))
+        assert doc["status"] == "alerting"         # ANY shard alerting
+        assert doc["firing"] == ["shard1:refresh_backlog"]
+        assert [s["status"] for s in doc["shards"]] == \
+            ["ok", "alerting"]
+        shards = json.loads(_get(f"{base}/shards"))
+        assert [s["shard"] for s in shards["shards"]] == [0, 1]
+        assert shards["router"]["n_shards"] == 2
+        jbase = f"http://127.0.0.1:{jep.port}"
+        for path in ("/healthz", "/shards", "/stats"):
+            assert _get(f"{base}{path}") == _get(f"{jbase}{path}"), path
+    finally:
+        ep.stop()
+        jep.stop()

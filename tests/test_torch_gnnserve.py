@@ -421,19 +421,30 @@ def test_serve_without_a_card_raises_unless_cpu(monkeypatch):
         assert s.store is eng.store and s.store.version == 0
 
 
-def test_what_is_not_ported_raises_naming_its_roadmap_item():
-    """The cluster tier (item 8) raises; the telemetry surface of item 7
-    is ported: without telemetry
-    ``dump_trace`` raises a ConfigError and ``prometheus_text`` is
-    empty, with it ``serve()`` starts the endpoint."""
+def test_what_is_not_ported_raises_naming_its_roadmap_item(tmp_path):
+    """Every serving surface of the JAX package is ported now.  Without
+    telemetry ``dump_trace`` raises a ConfigError and
+    ``prometheus_text`` is empty; with it ``serve()`` starts the
+    endpoint.  A cluster config's ``serve()`` launches the cluster tier
+    (items 7 and 8 of the roadmap): a router-backed engine over two
+    worker processes, the merged stats with their ``cluster`` subtree,
+    and ``close()`` shuts the workers down."""
+    from repro_torch.gnnserve.cluster import ClusterEngine
     with Session.build(DealConfig.from_dict(_cfg()), device="cpu") as s:
         with pytest.raises(ConfigError, match="telemetry"):
             s.dump_trace("/dev/null")
         assert s.prometheus_text() == ""
-    d = _cfg(cluster={"n_shards": 2})
+    d = _cfg(cluster={"n_shards": 2, "run_dir": str(tmp_path)})
     with Session.build(DealConfig.from_dict(d), device="cpu") as s:
-        with pytest.raises(NotImplementedError, match="item 8"):
-            s.serve()
+        eng = s.serve()
+        assert isinstance(eng, ClusterEngine) and s.cluster is not None
+        assert s.engine is eng and s.cluster.device == "cpu"
+        st = s.stats()
+        assert st["cluster"]["n_shards"] == 2
+        assert s.timings["epoch_s"] == s.cluster.ready_wait_s > 0
+        procs = list(s.cluster.procs)
+    assert s.cluster is None
+    assert all(p.poll() is not None for p in procs)
     d = _cfg(telemetry={"enabled": True, "http_port": 0})
     with Session.build(DealConfig.from_dict(d), device="cpu") as s:
         s.serve()

@@ -885,3 +885,151 @@ def test_dist_shards_on_distinct_cards(cuda):
             got = DistributedLayerwise(mesh, lgs, model, params,
                                        grouped=grouped).infer(X)
             _close(got, want, 1e-4, 3e-3)
+
+
+# ----------------------------------------------------------------------
+# the block-size autotuner and the cluster tier on the card
+# ----------------------------------------------------------------------
+
+def test_autotune_over_the_real_grid_on_the_card(cuda, tmp_path,
+                                                 monkeypatch):
+    """``ensure_tuned`` over each spmm kernel's real grid, timed with
+    CUDA events: every candidate's output is bitwise the default
+    tiling's, the winner goes to the port's table file, and an executor
+    bound to that file ("default") launches with it, bitwise the
+    untuned executor."""
+    from repro_torch import tuning
+    from repro_torch.core.ops import CudaExecutor, DenseIO
+    monkeypatch.delenv("REPRO_TUNING", raising=False)
+    monkeypatch.setattr(tuning, "DEFAULT_TABLE_PATH",
+                        tmp_path / "tuned_blocks_torch.json")
+    R, U, D, F = 20000, 30000, 128, 8
+    g, nbr, mask = _graph(cuda, R, U, F, 5)
+    h = torch.randn((U, D), generator=g, device=cuda)
+    w = torch.rand((R, F), generator=g, device=cuda)
+    table = torch.randperm(U, generator=g, device=cuda).to(torch.int32)
+    calls = {
+        "spmm": lambda **kw: kops.spmm(h, w, nbr, mask, **kw),
+        "gather_spmm": lambda **kw: kops.gather_spmm(h, table, w, nbr,
+                                                     mask, **kw)}
+    tb = tuning.resolve_block_table("default")
+    for kernel, call in calls.items():
+        base = call()
+        outs = []
+
+        def make_call(blocks, call=call, outs=outs):
+            def fn():
+                outs.append(call(**blocks))
+            return fn
+
+        blocks = tuning.ensure_tuned(tb, kernel, make_call, N=R, D=D)
+        assert blocks in tuning.candidates(kernel, R, D)
+        assert len(outs) >= len(tuning.candidates(kernel, R, D))
+        torch.cuda.synchronize()
+        for out in outs:
+            assert torch.equal(out, base), kernel
+    saved = tuning.BlockTable.load(tuning.DEFAULT_TABLE_PATH)
+    assert set(saved.entries) == {
+        f"{k}/cuda/float32/n32768/d128" for k in calls}
+    io = DenseIO(nbr.cpu().numpy(), mask.cpu().numpy(),
+                 table=table.cpu().numpy(), device=cuda)
+    tuned = CudaExecutor(block_table="default")
+    assert tuned._pick_blocks("gather_spmm", R, D, torch.float32) == \
+        saved.lookup("gather_spmm", N=R, D=D)
+    kops.reset_launch_counts()
+    got = tuned.spmm(h, io.mean_w, io)
+    assert kops.launch_counts()["gather_spmm"] == 1
+    assert torch.equal(got, CudaExecutor().spmm(h, io.mean_w, io))
+
+
+def _cluster_cfg(**cluster):
+    return {"graph": {"dataset": "rmat", "n_nodes": 2048, "avg_degree": 8,
+                      "fanout": 8, "seed": 1},
+            "model": {"name": "gat", "n_layers": 2, "d_feature": 32,
+                      "heads": 4},
+            "executor": {"name": "cuda"},
+            "store": {"onboarding": "tail"},
+            "qos": {"staleness_bound": 1 << 30},
+            "cluster": cluster}
+
+
+@pytest.fixture(scope="module")
+def cuda_cluster(tmp_path_factory):
+    """A 2-shard "cuda" cluster (both workers on the card) beside a
+    single-process "cuda" session on the same config."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from repro_torch.api import DealConfig, Session
+    single = Session.build(DealConfig.from_dict(_cluster_cfg()))
+    cluster = Session.build(DealConfig.from_dict(_cluster_cfg(
+        n_shards=2, run_dir=str(tmp_path_factory.mktemp("cluster")))))
+    try:
+        yield single, single.serve(), cluster, cluster.serve()
+    finally:
+        procs = list(cluster.cluster.procs) if cluster.cluster else []
+        cluster.close()
+        single.close()
+        assert all(p is None or p.poll() is not None for p in procs)
+
+
+def test_cluster_serves_bitwise_a_single_process_on_the_card(cuda,
+                                                             cuda_cluster):
+    """Queries, one trickle commit (edge adds, feature updates, node
+    adds) and queries again: the router's rows bitwise the single
+    process's, every worker's store digest the single store's, and the
+    workers launched gather_spmm and gat_attention on the card."""
+    import hashlib
+    from repro_torch.gnnserve import Query
+    single, e1, cluster, e2 = cuda_cluster
+    rng = np.random.default_rng(3)
+    n = e1.store.n_nodes
+
+    def queries(uid):
+        for i in range(4):
+            ids = rng.integers(0, e1.store.n_nodes, 64)
+            q1, q2 = Query(uid + i, ids), Query(uid + i, ids.copy())
+            e1.submit(q1), e2.submit(q2)
+            e1.run(), e2.run()
+            assert q1.served_version == q2.served_version
+            assert np.array_equal(q1.out, q2.out)
+
+    queries(0)
+    for eng in (e1, e2):
+        r = np.random.default_rng(9)
+        log = eng.mutate()
+        log.add_nodes(4, r.standard_normal((4, 32)).astype(np.float32))
+        log.add_edges(r.integers(0, n, 32), r.integers(0, n, 32))
+        log.add_edges(np.arange(n, n + 4), np.arange(4))
+        log.update_features(np.arange(8),
+                            r.standard_normal((8, 32)).astype(np.float32))
+        eng.refresh()
+    queries(100)
+    st = e1.store
+    ids = np.arange(st.n_nodes)
+    want = {f"level{l}": hashlib.sha256(st.lookup(ids, l).tobytes())
+            .hexdigest() for l in range(st.n_levels)}
+    for d in cluster.cluster.router.digests():
+        assert {k: v for k, v in d["digests"].items()
+                if k.startswith("level")} == want
+    for s in cluster.cluster.router.statuses():
+        assert s["kernel_launches"]["gather_spmm"] > 0, s
+        assert s["kernel_launches"]["gat_attention"] > 0, s
+        assert s["memory"]["device_peak_bytes"] > 0
+
+
+def test_cluster_kill_and_rejoin_on_the_card(cuda, cuda_cluster):
+    """SIGKILL shard 1 after a commit, restart it: it restores its
+    checkpoint on the card and every shard's digests are equal again."""
+    _, e1, cluster, e2 = cuda_cluster
+    for eng in (e1, e2):            # the same commit on both worlds
+        eng.mutate().add_edges(np.arange(8), np.arange(8, 16))
+        eng.refresh()
+    dep = cluster.cluster
+    before = dep.router.digests()
+    dep.kill_worker(1)
+    dep.restart_worker(1)
+    after = dep.router.digests()
+    assert after[0]["digests"] == after[1]["digests"] == \
+        before[0]["digests"]
+    st = dep.router.statuses()[1]
+    assert st["restored"] and st["timings"]["restore_s"] > 0

@@ -81,12 +81,27 @@ def test_dump_config_round_trips_to_the_jax_launchers_bytes(tmp_path,
     assert dumped == json.loads(ours.read_text())
 
 
-def test_unported_executor_and_cluster_raise_through_the_session():
+def test_unported_executor_and_cluster_raise_through_the_session(
+        capsys, tmp_path, monkeypatch):
+    """The JAX package's "pallas" executor is refused through the
+    session; the cluster tier runs through the launcher: two shard
+    workers on the CPU, and the ``--kill-shard`` drill kills shard 1
+    halfway, restarts it and finds every shard digest equal, as the JAX
+    launcher's drill does.  ``--kill-shard`` without a cluster is
+    refused."""
     with pytest.raises(SystemExit, match="'pallas' is not in the port"):
         se.main(SMALL + ["--device", "cpu", "--executor", "pallas"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        se.main(SMALL + ["--device", "cpu", "--executor", "ref",
-                         "--cluster-shards", "2"])
+    import tempfile
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))  # the run dir
+    se.main(SMALL + ["--device", "cpu", "--executor", "ref", "--ticks",
+                     "4", "--cluster-shards", "2", "--kill-shard", "1"])
+    out = capsys.readouterr().out
+    assert "[cluster] 2 shard workers behind the router" in out
+    assert "[cluster] killed shard 1;" in out
+    assert "restored=True" in out and "rejoined bitwise-equal" in out
+    assert out.count("[serve]") == 2            # the drive, split in two
+    with pytest.raises(SystemExit, match="--kill-shard needs"):
+        se.main(SMALL + ["--device", "cpu", "--kill-shard", "0"])
     from repro_torch import obs
     assert obs.current() is obs.DISABLED
 

@@ -130,8 +130,7 @@ def test_end_to_end_pipeline_local():
 def test_validation_uses_the_ports_registries():
     bad = DealConfig(graph=GraphSpec(dataset="nope", fanout=0),
                      model=ModelSpec(name="wat", heads=3, d_feature=16),
-                     executor=ExecutorSpec(name="pallas",
-                                           block_table="default"))
+                     executor=ExecutorSpec(name="pallas", block_table=7))
     with pytest.raises(ConfigError) as ei:
         bad.validate()
     msg = str(ei.value)
@@ -148,9 +147,12 @@ def test_validation_uses_the_ports_registries():
 @pytest.mark.parametrize("spec,match", [
     (ExecutorSpec(name="pallas"), "the port has: cuda, dist, ref"),
     (ExecutorSpec(name="nope"), "registered: cuda, dist, ref"),
-    (ExecutorSpec(name="cuda", block_table="default"), "block_table"),
+    (ExecutorSpec(name="ref", block_table="default"), "block_table"),
 ])
 def test_executor_spec_build_refuses_what_the_port_lacks(spec, match):
+    """The JAX package's executor the port replaces, an unknown name, and
+    a tuned block table on an executor that takes no tiling (the "cuda"
+    executor takes one: tests/test_torch_tuning.py)."""
     with pytest.raises(ConfigError, match=match):
         spec.build(device="cpu")
 
