@@ -9,8 +9,9 @@ the run with a non-zero exit code:
 
 1. card:   the card's name and power limit; build the kernels with nvcc
    (one process per source, in parallel), print each source's registers,
-   spills and ptxas performance warnings, and count the HGMMA (wgmma)
-   instructions in the tensor-core flash kernel's SASS.
+   spills and ptxas performance warnings, check that the f32 flash
+   kernel's tiles for hd <= 128 spill nothing, and count the HGMMA
+   (wgmma) instructions in the tensor-core flash kernel's SASS.
 2. kernels: each kernel at the main path's shapes (ogbn-papers100M
    stand-in, N = 1,048,576, fanout 8, D = 128, 4 heads) against its plain
    version on the card: quantized f32 (< 5e-7), random f32 and bf16 at
@@ -28,8 +29,10 @@ the run with a non-zero exit code:
    slice phase's gcn session binds that table
    (``ExecutorSpec(name="cuda", block_table=...)``), picks the winner,
    and its ``infer_all`` is bitwise an untuned executor's epoch.
-   [gat-wide]: the wide scoring kernel (a warp a row; F > 32 or heads
-   not a power of two) against the same plain versions: gat_attention
+   [gat-wide]: the wide scoring kernel (F > 32 or heads not a power of
+   two: the live slots' k rows copied into shared memory a pass at a
+   time, a lane per (slot, head) dot) against the same plain versions:
+   gat_attention
    on the layer graph sampled at fanout 64 (D = 128, 4 heads; quantized
    f32 < 5e-7, random f32 and bf16 at the tolerances of
    tests/test_kernels.py) and at fanout 8 with D = 96 and 3 heads, and
@@ -122,15 +125,16 @@ the run with a non-zero exit code:
 5. flash kernels: ``flash_attention`` at the dense-transformer prefill
    shape (smollm-360m: B=4, S=2048, 15 query heads over 5 kv heads,
    hd=64, causal), a ragged S=1000, a sliding window of 256 and the
-   Pallas (BH, S, hd) signature, each in f32 (the f32-FMA kernel, atol
-   2e-5, rtol 3e-2) and in bf16 (the tensor-core kernel, atol 8e-3, rtol
-   1e-2) against its plain version; all four bf16 calls and no f32 one
-   must take the tensor-core kernel.  Times both kernels, the plain
-   version, the library yardstick (``scaled_dot_product_attention``,
-   causal, GQA) in f32 and bf16, and the bounds (f32 FMA rate for f32,
-   bf16 tensor-core rate for bf16).  Then the bf16 kernel once at hd 128
-   (qwen2.5-14b's 40 query heads over 8 kv heads, B=1, S=4096, causal)
-   against its plain version and SDPA.
+   Pallas (BH, S, hd) signature, each in f32 (the register-blocked f32
+   kernel, atol 2e-5, rtol 3e-2) and in bf16 (the tensor-core kernel,
+   atol 8e-3, rtol 1e-2) against its plain version; all four bf16 calls
+   and no f32 one must take the tensor-core kernel.  Times both kernels,
+   the plain version, the library yardstick
+   (``scaled_dot_product_attention``, causal, GQA) in f32 and bf16, and
+   the bounds (f32 FMA rate for f32, bf16 tensor-core rate for bf16).
+   Then both kernels at hd 128 (qwen2.5-14b's 40 query heads over 8 kv
+   heads, B=1, S=4096, causal), each against its plain version and SDPA
+   in its type, beside its bound.
 6. llm: smollm-360m at full width (32 layers, d_model 960), random
    weights from a seed.  ``prefill_step`` on B=4 x S=2048 tokens in f32
    through attention backend "cuda" against "ref" (last-position
@@ -237,6 +241,20 @@ def kernel_row(name, mod, err, ms, plain_ms, need_bytes, flops,
             "replaces": mod.REPLACES, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms}
+
+
+def ptxas_spills(text):
+    """{mangled entry: (spill store bytes, spill load bytes)} from a
+    ``-Xptxas=-v`` report."""
+    out, entry = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and "spill stores" in line:
+            words = line.replace(",", "").split()
+            out[entry] = (int(words[words.index("spill") - 2]),
+                          int(words[words.index("loads") - 3]))
+    return out
 
 
 def max_err(torch, a, b):
@@ -574,13 +592,17 @@ def gat_wide_phase(torch, kops, lg, lg64, rows):
         need = (live_rows * width * 4 + uniq * width * 4 + R * F + nnz * 4
                 + R * F * heads * 4)
         bms = bound(need, 2 * nnz * width)[0]
+        # the same with every live slot's k row read from memory once (the
+        # gathers hit a 1,048,576-row table, far larger than L2)
+        per_slot = bound(need + (nnz - uniq) * width * 4, 2 * nnz * width)[0]
         out[tag] = (err, ms, plain_ms, bms)
         log(f"[gat-wide] gat_attention {tag} (N={R} F={F} D={width} heads="
             f"{heads}, {nnz} live slots): quantized err {e_q:.1e} (< 5e-7), "
             f"f32 err {err:.3e} (atol {ATOL['float32']}, rtol 3e-2), bf16 "
             f"within atol {ATOL['bfloat16']}; row subsets bitwise; "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
-            f"({ms / bms:.2f}x)")
+            f"({ms / bms:.2f}x; {per_slot:.4f} ms with a k row read a live "
+            "slot)")
         del q, k, qb, kb, got
     r = rows["gat_attention"]
     r.update(max_abs_err_wide=out["F=64"][0], ms_wide=out["F=64"][1],
@@ -624,13 +646,15 @@ def gat_wide_phase(torch, kops, lg, lg64, rows):
                                                   mask, k), reps=3)
     need = live_rows * dh * 4 + uniq * dh * 4 + R * F + nnz * 4 + R * F * 4
     bms = bound(need, 2 * nnz * dh)[0]
+    per_slot = bound(need + (nnz - uniq) * dh * 4, 2 * nnz * dh)[0]
     rows["sddmm"].update(max_abs_err_wide=err, ms_wide=ms,
                          plain_ms_wide=plain_ms, bound_ms_wide=bms)
     log(f"[gat-wide] sddmm F=64 (D={dh}): quantized err {e_q:.1e} (< 5e-7), "
         f"f32 err {err:.3e} (atol {ATOL['float32'] * dh ** 0.5:.1e}, rtol "
         f"3e-2), bf16 within tolerance; row subsets and {HEADS} strided "
         f"head slices bitwise; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bms:.4f} ms ({ms / bms:.2f}x)")
+        f"{bms:.4f} ms ({ms / bms:.2f}x; {per_slot:.4f} ms with a k row read "
+        "a live slot)")
     torch.cuda.synchronize()
 
 
@@ -1949,9 +1973,10 @@ def cluster_phase(torch, kops, launches):
 # ----------------------------------------------------------------------
 
 def flash_phase(torch, kops):
-    """flash_attention against its plain version at the prefill shape, f32
-    on the f32-FMA kernel and bf16 on the tensor-core one; returns its row
-    of the kernels JSON line, without launches."""
+    """flash_attention against its plain version at the prefill shape and
+    at hd 128, f32 on the register-blocked f32 kernel and bf16 on the
+    tensor-core one; returns its row of the kernels JSON line, without
+    launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref as kref
@@ -2026,11 +2051,31 @@ def flash_phase(torch, kops):
         f"{tc_ms:.4f} ms ({ms_b / lib_ms_b:.2f}x SDPA, {ms_b / tc_ms:.2f}x "
         "the bound)")
     del q, k, v, qt, kt, vt, qb, kb, vb, qtb, ktb, vtb, out, lib
-    # hd 128: qwen2.5-14b's heads, one 4096-token sequence, bf16
+    # hd 128: qwen2.5-14b's heads, one 4096-token sequence, f32 then bf16
     qc = get_config(HD128_ARCH)
     H2, K2, hd2, S2 = (qc.n_heads, qc.n_kv_heads, qc.resolved_head_dim,
                        HD128_S)
-    q, k, v = (t.to(bf16) for t in qkv(S2, B=1, H=H2, K=K2, hd=hd2))
+    flops2 = 4 * hd2 * H2 * S2 * (S2 + 1) // 2
+    q, k, v = qkv(S2, B=1, H=H2, K=K2, hd=hd2)
+    tc0 = kflash.flash_attention.launches_tc
+    err32 = assert_close(torch, gqa(q, k, v, causal=True),
+                         plain(q, k, v, causal=True), ATOL["float32"], 3e-2,
+                         "flash_attention f32 hd 128")
+    check(kflash.flash_attention.launches_tc == tc0,
+          "flash_attention f32 hd 128: took the tensor-core kernel")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    ms32 = time_ms(torch, lambda: gqa(q, k, v, causal=True))
+    lib32 = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                        enable_gqa=True))
+    bnd32 = bound((2 * S2 * H2 + 2 * S2 * K2) * hd2 * 4, flops2)[0]
+    row.update(max_abs_err_f32_hd128=err32, ms_f32_hd128=ms32,
+               library_ms_f32_hd128=lib32, bound_ms_f32_hd128=bnd32)
+    log(f"[flash] f32 hd {hd2} ({HD128_ARCH} heads: B=1 S={S2} H={H2} "
+        f"K={K2} causal): err {err32:.3e} (atol {ATOL['float32']}, rtol "
+        f"3e-2); {ms32:.4f} ms, SDPA {lib32:.4f} ms, bound {bnd32:.4f} ms "
+        f"(operations, {flops2 / 1e9:.1f} GFLOP; {ms32 / bnd32:.2f}x the "
+        f"bound, {ms32 / lib32:.2f}x SDPA)")
+    q, k, v = (t.to(bf16) for t in (q, k, v))
     tc0 = kflash.flash_attention.launches_tc
     err2 = assert_close(torch, gqa(q, k, v, causal=True),
                         plain(q, k, v, causal=True), *FLASH_BF16_TOL,
@@ -2041,7 +2086,6 @@ def flash_phase(torch, kops):
     ms2 = time_ms(torch, lambda: gqa(q, k, v, causal=True))
     lib2 = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
                                        enable_gqa=True))
-    flops2 = 4 * hd2 * H2 * S2 * (S2 + 1) // 2
     need2 = (2 * S2 * H2 + 2 * S2 * K2) * hd2 * 2
     tc2 = max(need2 / HBM_BYTES_PER_S, flops2 / BF16_TC_FLOPS_PER_S) * 1e3
     log(f"[flash] bf16 hd {hd2} ({HD128_ARCH} heads: B=1 S={S2} H={H2} "
@@ -2203,6 +2247,14 @@ def main() -> int:
         build.library(name)
     log(f"[build] {len(logs)} nvcc builds in {time.perf_counter() - t0:.1f}"
         " s (sm_90a)")
+    if "flash_attention" in logs:        # the f32 tiles for hd <= 128
+        spilled = [e for e, st in ptxas_spills(logs["flash_attention"])
+                   .items() if ("TileILi64E" in e or "TileILi128E" in e)
+                   and st != (0, 0)]
+        check(not spilled, f"flash_attention: f32 tiles for hd <= 128 "
+              f"spill: {spilled}")
+        log("[build] flash_attention: the f32 tiles for hd <= 64 and "
+            "<= 128 spill nothing")
     for name, text in logs.items():      # ptxas: registers, any spills
         regs = [int(line.split("Used ")[1].split()[0])
                 for line in text.splitlines() if "registers" in line]

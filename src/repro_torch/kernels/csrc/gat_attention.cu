@@ -53,19 +53,44 @@
 // Shapes: scores_kernel takes F <= 32 (a lane a slot), heads a power of
 // two up to 32 (a lane's pair holds one head), one warp's shared memory
 // within a block's 227 KB.  Every other shape with heads dividing D goes
-// to `wide_kernel`, a simple one: a warp a row, the lanes walk the row's
-// slots in passes of 32 and a lane gathers the k row of its own live
-// slot; each (slot, head) dot is its dh products summed in column order
-// (16-byte loads where the head width and the addresses allow, the same
-// order either way); the F x heads scores sit in shared memory (4 F heads
-// bytes a warp); the softmax per head divides by sqrtf(dh), takes -1e30
-// for a masked slot, max and sum by lane-strided loops and xor shuffles,
-// max-subtracted expf, divide.  sddmm takes it with one head, no scale and
-// no softmax, writing the scores straight out.  The choice is by shape
-// alone (`kernel_for` in gat_attention.py makes the same one), so a row's
-// bits depend on (D, heads, F, dtype) and on no other row.  The wrapper
-// raises only where the chosen kernel's warp would pass 227 KB of shared
-// memory.
+// to `wide_kernel`, chosen by shape alone (`kernel_for` in
+// gat_attention.py makes the same choice), so a row's bits depend on (D,
+// heads, F, dtype) and on no other row.  It is bound by the same gathers
+// and by instruction issue: each (slot, head) dot is a serial sum that
+// must stay in column order, and the softmax pays an IEEE expf and divide
+// per live score.  Design: a warp serves RW = 32 / F2 rows (F2: F rounded
+// up to a power of two, 32 for F > 32, so RW = 1 there), in four steps.
+//   1. The mask and nbr of a window of two passes of 32 slots (lane l: row
+//      l / F2, slot l % F2 of the pass) are loaded at once; ballots give
+//      the window's live list (slot ids and positions, in slot order).  A
+//      masked slot's output is written at once (0; -1e30 scores for the
+//      softmax of F <= 32).  A group with no live slot writes its zeros
+//      and gathers nothing; only rows with a live slot have their q row
+//      read, once, into shared memory.
+//   2. The listed slots' k rows go to shared memory in passes of PS rows
+//      (`wide_pass`: enough for 32 (slot, head) pairs, at most about 8
+//      KB): consecutive lanes copy consecutive 16 bytes of one row
+//      (cp.async.cg; 32 lanes are one 128-column f32 row, and a 32-column
+//      row takes 8 lanes, so 4 rows go at once), and the whole pass's
+//      copies, with the q rows on the first pass, are issued before any is
+//      waited for.  A view whose base or row stride is not 16-byte aligned
+//      is copied element by element through registers into the same
+//      layout.  A masked slot's k row is never read.  Rows sit 16 x odd
+//      bytes apart (`wide_pitch16`), so the lanes of one step read
+//      distinct bank quads.
+//   3. A lane per (listed slot, head) pair, slots fastest, computes the dot
+//      from shared memory in column order (16-byte reads where the head
+//      width allows): the first product, then each next one added, __f*_rn
+//      throughout, the order of the plain loop.  gat_attention divides it
+//      by sqrtf(dh) into the scores; sddmm writes it out.
+//   4. gat_attention's softmax per head, four heads at a time: for F > 32
+//      over the row's live scores (the lanes take the list in strides of
+//      32), for F <= 32 over f (the F2 lanes of a row, masked slots
+//      -1e30); max and sum by xor shuffles, max-subtracted expf, divide;
+//      exactly 0 on a masked slot and on an all-masked row.  sddmm takes
+//      the kernel with one head, no scale and no softmax.
+// The wrapper raises only where the chosen kernel's warp would pass 227 KB
+// of shared memory.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -179,11 +204,36 @@ __host__ __device__ __forceinline__ int warp_words(int F, int D, int V,
   return (w + 3) / 4 * 4;
 }
 
-// shared memory of one warp of wide_kernel, in 4-byte words (16-byte
-// aligned): the row's F x heads scores for the softmax, none for sddmm
-__host__ __device__ __forceinline__ int wide_words(int F, int heads,
-                                                   bool softmax) {
-  return softmax ? (F * heads + 3) / 4 * 4 : 0;
+// the wide kernel's shared memory: q and k rows as their dtype, each row
+// padded to an odd number of 16-byte units; PS k rows (a pass: enough
+// slots for 32 (slot, head) pairs, at most about kPassWords words) and RW
+// q rows; the live list of a window of up to two passes of
+// 32 slots (slot ids and positions); the RW rows' F x heads scores for the
+// softmax, none for sddmm.  In 4-byte words, a multiple of 4.
+constexpr int kPassWords = 2048;
+__host__ __device__ __forceinline__ int wide_pitch16(int D, int size) {
+  return ((D * size + 15) / 16) | 1;
+}
+__host__ __device__ __forceinline__ int wide_rows(int F) {
+  return F <= 32 ? 32 / slot_lanes(F) : 1;
+}
+__host__ __device__ __forceinline__ int wide_list(int F) {
+  return F <= 32 ? 32 : 64;
+}
+__host__ __device__ __forceinline__ int wide_pass(int D, int heads,
+                                                  int size) {
+  const int fill = (32 + heads - 1) / heads;      // 32 (slot, head) pairs
+  const int fit = kPassWords / (4 * wide_pitch16(D, size));
+  const int p = fill < fit ? fill : fit;
+  return p < 1 ? 1 : p > 32 ? 32 : p;
+}
+__host__ __device__ __forceinline__ int wide_words(int F, int D, int heads,
+                                                   int size, bool softmax) {
+  const int rw = wide_rows(F);
+  return (wide_pass(D, heads, size) + rw) * 4 * wide_pitch16(D, size) +
+         2 * wide_list(F) +
+         (softmax ? (rw * F * heads + 3) / 4 * 4 : 0) +
+         (softmax && F > 32 ? (F + 3) / 4 * 4 : 0);
 }
 
 // at most 64 registers a thread, so 4 full blocks fit an SM
@@ -375,11 +425,102 @@ void go(int IT, long long groups, int warps, size_t smem, cudaStream_t s,
 #undef DEAL_SCORES
 }
 
-// the wide path: one warp a row (see the note at the top).  Lane f % 32
-// holds slot f; every lane reads and writes only its own scores in shared
-// memory, so the shuffles are the only exchange between lanes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy `rows` rows of D elements, row i from rowp(i) (skipped where null),
+// to dst + i * pitch: 16-byte cp.async chunks where `vec`, consecutive
+// lanes on consecutive chunks of a row (32 / NC rows at a time where a row
+// has NC < 32 chunks), one row pointer a row; else element by element
+// through registers, eight loads a lane in flight at a time.
+template <typename T, typename RowP>
+__device__ __forceinline__ void copy_rows(T* dst, int pitch, int rows,
+                                          int D, bool vec, int lane,
+                                          RowP rowp) {
+  if (vec) {
+    constexpr int E = 16 / sizeof(T);
+    const int nc = D / E;
+    if (nc <= 32 && 32 % nc == 0) {
+      const int per = 32 / nc, ri = lane / nc, c = (lane % nc) * E;
+      for (int i = ri; i < rows; i += per) {
+        const T* p = rowp(i);
+        if (p) cp_async16(dst + i * pitch + c, p + c);
+      }
+    } else {
+      for (int i = 0; i < rows; ++i) {
+        const T* p = rowp(i);
+        if (!p) continue;
+        for (int c = lane * E; c < D; c += 32 * E)
+          cp_async16(dst + i * pitch + c, p + c);
+      }
+    }
+    return;
+  }
+  const DivMod nc(D);
+  for (int w0 = 0; w0 < rows * D; w0 += 32 * 8) {
+    T x[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int w = w0 + 32 * u + lane;
+      const T* p = w < rows * D ? rowp(nc.div(w)) : nullptr;
+      if (p) x[u] = __ldg(p + nc.mod(w));
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int w = w0 + 32 * u + lane;
+      if (w < rows * D && rowp(nc.div(w)))
+        dst[nc.div(w) * pitch + nc.mod(w)] = x[u];
+    }
+  }
+}
+
+// the n products of a and b (shared memory) in column order: the first,
+// then each next one added; V columns a 16-byte read where V > 1
+template <typename T, int V>
+__device__ __forceinline__ float dot_cols(const T* a, const T* b, int n) {
+  alignas(16) T av[V];
+  alignas(16) T bv[V];
+  auto get = [&](int c) {
+    if constexpr (V > 1) {
+      *reinterpret_cast<uint4*>(av) = *reinterpret_cast<const uint4*>(a + c);
+      *reinterpret_cast<uint4*>(bv) = *reinterpret_cast<const uint4*>(b + c);
+    } else {
+      av[0] = a[c];
+      bv[0] = b[c];
+    }
+  };
+  get(0);
+  float s = __fmul_rn(to_f32(av[0]), to_f32(bv[0]));
+#pragma unroll
+  for (int e = 1; e < V; ++e)
+    s = __fadd_rn(s, __fmul_rn(to_f32(av[e]), to_f32(bv[e])));
+  for (int c = V; c < n; c += V) {
+    get(c);
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      s = __fadd_rn(s, __fmul_rn(to_f32(av[e]), to_f32(bv[e])));
+  }
+  return s;
+}
+
+// the wide path (see the note at the top): a warp serves RW rows; every
+// exchange between lanes goes through the warp's own shared memory
+// (after __syncwarp) or shuffles, so warps never wait for each other.  At
+// most 48 registers a thread, so 5 blocks of 8 warps fit an SM: the
+// kernel waits on its gathers, and more warps in flight hide them better
+// than registers would.
 template <typename T, int V, bool SOFTMAX>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(kMaxWarps * 32, 5)
 wide_kernel(const T* __restrict__ q, long long ldq,
             const T* __restrict__ k, long long ldk,
             const int32_t* __restrict__ nbr,
@@ -387,53 +528,202 @@ wide_kernel(const T* __restrict__ q, long long ldq,
             long long N, int F, int D, int heads, bool vec) {
   extern __shared__ float4 smem4[];
   const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long r = (long long)blockIdx.x * (blockDim.x / 32) + wid;
-  if (r >= N) return;                    // whole warp; no block barrier
+  const int F2 = F <= 32 ? slot_lanes(F) : 32;   // lanes of a row's pass
+  const int RW = 32 / F2;                         // rows a warp
+  const long long r0 =
+      ((long long)blockIdx.x * (blockDim.x / 32) + wid) * RW;
+  if (r0 >= N) return;                   // whole warp; no block barrier
+  const int pitch = wide_pitch16(D, sizeof(T)) * 16 / sizeof(T);
+  const int PS = wide_pass(D, heads, sizeof(T));
+  const int LC = wide_list(F);
   const int dh = D / heads;
-  float* sc = reinterpret_cast<float*>(smem4) +
-              (long long)wid * wide_words(F, heads, SOFTMAX);
-  const T* qr = q + r * ldq;
+  const int width = SOFTMAX ? heads : 1;
+  T* Ks = reinterpret_cast<T*>(
+      reinterpret_cast<float*>(smem4) +
+      (long long)wid * wide_words(F, D, heads, sizeof(T), SOFTMAX));
+  T* Qs = Ks + PS * pitch;               // after the pass's k rows
+  int* ids = reinterpret_cast<int*>(Qs + RW * pitch);
+  int* pos = ids + LC;                   // live slot j: row * F + f
+  float* sc = reinterpret_cast<float*>(pos + LC);
+  // F > 32: the row's scores in live-list order, and each one's slot
+  int* lf = reinterpret_cast<int*>(sc + (RW * F * heads + 3) / 4 * 4);
+  const int row = lane / F2, fl = lane % F2;
+  const long long r = r0 + row;
+  const unsigned row_slots = F2 == 32 ? kFull : (1u << F2) - 1u;
+  const int chunks = (F + F2 - 1) / F2;  // passes of 32 slots (F <= 32: 1)
   const float scale = sqrtf((float)dh);
-  for (int f = lane; f < F; f += 32) {
-    const bool live = mask[r * F + f] != 0;
-    const T* kr = k + (live ? (long long)nbr[r * F + f] * ldk : 0);
-    for (int h = 0; h < heads; ++h) {
-      float s = 0.0f;
-      if (live) {
-        for (int c = h * dh; c < (h + 1) * dh; c += V) {
-          Chunk<T, V> qc, kc;
-          qc.load(qr + c, vec);
-          kc.load(kr + c, vec);
+  bool q_read = false;
+  int seen = 0;                          // live slots of earlier windows
+
+  for (int c0 = 0; c0 < chunks; c0 += 2) {   // a window of two passes
+    // 1. every mask and nbr load of the window at once, then its live list;
+    // a masked slot's output is 0 (F <= 32 with the softmax: -1e30 scores)
+    bool in[2], live[2];
+    int id[2];
 #pragma unroll
-          for (int e = 0; e < V; ++e) {
-            const float p = __fmul_rn(to_f32(qc.v[e]), to_f32(kc.v[e]));
-            s = (c == h * dh && e == 0) ? p : __fadd_rn(s, p);
+    for (int u = 0; u < 2; ++u) {
+      const int f = (c0 + u) * F2 + fl;
+      in[u] = c0 + u < chunks && f < F && r < N;
+      live[u] = in[u] && mask[r * F + f] != 0;
+      id[u] = in[u] ? nbr[r * F + f] : 0;
+    }
+    int cnt = 0;
+    unsigned rows_live = 0;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int f = (c0 + u) * F2 + fl;
+      const unsigned b = __ballot_sync(kFull, live[u]);
+      if (in[u] && !live[u]) {
+        if (SOFTMAX && F <= 32) {
+          for (int h = 0; h < heads; ++h)
+            sc[(row * F + f) * heads + h] = -1e30f;
+        } else {
+          for (int h = 0; h < width; ++h) out[(r * F + f) * width + h] = 0.0f;
+        }
+      }
+      if (live[u]) {
+        const int j = cnt + __popc(b & ((1u << lane) - 1u));
+        ids[j] = id[u];
+        pos[j] = row * F + f;
+        if (SOFTMAX && F > 32) lf[seen + j] = f;
+      }
+      cnt += __popc(b);
+      for (int i = 0; i < RW; ++i)
+        if ((b >> (i * F2)) & row_slots) rows_live |= 1u << i;
+    }
+    if (cnt == 0) {
+      if (F > 32) continue;              // nothing to gather in the window
+      // no live slot in the group: its zeros, and no gather, not even q
+      const long long n = (N - r0 < RW ? N - r0 : RW) * F * width;
+      for (long long p = lane; p < n; p += 32) out[r0 * F * width + p] = 0.0f;
+      return;
+    }
+    __syncwarp();
+    // 2. the q rows with a live slot (once, with the first pass's copies),
+    // then the passes of k rows: a pass's copies are all issued before any
+    // is waited for
+    if (!q_read) {
+      copy_rows(Qs, pitch, RW, D, vec, lane, [&](int i) -> const T* {
+        return (rows_live >> i) & 1u ? q + (r0 + i) * ldq : nullptr;
+      });
+      q_read = true;
+    }
+    for (int j0 = 0; j0 < cnt; j0 += PS) {
+      const int m = cnt - j0 < PS ? cnt - j0 : PS;
+      if (j0 > 0) __syncwarp();          // the last pass's dots are done
+      copy_rows(Ks, pitch, m, D, vec, lane, [&](int i) -> const T* {
+        return k + (long long)ids[j0 + i] * ldk;
+      });
+      cp_commit();
+      cp_wait<0>();
+      __syncwarp();
+      // 3. a lane per (slot, head) pair, slots fastest; the scores of a row
+      // with F > 32 are kept in live-list order
+      const DivMod by_m(m);
+      for (int pp = lane; pp < m * heads; pp += 32) {
+        const int h = by_m.div(pp), jj = by_m.mod(pp);
+        const int ps = pos[j0 + jj];
+        const float s = dot_cols<T, V>(Qs + (ps / F) * pitch + h * dh,
+                                       Ks + jj * pitch + h * dh, dh);
+        if constexpr (SOFTMAX)
+          sc[(F <= 32 ? ps : seen + j0 + jj) * heads + h] =
+              __fdiv_rn(s, scale);
+        else
+          out[r0 * F + ps] = s;
+      }
+    }
+    __syncwarp();                        // ids, pos and Ks are free
+    seen += cnt;
+  }
+  if constexpr (!SOFTMAX) return;
+  __syncwarp();
+  if (F > 32) {
+    // 4a. softmax of the row over its live slots, four heads at a time:
+    // lanes take the live list in strides of 32, max and sum by xor
+    // shuffles; a masked slot's 0 is already written
+    for (int h0 = 0; h0 < heads; h0 += 4) {
+      const int nh = heads - h0 < 4 ? heads - h0 : 4;
+      float mx[4], sum[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) mx[u] = -1e30f, sum[u] = 0.0f;
+      for (int j = lane; j < seen; j += 32) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (u < nh) mx[u] = fmaxf(mx[u], sc[j * heads + h0 + u]);
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          mx[u] = fmaxf(mx[u], __shfl_xor_sync(kFull, mx[u], o));
+      }
+      for (int j = lane; j < seen; j += 32) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (u < nh) {
+            float* sp = sc + j * heads + h0 + u;
+            const float e = expf(__fsub_rn(*sp, mx[u]));
+            *sp = e;
+            sum[u] = __fadd_rn(sum[u], e);
           }
         }
       }
-      if constexpr (SOFTMAX)
-        sc[f * heads + h] = live ? __fdiv_rn(s, scale) : -1e30f;
-      else
-        out[r * F + f] = live ? s : 0.0f;
-    }
-  }
-  if constexpr (SOFTMAX) {
-    for (int h = 0; h < heads; ++h) {
-      float mx = -1e30f;
-      for (int f = lane; f < F; f += 32) mx = fmaxf(mx, sc[f * heads + h]);
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-      float sum = 0.0f;
-      for (int f = lane; f < F; f += 32) {
-        const float e = expf(__fsub_rn(sc[f * heads + h], mx));
-        sc[f * heads + h] = e;
-        sum = __fadd_rn(sum, e);
+      for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          sum[u] = __fadd_rn(sum[u], __shfl_xor_sync(kFull, sum[u], o));
       }
-      for (int o = 16; o > 0; o >>= 1)
-        sum = __fadd_rn(sum, __shfl_xor_sync(kFull, sum, o));
-      for (int f = lane; f < F; f += 32)
-        out[(r * F + f) * heads + h] =
-            mask[r * F + f] ? __fdiv_rn(sc[f * heads + h], sum) : 0.0f;
+      for (int j = lane; j < seen; j += 32) {
+        float* op = out + (r0 * F + lf[j]) * heads + h0;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (u < nh) op[u] = __fdiv_rn(sc[j * heads + h0 + u], sum[u]);
+      }
+    }
+    return;
+  }
+  // 4b. softmax over f, four heads at a time: the row's F2 lanes, xor
+  // shuffles
+  for (int h0 = 0; h0 < heads; h0 += 4) {
+    const int nh = heads - h0 < 4 ? heads - h0 : 4;
+    float mx[4], sum[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) mx[u] = -1e30f, sum[u] = 0.0f;
+    for (int f = fl; f < F; f += F2) {
+      const float* sp = sc + (row * F + f) * heads + h0;
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (u < nh) mx[u] = fmaxf(mx[u], sp[u]);
+    }
+    for (int o = F2 / 2; o > 0; o >>= 1) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        mx[u] = fmaxf(mx[u], __shfl_xor_sync(kFull, mx[u], o));
+    }
+    for (int f = fl; f < F; f += F2) {
+      float* sp = sc + (row * F + f) * heads + h0;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (u < nh) {
+          const float e = expf(__fsub_rn(sp[u], mx[u]));
+          sp[u] = e;
+          sum[u] = __fadd_rn(sum[u], e);
+        }
+      }
+    }
+    for (int o = F2 / 2; o > 0; o >>= 1) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        sum[u] = __fadd_rn(sum[u], __shfl_xor_sync(kFull, sum[u], o));
+    }
+    if (r < N) {
+      for (int f = fl; f < F; f += F2) {
+        const bool lv = mask[r * F + f] != 0;
+        const float* sp = sc + (row * F + f) * heads + h0;
+        float* op = out + (r * F + f) * heads + h0;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (u < nh) op[u] = lv ? __fdiv_rn(sp[u], sum[u]) : 0.0f;
+      }
     }
   }
 }
@@ -461,10 +751,13 @@ int launch(const void* q, long long ldq, const void* k, long long ldk,
                    ldq % V == 0 && ldk % V == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!narrow_takes(F, D, V, heads, SOFTMAX)) {
-    const size_t smem =
-        (size_t)warps * wide_words(F, heads, SOFTMAX) * sizeof(float);
+    const size_t smem = (size_t)warps *
+                        wide_words(F, D, heads, sizeof(T), SOFTMAX) *
+                        sizeof(float);
     if (smem > kSmemMax) return cudaErrorInvalidValue;
-    const unsigned grid = (unsigned)((N + warps - 1) / warps);
+    const int rows = wide_rows(F);        // rows a group
+    const long long groups = (N + rows - 1) / rows;
+    const unsigned grid = (unsigned)((groups + warps - 1) / warps);
     const T* qt = static_cast<const T*>(q);
     const T* kt = static_cast<const T*>(k);
 #define DEAL_WIDE(VV)                                                   \
@@ -506,8 +799,8 @@ int launch(const void* q, long long ldq, const void* k, long long ldk,
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q and k share it).  `warps`
-// (1..8) warps a block, each on groups of 32 / F2 rows (scores_kernel) or
-// on one row (wide_kernel).  Returns the launch's cudaError_t.
+// (1..8) warps a block, each on groups of 32 / F2 rows (F2: F rounded up
+// to a power of two; one row for F > 32 in wide_kernel).  Returns the launch's cudaError_t.
 extern "C" int deal_gat_attention(const void* q, const void* k,
                                   const int32_t* nbr, const uint8_t* mask,
                                   float* out, long long N, int F, int D,

@@ -11,7 +11,12 @@ any hd up to 256:
 - bf16: ``csrc/flash_attention_sm90.cu``, both products on the tensor
   cores (``wgmma``), q, k and v read by TMA;
 - f32: ``csrc/flash_attention.cu``, f32 FMAs outside the tensor cores
-  (f32 GEMM math stays full f32 in this port: no TF32).
+  (f32 GEMM math stays full f32 in this port: no TF32), blocked as a
+  SIMT SGEMM: a block takes 64 query rows of one (batch, head), each
+  thread a TM x TN tile of the scores and TM rows of the accumulator in
+  registers, K and V tiles copied into shared memory by ``cp.async``
+  while the previous product runs (the tiles by head dim:
+  ``simt_tiling``).
 
 Each entry serves two signatures:
 
@@ -36,7 +41,7 @@ tensor-core kernel's alone.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,6 +52,38 @@ SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SOURCE_TC = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:65"
 MAX_HEAD_DIM = 256
+_GRID_Y_MAX = 65535                # row tiles a launch, gridDim.y's most
+
+
+class SimtTiling(NamedTuple):
+    """A tile of the f32 kernel: query rows a block, keys a tile, threads
+    a block, a thread's rows x keys of the scores, and the block's shared
+    memory in bytes (q, one K and one V buffer, P)."""
+    rows: int
+    keys: int
+    threads: int
+    tm: int
+    tn: int
+    smem: int
+
+
+def simt_tiling(hd: int) -> SimtTiling:
+    """The tile ``csrc/flash_attention.cu`` takes for head dim ``hd``
+    (1..256), as its ``Tile64`` / ``Tile128`` / ``Tile256`` and
+    ``rows_for`` choose it: by hd alone."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {hd} outside "
+                         f"1..{MAX_HEAD_DIM}")
+    hdp, tm, tn, ty = ((64, 8, 4, 8) if hd <= 64 else
+                       (128, 8, 2, 8) if hd <= 128 else (256, 4, 4, 16))
+    rows, keys, pitch = ty * tm, 16 * tn, hdp + 4
+    words = rows * pitch + 2 * keys * pitch + keys * (rows + 4)
+    return SimtTiling(rows, keys, 16 * ty, tm, tn, 4 * words)
+
+
+def max_query_rows(hd: int) -> int:
+    """The longest Sq one f32 launch takes: gridDim.y row tiles."""
+    return _GRID_Y_MAX * simt_tiling(hd).rows
 
 
 def route(dtype: torch.dtype, device: torch.device) -> str:
@@ -127,6 +164,9 @@ def _launch(q, k, v, *, q_offset: int, causal: bool,
         raise ValueError("flash_attention: the head dimension of q, k and v "
                          "must be contiguous")
     tc = route(q.dtype, q.device) == "tc"
+    if not tc and Sq > max_query_rows(hd):
+        raise ValueError(f"flash_attention: Sq={Sq} passes the f32 "
+                         f"kernel's {max_query_rows(hd)} rows a launch")
     if tc:
         strides = [s for name, t in (("q", q), ("k", k), ("v", v))
                    for s in tma_strides(t, name)]

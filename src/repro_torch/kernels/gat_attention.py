@@ -7,8 +7,12 @@ Masked slots are filled with -1e30 before the softmax and zeroed after
 it.  Replaces the Pallas TPU kernel
 ``src/repro/kernels/gat_attention.py::gat_attention`` (``pallas_call``
 at line 70) with the kernels in ``csrc/gat_attention.cu``: the narrow
-one (F <= 32, heads a power of two up to 32) and the wide one for every
-other shape, chosen by shape alone (``kernel_for``).  On a CPU tensor
+one (F <= 32, heads a power of two up to 32: a lane a slot, the (slot,
+chunk) gathers in registers) and the wide one for every other shape
+(the live slots' k rows copied coalesced into shared memory a pass at a
+time, all of a pass's copies in flight, then a lane per (slot, head)
+pair summing its dot in column order), chosen by shape alone
+(``kernel_for``).  On a CPU tensor
 the wrapper returns the plain version, ``ref.gat_attention_ref``.
 ``gat_attention.launches`` counts kernel launches, and
 ``gat_attention.launches_wide`` those of them on the wide kernel.
@@ -54,11 +58,42 @@ def warp_words(F: int, D: int, heads: int, itemsize: int,
     return -(-words // 4) * 4                      # 16-byte aligned
 
 
-def wide_words(F: int, heads: int, softmax: bool) -> int:
+_PASS_WORDS = 2048                 # a wide pass's k rows, at most ~8 KB
+
+
+def wide_pitch16(D: int, itemsize: int) -> int:
+    """16-byte units between two q or k rows in the wide kernel's shared
+    memory: the row's bytes rounded up, made odd, so that the lanes of one
+    dot step read distinct bank quads."""
+    return -(-D * itemsize // 16) | 1
+
+
+def wide_rows(F: int) -> int:
+    """Rows one warp of the wide kernel serves: 32 / F2 (F2: F rounded up
+    to a power of two) for F <= 32, else one."""
+    return 32 // (1 << max(F - 1, 0).bit_length()) if F <= 32 else 1
+
+
+def wide_pass(D: int, heads: int, itemsize: int) -> int:
+    """k rows the wide kernel gathers in one pass: enough slots for 32
+    (slot, head) pairs, at most about 8 KB of rows, 1 to 32."""
+    fit = _PASS_WORDS // (4 * wide_pitch16(D, itemsize))
+    return max(1, min(32, -(-32 // heads), fit))
+
+
+def wide_words(F: int, D: int, heads: int, itemsize: int,
+               softmax: bool) -> int:
     """Shared memory of one warp of the wide kernel in 4-byte words, as
-    ``wide_words`` in ``csrc/gat_attention.cu``: the row's F x heads
-    scores for the softmax (16-byte aligned), none for sddmm."""
-    return -(-F * heads // 4) * 4 if softmax else 0
+    ``wide_words`` in ``csrc/gat_attention.cu``: a pass of k rows and
+    the warp's q rows (each ``wide_pitch16`` units), the live
+    list of a window of up to 64 slots (ids and positions), and for the
+    softmax the rows' F x heads scores and, for F > 32, the slot of each
+    live score (each 16-byte aligned)."""
+    rows = wide_rows(F)
+    return ((wide_pass(D, heads, itemsize) + rows) * 4
+            * wide_pitch16(D, itemsize) + 2 * (32 if F <= 32 else 64)
+            + (-(-rows * F * heads // 4) * 4 if softmax else 0)
+            + (-(-F // 4) * 4 if softmax and F > 32 else 0))
 
 
 def kernel_for(F: int, D: int, heads: int, itemsize: int,
@@ -66,7 +101,9 @@ def kernel_for(F: int, D: int, heads: int, itemsize: int,
     """Which kernel of ``csrc/gat_attention.cu`` takes the shape, as its
     C ``launch`` chooses: "narrow" (a lane a slot: F <= 32, heads a
     power of two up to 32, one warp's shared memory within 227 KB), else
-    "wide" (a warp a row).  Dispatch by shape, not a fallback."""
+    "wide" (a warp per 32 / F2 rows, one for F > 32, with the live slots'
+    k rows gathered into shared memory a pass at a time).  Dispatch by
+    shape, not a fallback."""
     if (F <= 32 and heads <= 32 and not heads & (heads - 1)
             and 4 * warp_words(F, D, heads, itemsize, softmax)
             <= _SMEM_MAX):
@@ -83,7 +120,7 @@ def block_warps(what, F, D, heads, itemsize, softmax):
     if kernel_for(F, D, heads, itemsize, softmax) == "narrow":
         words = warp_words(F, D, heads, itemsize, softmax)
     else:
-        words = wide_words(F, heads, softmax)
+        words = wide_words(F, D, heads, itemsize, softmax)
     warps = min(WARPS, _SMEM_MAX // max(4 * words, 1))
     if warps < 1:
         raise ValueError(f"{what}: D={D}, F={F}, heads={heads} need "

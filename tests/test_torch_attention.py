@@ -19,6 +19,7 @@ from repro.kernels.flash_attention import flash_attention as jflash  # noqa
 from repro.models import attention as jattn  # noqa: E402
 from repro_torch.kernels import flash_attention as kflash  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import ref as kref  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 
 # tests/test_kernels.py:19 (the flash sweep's tolerances)
@@ -112,6 +113,36 @@ def test_model_flash_rejects_an_unknown_backend():
     with pytest.raises(ValueError, match="not a multiple"):
         kflash.flash_attention_gqa(q, torch.zeros(1, 4, 3, 8),
                                    torch.zeros(1, 4, 3, 8))
+
+
+# the f32 CUDA kernel's tile edges (64 query rows; 64 keys, or 32 for
+# 64 < hd <= 128): Sq and Skv one short of and one past a tile, hd 36 and
+# 256.  The plain version the kernel is held against on the card, against
+# flash_attention_jnp and the Pallas kernel (interpret mode)
+EDGE_CASES = [(63, 65, 36), (65, 63, 36), (31, 33, 100), (33, 31, 100),
+              (65, 65, 256), (63, 63, 256)]
+
+
+@pytest.mark.parametrize("Sq,Skv,hd", EDGE_CASES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_gqa_at_the_f32_tile_edges_matches_jax(Sq, Skv, hd, causal):
+    rng = np.random.default_rng(Sq * Skv + hd)
+    B, H, K = 1, 4, 2
+    qj, qt = _pair(rng.standard_normal((B, Sq, H, hd)), "float32")
+    kj, kt = _pair(rng.standard_normal((B, Skv, K, hd)), "float32")
+    vj, vt = _pair(rng.standard_normal((B, Skv, K, hd)), "float32")
+    got = kref.gqa_attention_ref(qt, kt, vt, causal=causal)
+    want = jattn.flash_attention_jnp(qj, kj, vj, q_block=32, kv_block=32,
+                                     causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want), atol=3e-5, rtol=3e-5)
+    if Sq == Skv:   # the Pallas signature: one head a row of (BH, S, hd)
+        q3, k3, v3 = (x.transpose(0, 2, 1, 3).reshape(-1, x.shape[1], hd)
+                      for x in (qj, jnp.repeat(kj, H // K, axis=2),
+                                jnp.repeat(vj, H // K, axis=2)))
+        pallas = jflash(q3, k3, v3, causal=causal, block_q=Sq, block_k=Skv)
+        np.testing.assert_allclose(
+            _np(got).transpose(0, 2, 1, 3).reshape(-1, Sq, hd), _np(pallas),
+            atol=ATOL["float32"], rtol=3e-2)
 
 
 @pytest.mark.parametrize("window", [None, 4])

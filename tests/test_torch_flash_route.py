@@ -77,3 +77,54 @@ def test_no_kernel_for_a_device_that_is_neither_cpu_nor_cuda():
     q = torch.zeros((1, 4, 2, 64), dtype=BF16, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         kflash.flash_attention_gqa(q, q, q)
+
+
+# the f32 kernel's tiles (csrc/flash_attention.cu Tile64 / Tile128 /
+# Tile256), mirrored by simt_tiling: 64 query rows a block throughout
+SMEM_MAX = 232448                  # a block's shared memory, 227 KB
+
+
+@pytest.mark.parametrize("hd", range(1, 257))
+def test_every_head_dim_gets_a_tile_that_fits(hd):
+    t = kflash.simt_tiling(hd)
+    assert t.smem <= SMEM_MAX and t.threads in (128, 256)
+    assert t.rows == t.threads // 16 * t.tm and t.keys == 16 * t.tn
+    hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
+    assert t.smem == 4 * ((t.rows + 2 * t.keys) * (hdp + 4)
+                          + t.keys * (t.rows + 4))
+
+
+@pytest.mark.parametrize("hd,want", [(1, (64, 64, 128)), (64, (64, 64, 128)),
+                                     (65, (64, 32, 128)),
+                                     (128, (64, 32, 128)),
+                                     (129, (64, 64, 256)),
+                                     (256, (64, 64, 256))])
+def test_simt_tiling_by_head_dim(hd, want):
+    t = kflash.simt_tiling(hd)
+    assert (t.rows, t.keys, t.threads) == want
+
+
+def test_simt_tiling_mirrors_the_c_tiles():
+    """simt_tiling's (TM, TN, threads) are the ones the C entry's Tile64,
+    Tile128 and Tile256 declare (read from the source)."""
+    import re
+    from pathlib import Path
+    src = (Path(kflash.__file__).parent / "csrc" /
+           "flash_attention.cu").read_text()
+    for name, hd in (("Tile64", 64), ("Tile128", 128), ("Tile256", 256)):
+        m = re.search(rf"using {name} = Tile<(\d+), (\d+), (\d+), (\d+)",
+                      src)
+        hdp, tm, tn, ty = map(int, m.groups())
+        t = kflash.simt_tiling(hd)
+        assert (hdp, t.tm, t.tn, t.threads) == (hd, tm, tn, 16 * ty)
+
+
+@pytest.mark.parametrize("hd", [1, 64, 65, 128, 256])
+def test_the_query_row_limit_follows_the_row_tile(hd):
+    assert kflash.max_query_rows(hd) == 65535 * kflash.simt_tiling(hd).rows
+
+
+@pytest.mark.parametrize("hd", [0, 257])
+def test_simt_tiling_refuses_head_dims_past_the_kernel(hd):
+    with pytest.raises(ValueError, match="outside 1..256"):
+        kflash.simt_tiling(hd)

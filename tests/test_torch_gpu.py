@@ -380,6 +380,17 @@ FLASH_CASES = [
     (1, 129, 257, 2, 2, 256, 128, True, None),
     (1, 100, 300, 4, 2, 64, 150, True, 60),     # window band crosses key 128
     (1, 70, 64, 2, 1, 128, 60, True, 4),        # rows 7.. have no live key
+    # the f32 kernel's tiles: 64 query rows; 64 keys (32 for 64 < hd <=
+    # 128); one short of and one past each, hd 4 and 36 (not multiples of
+    # 8), hd 256 with a window
+    (1, 65, 65, 4, 2, 64, 0, True, None),
+    (2, 64, 63, 4, 2, 36, 0, False, None),
+    (1, 63, 65, 2, 1, 4, 2, True, None),
+    (1, 31, 33, 4, 2, 128, 0, False, None),
+    (2, 33, 31, 2, 2, 100, 0, True, None),
+    (1, 129, 129, 2, 1, 128, 0, True, 33),     # window across key tiles
+    (1, 97, 95, 4, 2, 256, 0, True, 40),
+    (1, 65, 63, 2, 2, 200, 0, False, None),
 ]
 
 
@@ -392,9 +403,12 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, K, hd,
     from repro_torch.kernels.flash_attention import flash_attention_gqa
     g = torch.Generator(device=cuda).manual_seed(Sq + hd)
     # q, k, v as strided views of one fused projection, as a model may
-    # hold them: the kernel reads the strides and copies nothing
-    qkv = torch.randn((B, max(Sq, Skv), H + 2 * K, hd), generator=g,
-                      device=cuda).to(dtype)
+    # hold them: the kernel reads the strides and copies nothing.  Heads
+    # sit a multiple of 8 columns apart, as the bf16 kernel's TMA loads
+    # need (hd 4, 36 and 100 leave a gap after each head)
+    hd8 = -(-hd // 8) * 8
+    qkv = torch.randn((B, max(Sq, Skv), H + 2 * K, hd8), generator=g,
+                      device=cuda).to(dtype)[..., :hd]
     q, k, v = (qkv[:, :Sq, :H], qkv[:, :Skv, H:H + K],
                qkv[:, :Skv, H + K:])
     kw = dict(q_offset=q_offset, causal=causal, window=window)
@@ -407,6 +421,36 @@ def test_flash_attention_kernel_matches_plain(cuda, B, Sq, Skv, H, K, hd,
         dtype == torch.bfloat16)
     assert got.dtype == dtype and got.shape == (B, Sq, H, hd)
     _close(got, ref.gqa_attention_ref(q, k, v, **kw), ATOL[dtype])
+
+
+@pytest.mark.parametrize("hd", [36, 37, 64, 128, 200])
+def test_f32_flash_reads_misaligned_views_bitwise(cuda, hd):
+    """The f32 kernel copies a view whose base or strides are not 16-byte
+    aligned (or whose hd is not a multiple of 4) four bytes at a time,
+    with the arithmetic of the 16-byte copies: the same bits as an
+    aligned copy, and within tolerance of the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    q, k, v = (torch.randn((2, 70, n, hd), generator=g, device=cuda)
+               for n in (4, 2, 2))
+    qo, ko, vo = (_misaligned(t) for t in (q, k, v))
+    kw = dict(q_offset=3, causal=True, window=50)
+    got = flash_attention_gqa(qo, ko, vo, **kw)
+    assert torch.equal(got, flash_attention_gqa(q, k, v, **kw))
+    _close(got, ref.gqa_attention_ref(q, k, v, **kw), ATOL[torch.float32])
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_f32_flash_is_deterministic(cuda, hd):
+    """No atomics and no split over keys: two runs of the f32 kernel on
+    the same inputs give the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    g = torch.Generator(device=cuda).manual_seed(hd + 1)
+    q, k, v = (torch.randn((2, 300, n, hd), generator=g, device=cuda)
+               for n in (6, 2, 2))
+    first = flash_attention_gqa(q, k, v, causal=True)
+    for _ in range(2):
+        assert torch.equal(flash_attention_gqa(q, k, v, causal=True), first)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -509,9 +553,14 @@ def test_serve_engine_decodes_on_the_card(cuda):
 # ----------------------------------------------------------------------
 
 # (N, U, D, F, heads): F = 40 and 64, heads 3 and 6, and one narrow-width
-# head count at F = 64
+# head count at F = 64; F = 32 with 3 heads, F = 33, 65 (three passes of
+# 32 slots), 96 and 128; several rows a warp (F = 6: 4 rows, F = 1: 32)
+# with N not a multiple of them
 WIDE_CASES = [(40, 50, 96, 40, 3), (33, 45, 96, 64, 6), (64, 80, 128, 64, 4),
-              (50, 61, 96, 8, 3), (40, 50, 48, 40, 6)]
+              (50, 61, 96, 8, 3), (40, 50, 48, 40, 6), (45, 50, 96, 32, 3),
+              (40, 50, 128, 33, 4), (37, 60, 128, 65, 4),
+              (30, 70, 64, 96, 2), (25, 90, 128, 128, 1),
+              (61, 80, 96, 6, 3), (45, 40, 48, 1, 3)]
 
 
 @pytest.mark.parametrize("N,U,D,F,heads", WIDE_CASES)

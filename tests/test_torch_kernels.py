@@ -324,12 +324,13 @@ def test_attention_block_warps(F, D, heads, itemsize, softmax, want):
     assert want * 4 * warp_words(F, D, heads, itemsize, softmax) <= 232448
 
 
-# the one limit left: a warp's shared memory (the wide kernel's F x heads
-# scores) within a block's 227 KB; and a row needs a column
+# the one limit left: a warp's shared memory (the wide kernel's pass of k
+# rows, q rows, slot lists and F x heads scores) within a block's 227 KB;
+# and a row needs a column
 @pytest.mark.parametrize("F,D,heads,match", [
-    (4096, 128, 16, "262144 bytes .* more than a block.s 227 KB"),
-    (58113, 1, 1, "232464 bytes .* more than a block.s 227 KB"),
-    (1024, 64, 64, "262144 bytes .* more than a block.s 227 KB"),
+    (4096, 128, 16, "280624 bytes .* more than a block.s 227 KB"),
+    (58113, 1, 1, "465968 bytes .* more than a block.s 227 KB"),
+    (1024, 64, 64, "267296 bytes .* more than a block.s 227 KB"),
     (8, 0, 1, "D=0, the kernel needs a column")])
 def test_attention_block_warps_name_the_kernel_limits(F, D, heads, match):
     from repro_torch.kernels.gat_attention import block_warps
@@ -360,7 +361,63 @@ def test_kernel_for_picks_the_wide_kernel_by_shape(F, D, heads, itemsize,
 def test_block_warps_takes_wide_rows_and_any_heads(args):
     from repro_torch.kernels.gat_attention import block_warps, wide_words
     assert block_warps(*args) == 8
-    assert 8 * 4 * wide_words(args[1], args[3], args[5]) <= 232448
+    assert 8 * 4 * wide_words(*args[1:]) <= 232448
+
+
+# the wide kernel's shared memory (a pass of k rows, the q rows, a live
+# list of up to 64 slots, the scores): for heads 1-64 at 32 columns a head,
+# the largest F the wrapper takes fits a block, and the next one raises
+@pytest.mark.parametrize("heads", [1, 2, 3, 4, 6, 8, 16, 32, 64])
+@pytest.mark.parametrize("itemsize,softmax", [(4, True), (2, True),
+                                              (4, False)])
+def test_wide_shared_memory_fits_up_to_the_largest_fanout(heads, itemsize,
+                                                          softmax):
+    from repro_torch.kernels.gat_attention import (block_warps, kernel_for,
+                                                   wide_words)
+    D = 32 * heads
+    if not softmax:    # sddmm keeps no scores: no fanout is too large
+        F = 1 << 20
+        warps = block_warps("k", F, D, heads, itemsize, softmax)
+        assert warps == 8 and kernel_for(F, D, heads, itemsize, False) == \
+            "wide"
+        assert 8 * 4 * wide_words(F, D, heads, itemsize, False) <= 232448
+        return
+    lo, hi = 33, 1 << 17
+    while lo < hi:                       # the largest F block_warps takes
+        mid = (lo + hi + 1) // 2
+        try:
+            block_warps("k", mid, D, heads, itemsize, softmax)
+            lo = mid
+        except ValueError:
+            hi = mid - 1
+    F = lo
+    assert kernel_for(F, D, heads, itemsize, softmax) == "wide"
+    warps = block_warps("k", F, D, heads, itemsize, softmax)
+    assert warps * 4 * wide_words(F, D, heads, itemsize, softmax) <= 232448
+    assert 4 * wide_words(F + 1, D, heads, itemsize, softmax) > 232448
+    with pytest.raises(ValueError, match="more than a block.s 227 KB"):
+        block_warps("k", F + 1, D, heads, itemsize, softmax)
+
+
+@pytest.mark.parametrize("D,heads,itemsize,want", [
+    (128, 4, 4, (33, 8)), (96, 3, 4, (25, 11)), (32, 1, 4, (9, 32)),
+    (128, 1, 4, (33, 15)), (128, 4, 2, (17, 8)), (97, 1, 4, (25, 20))])
+def test_wide_pitch_and_pass(D, heads, itemsize, want):
+    """Rows 16 x odd bytes apart; a pass holds enough slots for 32 (slot,
+    head) pairs, at most about 8 KB of rows (csrc/gat_attention.cu
+    wide_pitch16 / wide_pass)."""
+    from repro_torch.kernels.gat_attention import wide_pass, wide_pitch16
+    assert (wide_pitch16(D, itemsize), wide_pass(D, heads, itemsize)) == want
+
+
+def test_wide_pass_budget_mirrors_the_c_source():
+    import re
+    from pathlib import Path
+    from repro_torch.kernels import gat_attention as kgat
+    src = (Path(kgat.__file__).parent / "csrc" /
+           "gat_attention.cu").read_text()
+    m = re.search(r"constexpr int kPassWords = (\d+);", src)
+    assert int(m.group(1)) == kgat._PASS_WORDS
 
 
 @pytest.mark.parametrize("N,U,D,F,heads", [(16, 24, 96, 64, 3),
