@@ -134,7 +134,13 @@ the run with a non-zero exit code:
    the bounds (f32 FMA rate for f32, bf16 tensor-core rate for bf16).
    Then both kernels at hd 128 (qwen2.5-14b's 40 query heads over 8 kv
    heads, B=1, S=4096, causal), each against its plain version and SDPA
-   in its type, beside its bound.
+   in its type, beside its bound.  Then MLA (deepseek-v2's prefill
+   attention: B=2, S=2048, H=K=128, q and k at hd 192, v at 128 a view of
+   the kv projection, causal) on both kernels against the plain version
+   at the same tolerances, timed beside the plain version, SDPA (null,
+   with the reason, where it refuses) and the bounds; a ragged S=1000 in
+   both types; and a misaligned v view (f32 bitwise the aligned one,
+   bf16 refused: TMA).
 6. llm: smollm-360m at full width (32 layers, d_model 960), random
    weights from a seed.  ``prefill_step`` on B=4 x S=2048 tokens in f32
    through attention backend "cuda" against "ref" (last-position
@@ -146,6 +152,22 @@ the run with a non-zero exit code:
    the work); then ``launch.serve.run`` in bf16 (8
    requests, 4 slots, prompts of 3-11 tokens, 16 new tokens), which only
    decodes and so launches no flash kernel, as in JAX.
+
+7. moe: the moe family at full width, random weights from a seed:
+   deepseek-v2 (d_model 5120, 128 heads, MLA ranks 1536 / 512, 160
+   experts of 1536, top-6, 2 shared) cut to 3 layers (1 dense-first + 2
+   MoE), in f32 then bf16, and llama4-maverick (40 over 8 heads, hd 128,
+   128 experts of 8192, top-1, 1 shared, dense d_ff 16384) cut to one
+   super-block (2 layers), in bf16 only.  Each: ``prefill_step`` on 2 x
+   2048 tokens through "cuda" against "ref" (logits and every cache
+   entry: f32 atol 1e-4, rtol 3e-3; bf16 max error), exactly one flash
+   launch a layer (all on the tensor cores in bf16), the capacity and
+   the share of token-slots dropped by each MoE layer, the weights in
+   GiB and the peak memory, the prefill's warm and first ms and its
+   device-time bound, and one ``moe_block`` at the prefill shape split
+   into routing and dispatch, expert FFN and combine; then
+   ``launch.serve.run`` in bf16 (8 requests, 4 slots, 16 new tokens),
+   with no flash launch, and its tokens/s.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Needs the repo's
@@ -174,6 +196,10 @@ BF16_TC_FLOPS_PER_S = 989e12     # H100 SXM, bf16 tensor cores, dense
 LLM_ARCH = "smollm-360m"         # the JAX serving entry points' default
 LLM_B, LLM_S = 4, 2048           # prefill batch and length
 HD128_ARCH, HD128_S = "qwen2.5-14b", 4096   # the bf16 kernel at hd 128
+MLA_ARCH, MLA_B, MLA_S = "deepseek-v2-236b", 2, 2048  # hd 192, vd 128
+MOE_B, MOE_S = 2, 2048           # the moe prefill: 4,096 tokens
+MOE_MODELS = (("deepseek-v2-236b", 3, ("float32", "bfloat16")),
+              ("llama4-maverick-400b-a17b", 2, ("bfloat16",)))
 WIDE_FANOUT = 64                 # benchmarks/bench_accuracy.py's fanout
 SERVE_QUERIES, SERVE_ROWS = 64, 256
 SERVE_BATCH = {"edge_adds": 4096, "edge_removes": 1024,
@@ -2091,8 +2117,123 @@ def flash_phase(torch, kops):
     log(f"[flash] bf16 hd {hd2} ({HD128_ARCH} heads: B=1 S={S2} H={H2} "
         f"K={K2} causal): err {err2:.3e}; {ms2:.4f} ms, SDPA {lib2:.4f} ms, "
         f"tensor-core bound {tc2:.4f} ms ({ms2 / lib2:.2f}x SDPA)")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flash_mla(torch, kflash, row)
     torch.cuda.synchronize()
+    log(f"[flash] MLA took {time.perf_counter() - t0:.1f} s")
     return row
+
+
+def _sdpa_ms(torch, q, k, v):
+    """SDPA's time on (B, S, H, d) views, causal, transposed outside the
+    timing; (None, reason) where it refuses these shapes."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    try:
+        sdpa(qt, kt, vt, is_causal=True)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:160]
+    return time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True)), None
+
+
+def flash_mla(torch, kflash, row):
+    """Both kernels at deepseek-v2's MLA prefill shape: q and k at hd 192
+    (nope 128 + rope 64), v a (B, S, H, 128) view of the kv projection
+    (the columns after nope), H = K = 128, causal, against the plain
+    version in f32 and bf16; times beside SDPA and the bounds.  Then a
+    ragged Sq = Skv = 1000 in both types, and a v view one element off a
+    16-byte boundary: the f32 kernel bitwise an aligned v, the bf16 one
+    refused (TMA)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref as kref
+    a = get_config(MLA_ARCH).mla
+    H = get_config(MLA_ARCH).n_heads
+    nd, rd, vd = a.nope_head_dim, a.rope_head_dim, a.v_head_dim
+    hd = nd + rd
+    B, S = MLA_B, MLA_S
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    gqa, plain = kflash.flash_attention_gqa, kref.gqa_attention_ref
+    scale = 1.0 / hd ** 0.5
+    kw = dict(causal=True, scale=scale)
+
+    def mla_qkv(Sq, dtype):
+        q = torch.randn((B, Sq, H, hd), generator=gen, device=dev)
+        kv = torch.randn((B, Sq, H, nd + vd), generator=gen, device=dev)
+        k_rope = torch.randn((B, Sq, 1, rd), generator=gen, device=dev)
+        k = torch.cat([kv[..., :nd], k_rope.expand(B, Sq, H, rd)], dim=-1)
+        kv = kv.to(dtype)
+        return q.to(dtype), k.to(dtype), kv[..., nd:]
+
+    live = S * (S + 1) // 2
+    flops = B * H * live * 2 * (hd + vd)
+    tol = {torch.float32: (ATOL["float32"], 3e-2),
+           torch.bfloat16: FLASH_BF16_TOL}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = mla_qkv(S, dtype)
+        assert v.stride(-1) == 1 and v.stride(-2) == nd + vd
+        tc0 = kflash.flash_attention.launches_tc
+        got = gqa(q, k, v, **kw)
+        n_tc = kflash.flash_attention.launches_tc - tc0
+        check(tuple(got.shape) == (B, S, H, vd) and n_tc == int(
+            tag == "bf16"), f"flash MLA {tag}: shape {tuple(got.shape)}, "
+              f"{n_tc} tensor-core launches")
+        err = assert_close(torch, got, plain(q, k, v, **kw), *tol[dtype],
+                           f"flash_attention MLA {tag}")
+        del got
+        ms = time_ms(torch, lambda: gqa(q, k, v, **kw))
+        plain_ms = (time_ms(torch, lambda: plain(q, k, v, **kw), reps=3)
+                    if tag == "f32" else None)
+        sdpa_ms, why = _sdpa_ms(torch, q, k, v)
+        size = 4 if tag == "f32" else 2
+        need = B * S * H * (2 * hd + 2 * vd) * size     # q, k, v, out
+        rate = F32_FLOPS_PER_S if tag == "f32" else BF16_TC_FLOPS_PER_S
+        bnd = max(need / HBM_BYTES_PER_S, flops / rate) * 1e3
+        row.update({f"mla_ms_{tag}": ms, f"mla_bound_ms_{tag}": bnd,
+                    f"mla_sdpa_ms_{tag}": sdpa_ms,
+                    f"mla_max_abs_err_{tag}": err})
+        if plain_ms is not None:
+            row["mla_plain_ms_f32"] = plain_ms
+        log(f"[flash] MLA {tag} ({MLA_ARCH}: B={B} S={S} H=K={H} hd {hd} "
+            f"vd {vd} causal, v a view of kv): err {err:.3e} (atol "
+            f"{tol[dtype][0]} rtol {tol[dtype][1]}); {ms:.4f} ms, "
+            + (f"plain {plain_ms:.4f} ms, " if plain_ms else "")
+            + (f"SDPA {sdpa_ms:.4f} ms" if sdpa_ms is not None
+               else f"SDPA null ({why})")
+            + f", bound {bnd:.4f} ms (operations, {flops / 1e9:.1f} GFLOP; "
+            f"{ms / bnd:.2f}x the bound)")
+        del q, k, v
+        torch.cuda.empty_cache()
+    # ragged: Sq = Skv = 1000 (a partial row tile and key tile) in both
+    ragged = {}
+    for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        q, k, v = mla_qkv(1000, dtype)
+        ragged[tag] = assert_close(
+            torch, gqa(q, k, v, **kw), plain(q, k, v, **kw), *tol[dtype],
+            f"flash_attention MLA ragged S=1000 {tag}")
+    # misaligned v: the f32 kernel's 4-byte copies, bitwise the aligned
+    q, k, v = mla_qkv(1000, torch.float32)
+    flat = torch.empty(v.numel() + 1, device=dev)
+    vm = flat[1:].view(v.shape)
+    vm.copy_(v)
+    check(vm.data_ptr() % 16 != 0, "misaligned v: aligned after all")
+    check(torch.equal(gqa(q, k, vm, **kw), gqa(q, k, v, **kw)),
+          "flash_attention MLA f32: a misaligned v view changed the bits")
+    qb, kb, vmb = q.to(torch.bfloat16), k.to(torch.bfloat16), torch.empty(
+        v.numel() + 1, device=dev, dtype=torch.bfloat16)[1:].view(v.shape)
+    try:
+        gqa(qb, kb, vmb, **kw)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "flash_attention MLA bf16: a misaligned v view was not "
+          "refused")
+    log(f"[flash] MLA ragged S=1000: f32 err {ragged['f32']:.3e}, bf16 "
+        f"err {ragged['bf16']:.3e}; misaligned v: f32 bitwise the "
+        "aligned view, bf16 refused (TMA needs 16-byte bases)")
 
 
 # ----------------------------------------------------------------------
@@ -2215,6 +2356,184 @@ def llm_phase(torch, kops, launches, card):
     return n_tc
 
 
+# ----------------------------------------------------------------------
+# phase 7: the moe family (llama4-maverick, deepseek-v2 with MLA)
+# ----------------------------------------------------------------------
+
+def _moe_inputs(transformer, fn):
+    """Run ``fn`` with ``transformer.moe_block`` recording each MoE
+    layer's (input, params); returns (fn's result, the records)."""
+    seen, inner = [], transformer.moe_block
+
+    def recording(x, p, cfg):
+        seen.append((x, p))
+        return inner(x, p, cfg)
+
+    transformer.moe_block = recording
+    try:
+        return fn(), seen
+    finally:
+        transformer.moe_block = inner
+
+
+def _moe_block_ms(torch, moe, x, p, cfg):
+    """One moe_block at ``x``'s shape, split: routing and dispatch (the
+    sort, the buffer), the expert FFN (three bmm over E), the combine
+    and the shared experts; and the whole block.  CUDA events, median."""
+    m = cfg.moe
+    T, D = x.shape[0] * x.shape[1], x.shape[2]
+    C = moe._capacity(T, m.n_experts, m.top_k, m.capacity_factor)
+    flat = x.reshape(T, D)
+    r = moe.route(flat, p.router, m.n_experts, m.top_k, C)
+    buf = moe.dispatch(flat, r, m.n_experts, C)
+    ob = moe.moe_ffn(buf, p.w_gate, p.w_up, p.w_down)
+    return {
+        "dispatch": time_ms(torch, lambda: moe.dispatch(flat, moe.route(
+            flat, p.router, m.n_experts, m.top_k, C), m.n_experts, C),
+            reps=10),
+        "ffn": time_ms(torch, lambda: moe.moe_ffn(buf, p.w_gate, p.w_up,
+                                                  p.w_down), reps=10),
+        "combine": time_ms(torch, lambda: moe.combine(ob, r), reps=10),
+        "block": time_ms(torch, lambda: moe.moe_block(x, p, cfg), reps=10),
+    }
+
+
+def moe_model(torch, kops, launches, arch, n_layers, dtypes, card):
+    """One moe config at full width, cut to ``n_layers``: per dtype the
+    prefill through "cuda" against "ref" (logits and every cache entry;
+    f32 atol 1e-4 rtol 3e-3, bf16 max error), flash launches (one a
+    layer, all on the tensor cores in bf16), capacity and dropped share,
+    one moe_block split, memory; then the serving run in the last dtype.
+    Returns the tensor-core flash launches of the counted prefills."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import moe, transformer
+    from repro_torch.serve.step import prefill_step
+    base = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    m = base.moe
+    T = MOE_B * MOE_S
+    C = moe._capacity(T, m.n_experts, m.top_k, m.capacity_factor)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.vocab_size, (MOE_B, MOE_S)), device=DEVICE)
+    want = {name: (n_layers if name == "flash_attention" else 0)
+            for name in kops.KERNELS}
+    none = {name: 0 for name in kops.KERNELS}
+    n_tc = 0
+    for dtype in dtypes:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(base, dtype=dtype)
+        torch.cuda.reset_peak_memory_stats()
+        params = transformer.init_params(cfg, 0, device=DEVICE)
+        torch.cuda.synchronize()
+        gib = sum(p.numel() * p.element_size()
+                  for p in params.parameters()) / 2 ** 30
+        init_s = time.perf_counter() - t0
+        want_tc = n_layers if dtype == "bfloat16" else 0
+        got, seen = _moe_inputs(transformer, lambda: _prefill(
+            torch, kops, prefill_step, cfg, params, tokens, "cuda"))
+        check(got[2] == want and got[4] == want_tc, f"{arch} prefill "
+              f"{dtype}: launches {got[2]}, {got[4]} on the tensor-core "
+              f"kernel; expected {want}, {want_tc}")
+        launches["flash_attention"] += got[2]["flash_attention"]
+        n_tc += got[4]
+        ref, seen_ref = _moe_inputs(transformer, lambda: _prefill(
+            torch, kops, prefill_step, cfg, params, tokens, "ref"))
+        check(ref[2] == none and ref[4] == 0,
+              f"{arch} prefill {dtype} ref: launches {ref[2]}, {ref[4]}")
+        check(tuple(got[0].shape) == (MOE_B, 1, cfg.vocab_size)
+              and bool(torch.isfinite(got[0]).all()),
+              f"{arch} prefill {dtype}: logits {tuple(got[0].shape)}")
+        check(set(got[1]) == set(ref[1]) and all(
+            bool(torch.isfinite(c.float()).all()) for c in got[1].values()),
+            f"{arch} prefill {dtype}: cache entries")
+        names = ["logits", *sorted(got[1])]
+        pairs = [(got[0], ref[0])] + [(got[1][n], ref[1][n])
+                                      for n in sorted(got[1])]
+        if dtype == "float32":
+            errs = [assert_close(torch, a, b, 1e-4, 3e-3,
+                                 f"{arch} prefill f32 {n} cuda vs ref")
+                    for n, (a, b) in zip(names, pairs)]
+        else:
+            errs = [max_err(torch, a, b) for a, b in pairs]
+        drops, flips = [], []
+        for (x, p), (xr, _) in zip(seen, seen_ref):
+            r, rr = (moe.route(t.reshape(T, -1), p.router, m.n_experts,
+                               m.top_k, C) for t in (x, xr))
+            drops.append(1.0 - float(r.keep.float().mean()))
+            same = (r.expert.sort(dim=1).values
+                    == rr.expert.sort(dim=1).values).all(dim=1)
+            flips.append(int((~same).sum()))
+        split = _moe_block_ms(torch, moe, *seen[0], cfg)
+        first_ms, ref_ms = got[3], ref[3]
+        del got, ref, seen, seen_ref
+        again = _prefill(torch, kops, prefill_step, cfg, params, tokens,
+                         "cuda")
+        check(again[2] == want and again[4] == want_tc,
+              f"{arch} prefill {dtype} again: launches {again[2]}")
+        launches["flash_attention"] += again[2]["flash_attention"]
+        n_tc += again[4]
+        kops.reset_launch_counts()
+        dev_ms = _device_ms(torch, lambda: prefill_step(
+            cfg, params, {"tokens": tokens}, attn_backend="cuda"))
+        launches["flash_attention"] += kops.flash_attention.launches
+        n_tc += kops.flash_attention.launches_tc
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[moe] {arch} {n_layers} layers d_model {cfg.d_model} "
+            f"{dtype}: {gib:.2f} GiB of weights (drawn in {init_s:.1f} s), "
+            f"peak {peak:.2f} GiB; prefill {MOE_B}x{MOE_S} tokens "
+            f"{again[3]:.1f} ms warm ({first_ms:.1f} ms first; \"ref\" "
+            f"{ref_ms:.1f} ms; device at most {dev_ms:.1f} ms, queued "
+            "ahead), "
+            f"{want['flash_attention']} flash launches, {want_tc} on the "
+            f"tensor cores (\"ref\": 0); capacity C={C} for {T} tokens x "
+            f"top-{m.top_k} over {m.n_experts} experts, dropped "
+            + ", ".join(f"{d:.4f}" for d in drops) + " of the token-slots "
+            "by MoE layer; tokens routed to other experts under \"ref\": "
+            + ", ".join(f"{f} of {T}" for f in flips) + "; max err cuda vs "
+            "ref: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+            + (" (atol 1e-4, rtol 3e-3)" if dtype == "float32" else ""))
+        log(f"[moe] {arch} {dtype} one moe_block at {MOE_B}x{MOE_S}: "
+            f"{split['block']:.3f} ms = routing and dispatch "
+            f"{split['dispatch']:.3f} ms + expert FFN {split['ffn']:.3f} "
+            f"ms + combine {split['combine']:.3f} ms + shared experts")
+        if dtype != dtypes[-1]:
+            del params
+            torch.cuda.empty_cache()
+    kops.reset_launch_counts()
+    reqs, stats = launch_serve.run(arch, n_requests=8, max_new=16,
+                                   batch_slots=4, max_seq=128, seed=0,
+                                   params=params, cfg=cfg, device=DEVICE)
+    counts = kops.launch_counts()
+    check(counts == none, f"{arch} serve: launches {counts}, expected none")
+    check(all(r.done and r.out_tokens for r in reqs),
+          f"{arch} serve: a request did not finish")
+    log(f"[moe] serve {arch} {cfg.dtype} ({n_layers} layers) on {card}: "
+        f"{len(reqs)} requests, 4 slots, {stats['tokens']} tokens in "
+        f"{stats['decode_steps']} decode steps, {stats['seconds']:.2f} s "
+        f"({stats['tokens'] / stats['seconds']:.1f} tok/s, "
+        f"{stats['seconds'] / stats['decode_steps'] * 1e3:.1f} ms per "
+        "step); 0 flash launches")
+    del params
+    torch.cuda.empty_cache()
+    return n_tc
+
+
+def moe_phase(torch, kops, launches, card):
+    """deepseek-v2 (1 dense-first + 2 MoE layers; f32, then bf16 and its
+    serving run) and llama4-maverick (one super-block; bf16 only: its
+    f32 weights, about 69 GiB, do not fit beside their activations)."""
+    n_tc = 0
+    for arch, n_layers, dtypes in MOE_MODELS:
+        t0 = time.perf_counter()
+        n_tc += moe_model(torch, kops, launches, arch, n_layers, dtypes,
+                          card)
+        log(f"[moe] {arch} took {time.perf_counter() - t0:.1f} s")
+    return n_tc
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2295,7 +2614,9 @@ def main() -> int:
     gat_wide_phase(torch, kops, lg, lg64, rows)
     del src_e, dst_e, g, lg64
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     rows["flash_attention"] = flash_phase(torch, kops)
+    log(f"[flash] phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     launches = {name: 0 for name in kops.KERNELS}
@@ -2318,6 +2639,10 @@ def main() -> int:
     log(f"[cluster] phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     n_tc = llm_phase(torch, kops, launches, smi)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n_tc += moe_phase(torch, kops, launches, smi)
+    log(f"[moe] phase took {time.perf_counter() - t0:.1f} s")
     for name, v in launches.items():
         check(v > 0, f"{name}: never launched on the main path")
         rows[name]["launches"] = v

@@ -1,8 +1,9 @@
 """Layer-wise 1-hop sampling — DEAL's sampling contribution (§3.2).
 
-The port's own copy of ``LayerGraph``, ``draw_fixed_fanout`` and
-``sample_layer_graphs`` from ``repro.core.sampler`` (numpy only); the
-same seed gives bitwise the same layer graphs.
+The port's own copy of ``LayerGraph``, ``draw_fixed_fanout``,
+``sample_layer_graphs``, the ego-centric baseline ``sample_ego_networks``
+and ``frontier_sizes`` from ``repro.core.sampler`` (numpy only); the same
+seed gives bitwise the same samples.
 
 For a k-layer model we draw k INDEPENDENT 1-hop neighborhoods per node and
 store each layer's samples for all nodes together as one layer graph
@@ -74,4 +75,43 @@ def sample_layer_graphs(g: Graph, fanout: int, n_layers: int,
             out.append(LayerGraph(nbr=nbr, mask=mask, fanout=fanout))
             if sp:
                 sp.set(layer=l, rows=int(nbr.shape[0]), fanout=fanout)
+    return out
+
+
+def sample_ego_networks(g: Graph, targets: np.ndarray, fanout: int,
+                        n_layers: int, seed: int = 0
+                        ) -> List[List[np.ndarray]]:
+    """Ego-centric baseline: per-target multi-hop frontier expansion
+    (pointer-chasing).  Returns, per target, the node set of each hop."""
+    rng = np.random.default_rng(seed)
+    egos = []
+    for t in targets:
+        frontier = np.array([t], np.int64)
+        hops = [frontier]
+        for _ in range(n_layers):
+            nxt = []
+            for v in frontier:
+                nbrs = g.neighbors(v)
+                if nbrs.size == 0:
+                    continue
+                if nbrs.size > fanout:
+                    nbrs = rng.choice(nbrs, size=fanout, replace=False)
+                nxt.append(nbrs)
+            frontier = (np.unique(np.concatenate(nxt))
+                        if nxt else np.empty(0, np.int64))
+            hops.append(frontier)
+        egos.append(hops)
+    return egos
+
+
+def frontier_sizes(layer_graphs: List[LayerGraph],
+                   targets: np.ndarray) -> List[np.ndarray]:
+    """Dependency frontiers of a target batch under the LAYER graphs
+    (used by the sharing-ratio analytics and the batched baseline)."""
+    frontier = np.unique(targets)
+    out = [frontier]
+    for lg in layer_graphs:
+        nbrs = lg.nbr[frontier][lg.mask[frontier]]
+        frontier = np.unique(np.concatenate([frontier, nbrs]))
+        out.append(frontier)
     return out

@@ -44,10 +44,11 @@ SIGNATURES = {
                        _P]},
     "flash_attention": {
         "deal_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 *[_L] * 9, _I, _I, _L, _L, _F, _I, _P]},
+                                 _I, *[_L] * 9, _I, _I, _L, _L, _F, _I, _P]},
     "flash_attention_sm90": {
         "deal_flash_attention_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    *[_L] * 9, _I, _I, _L, _L, _F, _I, _P]},
+                                    _I, *[_L] * 9, _I, _I, _L, _L, _F, _I,
+                                    _P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

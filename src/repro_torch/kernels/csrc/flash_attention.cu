@@ -4,12 +4,14 @@
 //   out[b,i,h,:] = sum_j p[i,j] * v[b,j,h/G,:]
 //   p[i,:]       = softmax over the live j of (scale * q[b,i,h,:]) . k[b,j,h/G,:]
 //
+// q and k have head dim hd, v and out head dim vd, which may differ (MLA:
+// hd 192, vd 128).
 // A key j is live for query row i when j < Skv, j <= q_offset + i (causal),
 // and q_offset + i - j < window (when a window is given).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention, and serves models/attention.py::flash_attention_jnp's GQA
-// layout as well: q (B, Sq, H, hd), k and v (B, Skv, K, hd), each with its
+// layout as well: q (B, Sq, H, hd), k (B, Skv, K, hd) and v (B, Skv, K, vd), each with its
 // own strides and the last dimension contiguous.  Query head h reads kv head
 // h / (H / K), as attention.py:89 splits H into (K, G).  The Pallas
 // signature, (BH, S, hd), is the case H = K = 1.  Nothing is copied or
@@ -54,9 +56,13 @@
 //   never copied or computed; only tiles that cross the diagonal, the
 //   window's edge or Skv evaluate a mask.  The heaviest row tiles
 //   (latest, under a causal mask) are launched first.
-// - One kernel for every shape: a tile by hd (<= 64, <= 128, <= 256;
-//   Tile64 / Tile128 / Tile256 below, mirrored by `simt_tiling` in
-//   flash_attention.py), chosen by shape alone.  They were picked on the
+// - One kernel for every shape: a tile by max(hd, vd) (<= 64, <= 128,
+//   <= 256; Tile64 / Tile128 / Tile256 below, mirrored by `simt_tiling` in
+//   flash_attention.py), chosen by shape alone.  V and the accumulator
+//   are as wide as the tile's q and k (VDP = HDP; a narrower vd is
+//   zero-filled), except at hd > 128 with vd <= 128 (MLA), whose
+//   Tile256v128 holds V and the accumulator at 128 columns: half the
+//   accumulator's registers and V's shared memory.  They were picked on the
 //   card by tools/flash_tiles.py among tiles with no register spills.
 //   What bounds them now: a thread keeps its scores, accumulator and
 //   fragments in about 168 registers, so an SM holds 12 warps (hd <= 128);
@@ -92,7 +98,7 @@ struct Args {
   const float* k;
   const float* v;
   float* out;
-  int B, H, K, Sq, Skv, hd;
+  int B, H, K, Sq, Skv, hd, vd;
   long long sqb, sqs, sqh, skb, sks, skh, svb, svs, svh;
   int causal, has_window;
   long long window, q_offset;
@@ -100,24 +106,26 @@ struct Args {
   int vq, vk, vv;                     // 16-byte copies allowed for q, k, v
 };
 
-// HDP: head dim padded (64, 128 or 256); TM x TN: a thread's rows x keys of
-// the scores; TY: row groups of 16 threads; UD: 4-column steps of q . K
-// unrolled together; UP: keys of P . V unrolled together.  One K and one V
-// buffer: the next tile's K loads during the softmax and P . V, the next V
-// during the next q . K.
-template <int HDP_, int TM_, int TN_, int TY_, int UD_, int UP_>
+// HDP: q and k's head dim padded (64, 128 or 256); TM x TN: a thread's rows
+// x keys of the scores; TY: row groups of 16 threads; UD: 4-column steps of
+// q . K unrolled together; UP: keys of P . V unrolled together; VDP: v's
+// head dim padded (at most HDP).  One K and one V buffer: the next tile's K
+// loads during the softmax and P . V, the next V during the next q . K.
+template <int HDP_, int TM_, int TN_, int TY_, int UD_, int UP_,
+          int VDP_ = HDP_>
 struct Tile {
   static constexpr int HDP = HDP_, TM = TM_, TN = TN_, TY = TY_;
-  static constexpr int UD = UD_, UP = UP_;
+  static constexpr int UD = UD_, UP = UP_, VDP = VDP_;
   static constexpr int NT = kTX * TY;          // threads a block
   static constexpr int BM = TY * TM;           // query rows a block
   static constexpr int BN = kTX * TN;          // keys a tile
-  static constexpr int TC = HDP / kTX;         // output columns a thread
-  static constexpr int LD = HDP + 4;           // q, K, V row pitch (floats)
+  static constexpr int TC = VDP / kTX;         // output columns a thread
+  static constexpr int LD = HDP + 4;           // q, K row pitch (floats)
+  static constexpr int LDV = VDP + 4;          // V row pitch (floats)
   static constexpr int LDP = BM + 4;           // P key pitch (floats)
   static constexpr int K_OFF = BM * LD;
   static constexpr int V_OFF = K_OFF + BN * LD;
-  static constexpr int P_OFF = V_OFF + BN * LD;
+  static constexpr int P_OFF = V_OFF + BN * LDV;
   static constexpr size_t SMEM = (size_t)(P_OFF + BN * LDP) * sizeof(float);
   // blocks an SM holds by shared memory (1 KB reserved a block), as many
   // as leave each thread 128 registers
@@ -125,7 +133,7 @@ struct Tile {
   static constexpr int RFIT = 512 / NT;
   static constexpr int MINB = FIT < 1 ? 1 : FIT > RFIT ? RFIT : FIT;
   static_assert(TM % 4 == 0 && HDP % 64 == 0 && HDP % (4 * UD) == 0 &&
-                    BN % UP == 0,
+                    VDP % 64 == 0 && VDP <= HDP && BN % UP == 0,
                 "tile shape");
   static_assert(SMEM <= kSmemMax, "a block's shared memory");
 };
@@ -153,21 +161,22 @@ __device__ __forceinline__ void cp_wait_all() {
 }
 
 // Rows [g0, g0 + ROWS) of a (rows, hd) view whose rows are `ld` floats
-// apart, into dst (ROWS x HDP, pitch LD); rows at or past `lim` and columns
-// past hd arrive as 0.  Consecutive threads take consecutive 16-byte chunks
-// of a row.  `src` itself is a valid address for the zero fills.
-template <class TL, int ROWS>
+// apart, into dst (ROWS x W, pitch W + 4); rows at or past `lim` and
+// columns past hd arrive as 0.  Consecutive threads take consecutive
+// 16-byte chunks of a row.  `src` itself is a valid address for the zero
+// fills.
+template <class TL, int ROWS, int W = TL::HDP>
 __device__ __forceinline__ void stage(float* dst, const float* src,
                                       long long ld, long long g0,
                                       long long lim, int hd, bool vec) {
-  constexpr int CH = TL::HDP / 4;
+  constexpr int CH = W / 4;
 #pragma unroll 4
   for (int c = threadIdx.x; c < ROWS * CH; c += TL::NT) {
     const int r = c / CH, d = (c % CH) * 4;
     const long long g = g0 + r;
     const bool row_ok = g < lim;
     const float* from = src + (row_ok ? g * ld + d : 0);
-    float* to = dst + r * TL::LD + d;
+    float* to = dst + r * (W + 4) + d;
     if (vec) {
       const bool ok = row_ok && d < hd;
       cp_async16(to, ok ? from : src, ok);
@@ -186,6 +195,7 @@ __global__ void __launch_bounds__(TL::NT, TL::MINB)
 flash_kernel(const Args a) {
   constexpr int TM = TL::TM, TN = TL::TN, TC = TL::TC, BM = TL::BM;
   constexpr int BN = TL::BN, LD = TL::LD, LDP = TL::LDP, HDP = TL::HDP;
+  constexpr int VDP = TL::VDP, LDV = TL::LDV;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* Ks = Qs + TL::K_OFF;          // BN x LD
@@ -217,7 +227,8 @@ flash_kernel(const Args a) {
   stage<TL, BM>(Qs, qb, a.sqs, r0, a.Sq, a.hd, a.vq);
   if (n_tiles > 0) stage<TL, BN>(Ks, kb, a.sks, t_begin, a.Skv, a.hd, a.vk);
   cp_commit();
-  if (n_tiles > 0) stage<TL, BN>(Vs, vb, a.svs, t_begin, a.Skv, a.hd, a.vv);
+  if (n_tiles > 0)
+    stage<TL, BN, VDP>(Vs, vb, a.svs, t_begin, a.Skv, a.vd, a.vv);
   cp_commit();
   cp_wait_one();                       // q and the first K have landed
   __syncthreads();
@@ -343,7 +354,7 @@ flash_kernel(const Args a) {
         p[i] = *reinterpret_cast<const float4*>(prow + kk * LDP + 4 * i);
 #pragma unroll
       for (int c = 0; c < TC / 4; ++c)
-        vv[c] = *reinterpret_cast<const float4*>(vrow + kk * LD + 64 * c);
+        vv[c] = *reinterpret_cast<const float4*>(vrow + kk * LDV + 64 * c);
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         const float4 pi = p[i / 4];
@@ -361,7 +372,7 @@ flash_kernel(const Args a) {
     }
     __syncthreads();                   // V and P are free: the next V
     if (t + 1 < n_tiles)
-      stage<TL, BN>(Vs, vb, a.svs, t0 + BN, a.Skv, a.hd, a.vv);
+      stage<TL, BN, VDP>(Vs, vb, a.svs, t0 + BN, a.Skv, a.vd, a.vv);
     cp_commit();
   }
 
@@ -373,11 +384,11 @@ flash_kernel(const Args a) {
     for (int o = 1; o < kTX; o <<= 1) lt += __shfl_xor_sync(kFull, lt, o);
     const int row = r0 + ty * TM + i;
     if (row >= a.Sq) continue;
-    float* orow = a.out + (((long long)b * a.Sq + row) * a.H + h) * a.hd;
+    float* orow = a.out + (((long long)b * a.Sq + row) * a.H + h) * a.vd;
     if (m[i] == kNegInf) {
       for (int c = 0; c < TC; ++c) {
         const int d = 4 * tx + 64 * (c / 4) + c % 4;
-        if (d >= a.hd) continue;
+        if (d >= a.vd) continue;
         float sum = 0.0f;
         for (long long kv = 0; kv < a.Skv; ++kv) sum += vb[kv * a.svs + d];
         orow[d] = sum / (float)a.Skv;
@@ -392,13 +403,13 @@ flash_kernel(const Args a) {
                                    acc[i][4 * c + 1] / denom,
                                    acc[i][4 * c + 2] / denom,
                                    acc[i][4 * c + 3] / denom);
-      if (d + 3 < a.hd && a.hd % 4 == 0) {
+      if (d + 3 < a.vd && a.vd % 4 == 0) {
         *reinterpret_cast<float4*>(orow + d) = o;
       } else {
-        if (d < a.hd) orow[d] = o.x;
-        if (d + 1 < a.hd) orow[d + 1] = o.y;
-        if (d + 2 < a.hd) orow[d + 2] = o.z;
-        if (d + 3 < a.hd) orow[d + 3] = o.w;
+        if (d < a.vd) orow[d] = o.x;
+        if (d + 1 < a.vd) orow[d + 1] = o.y;
+        if (d + 2 < a.vd) orow[d + 2] = o.z;
+        if (d + 3 < a.vd) orow[d + 3] = o.w;
       }
     }
   }
@@ -409,6 +420,7 @@ flash_kernel(const Args a) {
 using Tile64 = Tile<64, 8, 4, 8, 1, 4>;
 using Tile128 = Tile<128, 8, 2, 8, 1, 1>;
 using Tile256 = Tile<256, 4, 4, 16, 2, 4>;
+using Tile256v128 = Tile<256, 4, 4, 16, 2, 4, 128>;    // MLA: vd <= 128
 
 template <class TL>
 cudaError_t run(const Args& a, cudaStream_t s) {
@@ -424,8 +436,9 @@ cudaError_t run(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-int rows_for(int hd) {
-  return hd <= 64 ? Tile64::BM : hd <= 128 ? Tile128::BM : Tile256::BM;
+// the tile's width: max(hd, vd)
+int rows_for(int w) {
+  return w <= 64 ? Tile64::BM : w <= 128 ? Tile128::BM : Tile256::BM;
 }
 
 // a view may take 16-byte copies when its base and every stride it steps
@@ -441,49 +454,52 @@ bool vec16(const void* p, int hd, long long n0, long long s0, long long n1,
 // sweep (tools/flash_tiles.cu); returns a cudaError_t, 0 when `a` is set
 int make_args(Args* a, const void* q, const void* k, const void* v,
               void* out, int B, int H, int K, int Sq, int Skv, int hd,
-              long long sqb, long long sqs, long long sqh, long long skb,
+              int vd, long long sqb, long long sqs, long long sqh, long long skb,
               long long sks, long long skh, long long svb, long long svs,
               long long svh, int causal, int has_window, long long window,
               long long q_offset, float scale, int dtype, int rows) {
   if (dtype != 0 || H < 1 || K < 1 || H % K != 0 || Skv < 1 || hd < 1 ||
-      hd > 256 || (long long)B * H > 0x7fffffffLL ||
+      hd > 256 || vd < 1 || vd > 256 || (long long)B * H > 0x7fffffffLL ||
       (Sq + rows - 1) / rows > 65535)
     return cudaErrorInvalidValue;
   *a = Args{static_cast<const float*>(q),
             static_cast<const float*>(k),
             static_cast<const float*>(v),
             static_cast<float*>(out),
-            B, H, K, Sq, Skv, hd,
+            B, H, K, Sq, Skv, hd, vd,
             sqb, sqs, sqh, skb, sks, skh, svb, svs, svh,
             causal, has_window, window, q_offset, scale,
             vec16(q, hd, B, sqb, Sq, sqs, H, sqh),
             vec16(k, hd, B, skb, Skv, sks, K, skh),
-            vec16(v, hd, B, svb, Skv, svs, K, svh)};
+            vec16(v, vd, B, svb, Skv, svs, K, svh)};
   return 0;
 }
 
 }  // namespace
 
-// dtype code: 0 = float32 (q, k, v and out share it).  Strides
-// are in elements; the head dimension of each tensor is contiguous, and out
-// is a contiguous (B, Sq, H, hd).  window is read only when has_window != 0.
-// Returns the launch's cudaError_t.
+// dtype code: 0 = float32 (q, k, v and out share it).  hd is q and k's head
+// dim, vd v's and out's.  Strides are in elements; the head dimension of
+// each tensor is contiguous, and out is a contiguous (B, Sq, H, vd).
+// window is read only when has_window != 0.  Returns the launch's
+// cudaError_t.
 extern "C" int deal_flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int H,
-    int K, int Sq, int Skv, int hd, long long sqb, long long sqs,
+    int K, int Sq, int Skv, int hd, int vd, long long sqb, long long sqs,
     long long sqh, long long skb, long long sks, long long skh, long long svb,
     long long svs, long long svh, int causal, int has_window,
     long long window, long long q_offset, float scale, int dtype,
     void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   Args a;
-  const int err = make_args(&a, q, k, v, out, B, H, K, Sq, Skv, hd, sqb, sqs,
-                            sqh, skb, sks, skh, svb, svs, svh, causal,
+  const int w = hd > vd ? hd : vd;
+  const int err = make_args(&a, q, k, v, out, B, H, K, Sq, Skv, hd, vd, sqb,
+                            sqs, sqh, skb, sks, skh, svb, svs, svh, causal,
                             has_window, window, q_offset, scale, dtype,
-                            rows_for(hd));
+                            rows_for(w));
   if (err) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd <= 64) return run<Tile64>(a, s);
-  if (hd <= 128) return run<Tile128>(a, s);
+  if (w <= 64) return run<Tile64>(a, s);
+  if (w <= 128) return run<Tile128>(a, s);
+  if (vd <= 128) return run<Tile256v128>(a, s);
   return run<Tile256>(a, s);
 }

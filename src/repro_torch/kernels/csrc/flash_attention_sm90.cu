@@ -4,13 +4,14 @@
 //   p[i,:]       = softmax over live j of (scale * q[b,i,h,:]) . k[b,j,h/G,:]
 //
 // A key j is live for query row i when j < Skv, j <= q_offset + i (causal),
-// and q_offset + i - j < window (when a window is given).
+// and q_offset + i - j < window (when a window is given).  q and k have head
+// dim hd, v and out head dim vd, which may differ (MLA: hd 192, vd 128).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // _flash_kernel (pallas_call at line 65) and serves models/attention.py::
-// flash_attention_jnp's GQA layout, in bf16 with hd <= 128.  It takes the
-// same arguments as deal_flash_attention in flash_attention.cu, which keeps
-// the f32 path (and bf16 with hd > 128).
+// flash_attention_jnp's GQA layout.  Every bf16 call takes this kernel, for
+// any hd and vd up to 256; flash_attention.cu is the f32 path only.  Both
+// take the same arguments.
 //
 // Bound: operations.  At the prefill shape (B=4, S=2048, H=15, K=5, hd=64,
 // causal) the live (i, j) pairs need 4 * hd flops each, 32.2 GFLOP: 0.033 ms
@@ -51,13 +52,25 @@
 //   other's wgmma; both then walk every tile of the block.  With two
 //   stages (hd 256, whose tiles are 64 keys) neither is done, and a
 //   warpgroup skips the tiles dead for all of its rows.
+// - Head dims.  A tile is Tile<HD, VD, BN, NST>: q and k held at HD
+//   columns, v and the O fragment at VD.  hd <= 64 and vd <= 64 take <64,
+//   64, 128, 3>; both <= 128 take <128, 128, 128, 3>; MLA (hd <= 192, vd <=
+//   128) takes <192, 128, 64, 3>; the rest <256, 256, 64, 2>.  A head dim
+//   below its tile's is zero-filled by TMA.  At MLA's shape, V and O at 128
+//   columns (not 256) halve the O fragment (64 registers) and V's stages,
+//   and q and k at 192 columns skip a quarter of the zero-filled q . k^T of
+//   a 256-column tile: the three stages fit in 173,112 bytes, so MLA runs
+//   with the overlap and ping-pong below.  tools/flash_tc_stages.py builds
+//   it with DEAL_TC_MLA_STAGES=2 (no overlap) and =0 (no MLA tile: <256,
+//   256, 64, 2>) to time both against it.
 // - The end: acc / max(l, 1e-30), stored as bf16.  A row with no live key
 //   at all (only a window or an offset can do that) comes out as the mean of
 //   v over all Skv keys, which is what a softmax over -1e30 fills gives.
 //
 // Registers: ptxas reports 168 a thread (the 65,536 of the SM over 384
 // threads); setmaxnreg moves them to the consumers.  Shared memory: 115,768
-// bytes at hd <= 64, 230,456 at hd <= 128, 197,672 at hd <= 256.
+// bytes at hd <= 64, 230,456 at hd <= 128, 173,112 for MLA, 197,672 at hd
+// <= 256.
 //
 // Numerics against JAX's flash_attention_jnp: P is rounded to bf16 before
 // P . v (JAX keeps p in f32; the row sum l here is taken over the f32 p), and
@@ -73,11 +86,14 @@ constexpr int kBM = 128;        // query rows per block: two consumer warpgroups
 constexpr int kThreads = 384;   // producer warpgroup + two consumer warpgroups
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
+#ifndef DEAL_TC_MLA_STAGES
+#define DEAL_TC_MLA_STAGES 3    // stages of MLA's tile; 0: none (the header)
+#endif
 
 struct Args {
   const __nv_bfloat16* v;       // read directly only for rows with no live key
-  __nv_bfloat16* out;           // contiguous (B, Sq, H, hd)
-  int H, K, Sq, Skv, hd;
+  __nv_bfloat16* out;           // contiguous (B, Sq, H, vd)
+  int H, K, Sq, Skv, hd, vd;
   long long svb, svs, svh;
   int causal, has_window;
   long long window, q_offset;
@@ -349,31 +365,35 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   else wgmma_rs_n256(d, a, db);
 }
 
-// HD: head dim held (hd is zero-filled up to it); BN: keys per tile; NST:
-// stages of the k/v ring.  Shared memory: the q tile, then NST k tiles, NST
-// v tiles, then the barriers; each tile is HD / 64 blocks of 128-byte rows.
-template <int HD, int BN, int NST>
+// HD: q and k's head dim held (hd is zero-filled up to it); VD: v's and
+// O's (vd likewise); BN: keys per tile; NST: stages of the k/v ring.  Shared
+// memory: the q tile, then NST k tiles, NST v tiles, then the barriers; each
+// tile is HD / 64 (v: VD / 64) blocks of 128-byte rows.
+template <int HD, int VD, int BN, int NST>
 struct Tile {
+  static_assert(HD % 64 == 0 && VD % 64 == 0 && VD != 192, "tile widths");
   static constexpr int kColBlocks = HD / 64;
+  static constexpr int kVColBlocks = VD / 64;
   static constexpr int kQBytes = kBM * HD * 2;
-  static constexpr int kKVBytes = BN * HD * 2;          // one k or one v tile
-  static constexpr int kSmem = kQBytes + 2 * NST * kKVBytes
+  static constexpr int kKBytes = BN * HD * 2;           // one k tile
+  static constexpr int kVBytes = BN * VD * 2;           // one v tile
+  static constexpr int kSmem = kQBytes + NST * (kKBytes + kVBytes)
                                + (2 * NST + 1) * 8 + 1024;   // + alignment
 };
 
-template <int HD, int BN, int NST>
+template <int HD, int VD, int BN, int NST>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, const Args a) {
-  using T = Tile<HD, BN, NST>;
+  using T = Tile<HD, VD, BN, NST>;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: every tile starts on one
   uint8_t* sQ = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* sK = sQ + T::kQBytes;
-  uint8_t* sV = sK + NST * T::kKVBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(sV + NST * T::kKVBytes);
+  uint8_t* sV = sK + NST * T::kKBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + NST * T::kVBytes);
   uint64_t* empty = full + NST;
   uint64_t* qbar = empty + NST;
 
@@ -415,14 +435,15 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
         const int s = it % NST;
         const int key0 = (int)((t_first + it) * BN);
         mbar_wait(&empty[s], ((it / NST) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * T::kKVBytes);
+        mbar_expect_tx(&full[s], T::kKBytes + T::kVBytes);
 #pragma unroll
-        for (int c = 0; c < T::kColBlocks; ++c) {
-          tma_load(sK + s * T::kKVBytes + c * BN * 128, &tk, &full[s], 64 * c,
+        for (int c = 0; c < T::kColBlocks; ++c)
+          tma_load(sK + s * T::kKBytes + c * BN * 128, &tk, &full[s], 64 * c,
                    kh, key0, b);
-          tma_load(sV + s * T::kKVBytes + c * BN * 128, &tv, &full[s], 64 * c,
+#pragma unroll
+        for (int c = 0; c < T::kVColBlocks; ++c)
+          tma_load(sV + s * T::kVBytes + c * BN * 128, &tv, &full[s], 64 * c,
                    kh, key0, b);
-        }
       }
     }
     return;
@@ -459,9 +480,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     wk_lo = max(0LL, a.q_offset + w_last - a.window + 1);
   }
 
-  float o[HD / 2];
+  float o[VD / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+  for (int i = 0; i < VD / 2; ++i) o[i] = 0.0f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
   const uint32_t q_addr = smem_u32(sQ) + cw * 64 * 128;
   float sc[BN / 2];                    // S, then P in f32, of one tile
@@ -471,7 +492,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   // for: HD / 16 steps of 16 columns (a 64-column block is one swizzle
   // atom; a step inside it is 32 bytes on)
   auto issue_s = [&](int s) {
-    const uint32_t k_addr = smem_u32(sK + s * T::kKVBytes);
+    const uint32_t k_addr = smem_u32(sK + s * T::kKBytes);
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
@@ -485,15 +506,15 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(sc);
   };
   // O += P . v for the tile in stage s, issued and committed: v N-major,
-  // 16 keys (2048 bytes) a step, the next 64 columns of hd BN * 128 on
+  // 16 keys (2048 bytes) a step, the next 64 columns of vd BN * 128 on
   auto issue_pv = [&](int s) {
-    const uint32_t v_addr = smem_u32(sV + s * T::kKVBytes);
+    const uint32_t v_addr = smem_u32(sV + s * T::kVBytes);
     fence_regs(pa);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < BN / 16; ++ks)
-      wgmma_rs<HD>(o, pa[ks],
+      wgmma_rs<VD>(o, pa[ks],
                    desc_sw128(v_addr + ks * 16 * 128, BN * 128, 1024));
     wgmma_commit();
     fence_regs(o);
@@ -544,7 +565,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
   // m64nN is the register A layout of m64k16, two keys to a register)
   auto rescale_and_pack = [&](const float (&corr)[2]) {
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < VD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 #pragma unroll
     for (int ks = 0; ks < BN / 16; ++ks) {
 #pragma unroll
@@ -636,19 +657,19 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     l[r] += __shfl_xor_sync(kFull, l[r], 1);
     l[r] += __shfl_xor_sync(kFull, l[r], 2);
   }
-  const bool pairs = (a.hd & 1) == 0;
+  const bool pairs = (a.vd & 1) == 0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = w0 + 16 * warp + g + 8 * r;
     if (row >= a.Sq) continue;
     __nv_bfloat16* orow =
-        a.out + (((long long)b * a.Sq + row) * a.H + h) * a.hd;
+        a.out + (((long long)b * a.Sq + row) * a.H + h) * a.vd;
     if (l[r] == 0.0f) {                // no live key: mean of v
       const __nv_bfloat16* vb = a.v + b * a.svb + kh * a.svh;
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < VD / 8; ++j) {
         for (int e = 0; e < 2; ++e) {
           const int d = 8 * j + 2 * cq + e;
-          if (d >= a.hd) continue;
+          if (d >= a.vd) continue;
           float acc = 0.0f;
           for (long long kv = 0; kv < a.Skv; ++kv)
             acc += __bfloat162float(vb[kv * a.svs + d]);
@@ -659,16 +680,16 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     }
     const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < VD / 8; ++j) {
       const int d = 8 * j + 2 * cq;
       const float x0 = o[4 * j + 2 * r] / denom;
       const float x1 = o[4 * j + 2 * r + 1] / denom;
-      if (pairs && d + 1 < a.hd) {
+      if (pairs && d + 1 < a.vd) {
         *reinterpret_cast<__nv_bfloat162*>(orow + d) =
             __floats2bfloat162_rn(x0, x1);
       } else {
-        if (d < a.hd) orow[d] = __float2bfloat16(x0);
-        if (d + 1 < a.hd) orow[d + 1] = __float2bfloat16(x1);
+        if (d < a.vd) orow[d] = __float2bfloat16(x0);
+        if (d + 1 < a.vd) orow[d + 1] = __float2bfloat16(x1);
       }
     }
   }
@@ -725,15 +746,15 @@ struct Views {
   long long sqb, sqs, sqh, skb, sks, skh;
 };
 
-template <int HD, int BN, int NST>
+template <int HD, int VD, int BN, int NST>
 cudaError_t launch(const Views& w, const Args& a, cudaStream_t s) {
-  using T = Tile<HD, BN, NST>;
+  using T = Tile<HD, VD, BN, NST>;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, w.q, a.hd, a.H, a.Sq, w.B, w.sqb, w.sqs, w.sqh, kBM)
       || !make_map(&tk, w.k, a.hd, a.K, a.Skv, w.B, w.skb, w.sks, w.skh, BN)
-      || !make_map(&tv, a.v, a.hd, a.K, a.Skv, w.B, a.svb, a.svs, a.svh, BN))
+      || !make_map(&tv, a.v, a.vd, a.K, a.Skv, w.B, a.svb, a.svs, a.svh, BN))
     return cudaErrorInvalidValue;
-  auto kernel = flash_tc_kernel<HD, BN, NST>;
+  auto kernel = flash_tc_kernel<HD, VD, BN, NST>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
   if (e != cudaSuccess) return e;
@@ -745,29 +766,33 @@ cudaError_t launch(const Views& w, const Args& a, cudaStream_t s) {
 }  // namespace
 
 // The arguments of deal_flash_attention (flash_attention.cu); dtype must be
-// 1 (bfloat16) and hd at most 256.  TMA's rules on top: every base address
-// 16-byte aligned and every stride (in elements) a multiple of 8, or the
-// call returns cudaErrorInvalidValue.  Returns the launch's cudaError_t.
+// 1 (bfloat16), hd and vd at most 256.  TMA's rules on top: every base
+// address 16-byte aligned and every stride (in elements) a multiple of 8, or
+// the call returns cudaErrorInvalidValue.  Returns the launch's cudaError_t.
 extern "C" int deal_flash_attention_tc(
     const void* q, const void* k, const void* v, void* out, int B, int H,
-    int K, int Sq, int Skv, int hd, long long sqb, long long sqs,
+    int K, int Sq, int Skv, int hd, int vd, long long sqb, long long sqs,
     long long sqh, long long skb, long long sks, long long skh, long long svb,
     long long svs, long long svh, int causal, int has_window,
     long long window, long long q_offset, float scale, int dtype,
     void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
   if (dtype != 1 || H < 1 || K < 1 || H % K != 0 || Skv < 1 || hd < 1
-      || hd > 256 || (long long)B * H > 0x7fffffffLL
+      || hd > 256 || vd < 1 || vd > 256 || (long long)B * H > 0x7fffffffLL
       || (Sq + kBM - 1) / kBM > 65535)
     return cudaErrorInvalidValue;
   if (encoder() == nullptr) return cudaErrorNotSupported;
   const Args a{static_cast<const __nv_bfloat16*>(v),
-               static_cast<__nv_bfloat16*>(out), H, K, Sq, Skv, hd, svb, svs,
-               svh, causal, has_window, window, q_offset,
+               static_cast<__nv_bfloat16*>(out), H, K, Sq, Skv, hd, vd, svb,
+               svs, svh, causal, has_window, window, q_offset,
                scale * 1.4426950408889634f};
   const Views w{q, k, B, sqb, sqs, sqh, skb, sks, skh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd <= 64) return launch<64, 128, 3>(w, a, s);
-  if (hd <= 128) return launch<128, 128, 3>(w, a, s);
-  return launch<256, 64, 2>(w, a, s);
+  if (hd <= 64 && vd <= 64) return launch<64, 64, 128, 3>(w, a, s);
+  if (hd <= 128 && vd <= 128) return launch<128, 128, 128, 3>(w, a, s);
+#if DEAL_TC_MLA_STAGES > 0
+  if (hd <= 192 && vd <= 128)
+    return launch<192, 128, 64, DEAL_TC_MLA_STAGES>(w, a, s);
+#endif
+  return launch<256, 256, 64, 2>(w, a, s);
 }

@@ -6,7 +6,8 @@ rescale over tiles of keys, accumulated in f32.
 Replaces the Pallas TPU kernel
 ``src/repro/kernels/flash_attention.py::flash_attention`` (``pallas_call``
 at line 65) with two CUDA kernels, one per dtype (``route``), each for
-any hd up to 256:
+any hd up to 256, and a v head dim ``vd`` (1..256) that may differ from
+q's (MLA: hd 192, vd 128):
 
 - bf16: ``csrc/flash_attention_sm90.cu``, both products on the tensor
   cores (``wgmma``), q, k and v read by TMA;
@@ -24,7 +25,8 @@ Each entry serves two signatures:
   k and v (BH, Skv, hd), scale 1/sqrt(hd);
 - ``flash_attention_gqa(q, k, v, *, q_offset, causal, window, scale)``: the
   one of ``models/attention.py::flash_attention_jnp``, q (B, Sq, H, hd), k
-  and v (B, Skv, K, hd), query head h reading kv head h // (H // K).
+  (B, Skv, K, hd) and v (B, Skv, K, vd), query head h reading kv head
+  h // (H // K); the output is (B, Sq, H, vd).
 
 The kernels read all three through their strides (the head dimension
 contiguous), so neither GQA nor the heads-in-the-middle layout is copied,
@@ -67,23 +69,30 @@ class SimtTiling(NamedTuple):
     smem: int
 
 
-def simt_tiling(hd: int) -> SimtTiling:
-    """The tile ``csrc/flash_attention.cu`` takes for head dim ``hd``
-    (1..256), as its ``Tile64`` / ``Tile128`` / ``Tile256`` and
-    ``rows_for`` choose it: by hd alone."""
-    if not 1 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {hd} outside "
-                         f"1..{MAX_HEAD_DIM}")
-    hdp, tm, tn, ty = ((64, 8, 4, 8) if hd <= 64 else
-                       (128, 8, 2, 8) if hd <= 128 else (256, 4, 4, 16))
-    rows, keys, pitch = ty * tm, 16 * tn, hdp + 4
-    words = rows * pitch + 2 * keys * pitch + keys * (rows + 4)
+def simt_tiling(hd: int, vd: Optional[int] = None) -> SimtTiling:
+    """The tile ``csrc/flash_attention.cu`` takes for q's head dim ``hd``
+    and v's ``vd`` (each 1..256; ``vd`` defaults to ``hd``), as its
+    ``Tile64`` / ``Tile128`` / ``Tile256`` / ``Tile256v128`` and
+    ``rows_for`` choose it: by max(hd, vd), with V held at 128 columns
+    when that is above 128 and vd is not (MLA)."""
+    vd = hd if vd is None else vd
+    for name, d in (("head dim", hd), ("v head dim", vd)):
+        if not 1 <= d <= MAX_HEAD_DIM:
+            raise ValueError(f"flash_attention: {name} {d} outside "
+                             f"1..{MAX_HEAD_DIM}")
+    w = max(hd, vd)
+    hdp, tm, tn, ty = ((64, 8, 4, 8) if w <= 64 else
+                       (128, 8, 2, 8) if w <= 128 else (256, 4, 4, 16))
+    vdp = 128 if hdp == 256 and vd <= 128 else hdp
+    rows, keys = ty * tm, 16 * tn
+    words = ((rows + keys) * (hdp + 4) + keys * (vdp + 4)
+             + keys * (rows + 4))
     return SimtTiling(rows, keys, 16 * ty, tm, tn, 4 * words)
 
 
-def max_query_rows(hd: int) -> int:
+def max_query_rows(hd: int, vd: Optional[int] = None) -> int:
     """The longest Sq one f32 launch takes: gridDim.y row tiles."""
-    return _GRID_Y_MAX * simt_tiling(hd).rows
+    return _GRID_Y_MAX * simt_tiling(hd, vd).rows
 
 
 def route(dtype: torch.dtype, device: torch.device) -> str:
@@ -132,12 +141,16 @@ def _check(q, k, v, ndim: int):
     if ndim == 4 and q.shape[2] % k.shape[2]:
         raise ValueError(f"flash_attention: {q.shape[2]} query heads are "
                          f"not a multiple of {k.shape[2]} kv heads")
+    if not 1 <= v.shape[-1] <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: v head dim {v.shape[-1]} "
+                         f"outside 1..{MAX_HEAD_DIM}")
 
 
 def _launch(q, k, v, *, q_offset: int, causal: bool,
             window: Optional[int], scale: float):
-    """Run the kernel on (B, S, H, hd) views; returns a new contiguous
-    (B, Sq, H, hd) tensor in q's dtype."""
+    """Run the kernel on (B, S, H, hd) views of q and k and a (B, S, K,
+    vd) view of v; returns a new contiguous (B, Sq, H, vd) tensor in q's
+    dtype."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     for name, t in (("k", k), ("v", v)):
@@ -150,11 +163,8 @@ def _launch(q, k, v, *, q_offset: int, causal: bool,
     if q.dtype not in FLOAT_CODES:
         raise TypeError(f"flash_attention: q must be one of "
                         f"{tuple(FLOAT_CODES)}, got {q.dtype}")
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(
-            "flash_attention: v's head dim differs from q's (MLA); the "
-            "kernel takes one head dim (ROADMAP.md Queue 1 item 11)")
     B, Sq, H, hd = q.shape
+    vd = v.shape[-1]
     Skv, K = k.shape[1], k.shape[2]
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {hd} > {MAX_HEAD_DIM}")
@@ -164,15 +174,15 @@ def _launch(q, k, v, *, q_offset: int, causal: bool,
         raise ValueError("flash_attention: the head dimension of q, k and v "
                          "must be contiguous")
     tc = route(q.dtype, q.device) == "tc"
-    if not tc and Sq > max_query_rows(hd):
+    if not tc and Sq > max_query_rows(hd, vd):
         raise ValueError(f"flash_attention: Sq={Sq} passes the f32 "
-                         f"kernel's {max_query_rows(hd)} rows a launch")
+                         f"kernel's {max_query_rows(hd, vd)} rows a launch")
     if tc:
         strides = [s for name, t in (("q", q), ("k", k), ("v", v))
                    for s in tma_strides(t, name)]
     else:
         strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, H, vd), dtype=q.dtype, device=q.device)
     if B * Sq == 0:
         return out
     if tc:
@@ -182,7 +192,7 @@ def _launch(q, k, v, *, q_offset: int, causal: bool,
     with torch.cuda.device(q.device):
         err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, K, Sq, Skv, hd, *strides, int(causal),
+            B, H, K, Sq, Skv, hd, vd, *strides, int(causal),
             int(window is not None), int(window or 0), int(q_offset),
             float(scale), FLOAT_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -215,10 +225,11 @@ flash_attention.launches_tc = 0
 def flash_attention_gqa(q, k, v, *, q_offset: int = 0, causal: bool = True,
                         window: Optional[int] = None,
                         scale: Optional[float] = None):
-    """The GQA signature of ``flash_attention_jnp``: q (B, Sq, H, hd); k, v
-    (B, Skv, K, hd) with H % K == 0; query positions start at
-    ``q_offset``; ``window`` keeps keys with q_pos - kv_pos < window.
-    Returns (B, Sq, H, hd) in q's dtype."""
+    """The GQA signature of ``flash_attention_jnp``: q (B, Sq, H, hd); k
+    (B, Skv, K, hd) and v (B, Skv, K, vd) with H % K == 0; query positions
+    start at ``q_offset``; ``window`` keeps keys with q_pos - kv_pos <
+    window; the scale defaults to 1/sqrt(hd).  Returns (B, Sq, H, vd) in
+    q's dtype."""
     _check(q, k, v, 4)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":

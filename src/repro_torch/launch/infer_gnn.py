@@ -49,6 +49,29 @@ def _run_session(cfg: DealConfig, device: str):
         return H
 
 
+def run(dataset: str, model: str = "gcn", p: int = 2, m: int = 1,
+        fanout: int = 8, n_layers: int = 3, d_feature: int = 64,
+        seed: int = 0, distributed: bool = True, executor: str = "dist",
+        scale: float = 1.0, device: str = "cuda"):
+    """DEPRECATED shim — the pre-API entry point, kept for callers (the
+    twin of ``repro.launch.infer_gnn.run``).  Builds the equivalent
+    ``DealConfig`` and delegates to ``Session`` on ``device`` ("cuda" by
+    default, which raises without a card).  ``executor`` selects the
+    backend: "dist" (the mesh), "ref" (plain PyTorch) or "cuda" (the
+    kernels); ``distributed=False`` turns "dist" into "ref", as in JAX:
+    the caller's choice of executor, not a fallback."""
+    if executor == "dist" and not distributed:
+        executor = "ref"                # no mesh asked for: plain PyTorch
+    cfg = DealConfig(
+        graph=GraphSpec(dataset=dataset, scale=scale, fanout=fanout,
+                        seed=seed, n_construct_workers=p),
+        model=ModelSpec(name=model, n_layers=n_layers,
+                        d_feature=d_feature),
+        partition=PartitionSpec(p=p, m=m),
+        executor=ExecutorSpec(name=executor))
+    return _run_session(cfg, device)
+
+
 def config_from_args(args) -> DealConfig:
     executor = (local_executor_name(args.device)
                 if args.executor == "dist" and args.local else args.executor)

@@ -4,6 +4,8 @@ twin of ``repro.launch.serve``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --requests 6 --max-new 16                       # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch deepseek-v2-236b              # the moe family: MLA + experts
 
 Without ``cfg=`` the architecture runs ``reduced()``, as in JAX; pass
 ``cfg=get_config(arch)`` for the full width.

@@ -1,11 +1,11 @@
-"""GQA attention for prefill and decode — twins of
+"""GQA and MLA attention for prefill and decode — twins of
 ``repro.models.attention``.
 
 - ``simple_attention``: unchunked GQA attention in f32, the plain
   version (``kernels.ref.gqa_attention_ref``).
 - ``flash_attention``: the counterpart of ``flash_attention_jnp``, with its
-  (B, S, H, hd) / (B, S, K, hd) layout and its ``q_offset``, ``causal``,
-  ``window`` and ``scale``.  ``backend`` names the executor, as the GNN
+  (B, S, H, hd) / (B, S, K, hd) layout (v's head dim may differ: MLA) and
+  its ``q_offset``, ``causal``, ``window`` and ``scale``.  ``backend`` names the executor, as the GNN
   executors are named: ``"cuda"`` calls the hand-written kernel's wrapper
   (``kernels.flash_attention.flash_attention_gqa``: the kernel for CUDA
   tensors, the plain version for CPU ones), ``"ref"`` the plain version
@@ -14,8 +14,16 @@
   a per-slot ``cache_len``, in plain PyTorch (JAX computes it with
   ``jnp`` outside any kernel).
 
-MLA (``mla_prefill``, ``mla_decode``) and the sequence-parallel
-``cp_decode_attention`` are ROADMAP.md Queue 1 items 11 and 17.
+- MLA (DeepSeek-V2's multi-head latent attention): ``mla_prefill``
+  expands the latent kv and runs ``flash_attention`` with q and k at
+  nope + rope = 192 columns and v at 128 (the kernels take vd != hd);
+  ``mla_decode`` attends in the kv_lora latent space with W_uk absorbed
+  into q, in plain PyTorch in f32 (JAX computes it with ``jnp`` outside
+  any kernel); ``mla_new_cache_entries`` gives a new token's (c_kv,
+  k_rope).
+
+The sequence-parallel ``cp_decode_attention`` is ROADMAP.md Queue 1
+item 17.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
+from repro_torch.models.layers import rms_norm, rope
 
 BACKENDS = ("cuda", "ref")
 _NEG_INF = -1e30
@@ -36,8 +45,8 @@ simple_attention = ref.gqa_attention_ref
 def flash_attention(q, k, v, *, q_offset: int = 0, causal: bool = True,
                     window: Optional[int] = None,
                     scale: Optional[float] = None, backend: str = "cuda"):
-    """q: (B, Sq, H, hd); k, v: (B, Skv, K, hd) with H % K == 0.  Returns
-    (B, Sq, H, hd) in q's dtype."""
+    """q: (B, Sq, H, hd); k: (B, Skv, K, hd) and v: (B, Skv, K, vd) with
+    H % K == 0.  Returns (B, Sq, H, vd) in q's dtype."""
     if backend == "cuda":
         return _flash.flash_attention_gqa(q, k, v, q_offset=q_offset,
                                           causal=causal, window=window,
@@ -73,3 +82,85 @@ def decode_attention(q, k_cache, v_cache, *, cache_len,
                       dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+# ----------------------------------------------------------------------
+# MLA (DeepSeek-V2): latent-space attention with absorbed decode
+# ----------------------------------------------------------------------
+
+def mla_prefill(x, p, cfg, positions, *, backend: str = "cuda"):
+    """Multi-head latent attention, prefill.  ``p``: wq_a (D, qr), q_norm
+    (qr,), wq_b (qr, H (nope + rope)), wkv_a (D, kvr + rope), kv_norm
+    (kvr,), wkv_b (kvr, H (nope + v)), wo (H v, D).  Returns (out, c_kv
+    (B, S, kvr), k_rope (B, S, rope)), the caches decode reads.
+
+    v is the ``kv[..., nope:]`` view of the expanded kv, passed to the
+    kernel as it is; k is ``cat(k_nope, k_rope)``, with the head-shared
+    k_rope broadcast to every head (the kernels read no stride-0 head)."""
+    a = cfg.mla
+    B, S, D = x.shape
+    H = cfg.n_heads
+    nd, rd, vd = a.nope_head_dim, a.rope_head_dim, a.v_head_dim
+    q_lat = rms_norm(x @ p.wq_a, p.q_norm)
+    q = (q_lat @ p.wq_b).reshape(B, S, H, nd + rd)
+    q_rope = rope(q[..., nd:], positions, cfg.rope_theta)
+    kv_a = x @ p.wkv_a
+    c_kv = rms_norm(kv_a[..., :a.kv_lora_rank], p.kv_norm)
+    k_rope = rope(kv_a[..., None, a.kv_lora_rank:], positions,
+                  cfg.rope_theta)                 # (B, S, 1, rd), shared
+    kv = (c_kv @ p.wkv_b).reshape(B, S, H, nd + vd)
+    k = torch.cat([kv[..., :nd], k_rope.expand(B, S, H, rd)], dim=-1)
+    q_full = torch.cat([q[..., :nd], q_rope], dim=-1)
+    o = flash_attention(q_full, k, kv[..., nd:], causal=True,
+                        scale=1.0 / math.sqrt(nd + rd), backend=backend)
+    return o.reshape(B, S, H * vd) @ p.wo, c_kv, k_rope[..., 0, :]
+
+
+def mla_decode(x, p, cfg, c_kv_cache, k_rope_cache, cache_len, position):
+    """Absorbed MLA decode: one token a sequence attends in the kv_lora
+    latent space, W_uk folded into q and W_uv applied after, in f32.
+    c_kv_cache (B, S, kvr) and k_rope_cache (B, S, rope) already hold the
+    new token's entries; ``cache_len`` and ``position`` are ints or (B,)
+    tensors."""
+    a = cfg.mla
+    B, Sq, D = x.shape
+    if Sq != 1:
+        raise ValueError(f"mla_decode takes one token, got {Sq}")
+    H = cfg.n_heads
+    nd, rd, vd = a.nope_head_dim, a.rope_head_dim, a.v_head_dim
+    kvr = a.kv_lora_rank
+    q_lat = rms_norm(x @ p.wq_a, p.q_norm)
+    q = (q_lat @ p.wq_b).reshape(B, 1, H, nd + rd)
+    pos_bs = torch.as_tensor(position, device=x.device).broadcast_to(
+        (B,))[:, None]
+    q_rope = rope(q[..., nd:], pos_bs, cfg.rope_theta)
+    wkv_b = p.wkv_b.reshape(kvr, H, nd + vd)
+    w_uk, w_uv = wkv_b[..., :nd].float(), wkv_b[..., nd:].float()
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q[..., :nd].float(), w_uk)
+    scale = 1.0 / math.sqrt(nd + rd)
+    s = torch.einsum("bqhr,bsr->bhqs", q_abs, c_kv_cache.float()) * scale
+    s = s + torch.einsum("bqhr,bsr->bhqs", q_rope.float() * scale,
+                         k_rope_cache.float())
+    kv_pos = torch.arange(c_kv_cache.shape[1], device=x.device)
+    clen = torch.as_tensor(cache_len, device=x.device).broadcast_to(
+        (B,))[:, None]
+    s = torch.where((kv_pos[None, :] < clen)[:, None, None, :], s,
+                    _NEG_INF)
+    prob = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", prob, c_kv_cache.float())
+    o = torch.einsum("bqhr,rhv->bqhv", o_lat, w_uv)
+    return o.to(x.dtype).reshape(B, 1, H * vd) @ p.wo
+
+
+def mla_new_cache_entries(x, p, cfg, position):
+    """The (c_kv (B, 1, kvr), k_rope (B, 1, rope)) entries of one new
+    token a sequence; ``position``: an int or (B,) positions."""
+    a = cfg.mla
+    B = x.shape[0]
+    kv_a = x @ p.wkv_a
+    c_kv = rms_norm(kv_a[..., :a.kv_lora_rank], p.kv_norm)
+    pos_bs = torch.as_tensor(position, device=x.device).broadcast_to(
+        (B,))[:, None]
+    k_rope = rope(kv_a[..., None, a.kv_lora_rank:], pos_bs,
+                  cfg.rope_theta)[..., 0, :]
+    return c_kv, k_rope

@@ -1,0 +1,192 @@
+"""Top-k MoE with sort-based capacity dispatch — the twin of
+``repro.models.moe``.
+
+Tokens are sorted by expert id (a stable sort, as ``jnp.argsort``), each
+takes a position in its expert's bucket, and the first C of a bucket in
+token order go into an (E, C, D) buffer (capacity C; the rest are
+dropped, as capacity MoEs drop them).  The expert FFN is one batched
+``torch.bmm`` a projection over E.  The JAX package has no Pallas kernel
+here, so neither has the port: dispatch and combine are PyTorch ops.
+
+What decides whether the two packages agree, and how the port keeps it:
+
+- top-k takes ties toward the lower expert id, as ``jax.lax.top_k``
+  does: a stable descending sort of the f32 router probabilities;
+- the combine adds each token's K expert rows in ascending expert id,
+  in the activation dtype, starting from zero: the order of XLA's
+  sequential scatter-add on the CPU.  It inverts the sort permutation
+  and gathers, so no atomic add (``index_add_`` on CUDA) makes the bits
+  depend on the run.
+
+  moe_block(x, p, cfg)        -> (out (B, S, D), Switch aux loss)
+  route / dispatch / moe_ffn / combine: its steps, for timing
+  init_moe_params(gen, cfg, dtype)
+
+The expert-parallel ``_moe_block_ep`` (``shard_map``, gated by
+``tuning.on("moe_ep")``) needs a mesh and the tuning flags, which the
+port does not have yet: it is ROADMAP.md Queue 1 item 17.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _capacity(n_tokens: int, n_experts: int, top_k: int,
+              factor: float) -> int:
+    c = int(n_tokens * top_k / n_experts * factor) + 1
+    return max(c, 4)
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class MoE(nn.Module):
+    """router (D, E) f32; w_gate and w_up (E, D, F), w_down (E, F, D);
+    shared_w_gate and shared_w_up (D, Fs), shared_w_down (Fs, D) when the
+    config has shared experts (Fs = F x their number)."""
+
+    def __init__(self, router, w_gate, w_up, w_down, shared_w_gate=None,
+                 shared_w_up=None, shared_w_down=None):
+        super().__init__()
+        self.router = _param(router)
+        self.w_gate, self.w_up, self.w_down = map(_param,
+                                                  (w_gate, w_up, w_down))
+        shared = (shared_w_gate, shared_w_up, shared_w_down)
+        self.shared_w_gate, self.shared_w_up, self.shared_w_down = (
+            None if w is None else _param(w) for w in shared)
+
+
+def _normal(gen, shape, dtype):
+    return (torch.randn(shape, generator=gen, device=gen.device) * 0.02).to(
+        dtype)
+
+
+def init_moe_params(gen: torch.Generator, cfg, dtype) -> MoE:
+    """normal(0.02) router (f32) and expert weights, as the JAX package
+    draws them (from a ``torch.Generator``: other numbers).  Expert
+    tensors are drawn one expert at a time, so the f32 draw of a bf16
+    (E, D, F) tensor never holds more than one expert's worth at once."""
+    m = cfg.moe
+    D, E, Fe = cfg.d_model, m.n_experts, m.d_ff_expert
+    dev = gen.device
+
+    def experts(shape):
+        out = torch.empty((E,) + shape, dtype=dtype, device=dev)
+        for e in range(E):
+            out[e] = _normal(gen, shape, dtype)
+        return out
+
+    p = dict(router=_normal(gen, (D, E), torch.float32),
+             w_gate=experts((D, Fe)), w_up=experts((D, Fe)),
+             w_down=experts((Fe, D)))
+    if m.n_shared_experts:
+        Fs = Fe * m.n_shared_experts
+        p.update(shared_w_gate=_normal(gen, (D, Fs), dtype),
+                 shared_w_up=_normal(gen, (D, Fs), dtype),
+                 shared_w_down=_normal(gen, (Fs, D), dtype))
+    return MoE(**p)
+
+
+class Routing(NamedTuple):
+    """One dispatch: ``probs`` (T, E) f32 and ``expert`` (T, K) from the
+    router; ``slot`` (T K,) each sorted token-slot's row of the (E C + 1)
+    buffer (E C: dropped); ``tok`` (T K,) its token; ``gate`` (T K,) its
+    f32 gate with dropped slots 0; ``keep`` (T K,) bool; ``inv`` (T, K)
+    the sorted positions of each token's K slots, in ascending expert
+    id."""
+    probs: torch.Tensor
+    expert: torch.Tensor
+    slot: torch.Tensor
+    tok: torch.Tensor
+    gate: torch.Tensor
+    keep: torch.Tensor
+    inv: torch.Tensor
+
+
+def route(flat, router, n_experts: int, top_k: int,
+          capacity: int) -> Routing:
+    """Router logits in f32, softmax, top-k (ties to the lower id),
+    renormalized gates, and the sort-based slot of every (token, k)."""
+    T = flat.shape[0]
+    E, K, C = n_experts, top_k, capacity
+    dev = flat.device
+    logits = flat.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, expert = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert = gate[:, :K], expert[:, :K]
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    eflat = expert.reshape(T * K)
+    n = torch.arange(T * K, device=dev)
+    order = torch.argsort(eflat, stable=True)
+    es, ts, gs = eflat[order], n[order] // K, gate.reshape(T * K)[order]
+    starts = torch.searchsorted(es, torch.arange(E, device=dev))
+    pos = n - starts[es]
+    keep = pos < C
+    slot = torch.where(keep, es * C + pos, E * C)
+    inv = torch.empty_like(order)
+    inv[order] = n
+    # a token's slots sorted by position: its experts in ascending id
+    inv = inv.reshape(T, K).sort(dim=1).values
+    return Routing(probs, expert, slot, ts, gs * keep, keep, inv)
+
+
+def dispatch(flat, r: Routing, n_experts: int, capacity: int):
+    """The (E, C, D) expert buffer: each kept slot's token row, zeros
+    elsewhere (dropped slots all write zeros to the scratch row E C)."""
+    E, C, D = n_experts, capacity, flat.shape[1]
+    buf = torch.zeros((E * C + 1, D), dtype=flat.dtype, device=flat.device)
+    buf[r.slot] = flat[r.tok] * r.keep[:, None].to(flat.dtype)
+    return buf[:-1].reshape(E, C, D)
+
+
+def moe_ffn(buf, w_gate, w_up, w_down):
+    """buf: (E, C, D); expert weights (E, D, F) / (E, F, D)."""
+    g = F.silu(torch.bmm(buf, w_gate))
+    u = torch.bmm(buf, w_up)
+    return torch.bmm(g * u, w_down)
+
+
+def combine(out_buf, r: Routing):
+    """(T, D): each token's K expert rows times their gates, added from
+    zero in ascending expert id in the activation dtype."""
+    E, C, D = out_buf.shape
+    out_flat = torch.cat([out_buf.reshape(E * C, D),
+                          out_buf.new_zeros((1, D))])
+    gathered = out_flat[r.slot] * r.gate[:, None].to(out_buf.dtype)
+    rows = gathered[r.inv]                                  # (T, K, D)
+    out = torch.zeros_like(rows[:, 0])
+    for k in range(rows.shape[1]):
+        out = out + rows[:, k]
+    return out
+
+
+def shared_ffn(flat, p: MoE):
+    g = F.silu(flat @ p.shared_w_gate)
+    return (g * (flat @ p.shared_w_up)) @ p.shared_w_down
+
+
+def moe_block(x, p: MoE, cfg):
+    """x: (B, S, D).  Returns (out (B, S, D), aux_loss f32 0-d): the
+    routed experts at capacity C, plus the always-on shared experts, and
+    the Switch load-balance loss E * sum(mean prob x top-1 share)."""
+    m = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    E, K = m.n_experts, m.top_k
+    C = _capacity(T, E, K, m.capacity_factor)
+    flat = x.reshape(T, D)
+    r = route(flat, p.router, E, K, C)
+    me = r.probs.mean(dim=0)
+    ce = F.one_hot(r.expert[:, 0], E).float().mean(dim=0)
+    aux = E * torch.sum(me * ce)
+    out = combine(moe_ffn(dispatch(flat, r, E, C), p.w_gate, p.w_up,
+                          p.w_down), r)
+    if m.n_shared_experts:
+        out = out + shared_ffn(flat, p)
+    return out.reshape(B, S, D), aux

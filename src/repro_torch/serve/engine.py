@@ -9,7 +9,9 @@ does (there is no prefill admission in either).
 
 Protocol per slot: ``pending`` is the token to feed next at ``next_pos``;
 feeding it yields the logits that pick the following token.  The cache
-lives on the params' device and is written in place by each step.
+(``transformer.init_cache``'s, by family: k/v per layer, or MLA's latent
+caches for deepseek-v2) lives on the params' device and is written in
+place by each step.
 """
 from __future__ import annotations
 

@@ -468,11 +468,74 @@ def test_flash_attention_pallas_signature(cuda, causal, dtype):
            ATOL[dtype])
 
 
+# (B, Sq, Skv, H, K, hd, vd, q_offset, causal, window): v's head dim
+# differs from q's.  MLA's 192 / 128 (the bf16 kernel's <192, 128> tile,
+# the f32 kernel's Tile256v128), reduced MLA's 48 / 32, vd below hd in one
+# tile (the bf16 kernel's second V box wholly past vd), vd above hd, hd 256
+# over vd 128, widths that are not multiples of 8 in f32
+FLASH_VD_CASES = [
+    (2, 130, 130, 4, 4, 192, 128, 0, True, None),
+    (1, 100, 150, 2, 1, 192, 128, 50, False, None),
+    (1, 129, 129, 4, 2, 192, 128, 0, True, 40),
+    (2, 70, 70, 4, 4, 48, 32, 0, True, None),
+    (1, 65, 65, 2, 1, 128, 64, 0, True, None),
+    (1, 65, 80, 2, 2, 64, 128, 10, True, None),
+    (1, 50, 50, 2, 2, 256, 128, 0, True, 20),
+    (1, 40, 40, 2, 2, 200, 104, 0, False, None),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,vd,q_offset,causal,window",
+                         FLASH_VD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_with_v_head_dim_unlike_q(cuda, B, Sq, Skv, H, K, hd,
+                                                  vd, q_offset, causal,
+                                                  window, dtype):
+    """Both kernels with vd != hd against the plain version.  k and v are
+    views of one (B, Skv, K, hd + vd) projection, v starting at column hd
+    (as MLA's prefill reads it from its kv projection: no copy)."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    g = torch.Generator(device=cuda).manual_seed(hd + vd)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dtype)
+    kv = torch.randn((B, Skv, K, hd + vd), generator=g,
+                     device=cuda).to(dtype)
+    k, v = kv[..., :hd], kv[..., hd:]
+    kw = dict(q_offset=q_offset, causal=causal, window=window,
+              scale=1.0 / (hd + 3) ** 0.5)
+    before = kops.launch_counts()["flash_attention"]
+    before_tc = kops.flash_attention.launches_tc
+    got = flash_attention_gqa(q, k, v, **kw)
+    assert kops.launch_counts()["flash_attention"] == before + 1
+    assert kops.flash_attention.launches_tc == before_tc + int(
+        dtype == torch.bfloat16)
+    assert got.dtype == dtype and got.shape == (B, Sq, H, vd)
+    _close(got, ref.gqa_attention_ref(q, k, v, **kw), ATOL[dtype])
+
+
+@pytest.mark.parametrize("hd,vd", [(192, 128), (48, 32), (64, 100)])
+def test_f32_flash_reads_a_misaligned_v_view_bitwise(cuda, hd, vd):
+    """The f32 kernel with vd != hd reads a v whose base is not 16-byte
+    aligned four bytes at a time: the same bits as an aligned v."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    g = torch.Generator(device=cuda).manual_seed(vd)
+    q, k = (torch.randn((2, 70, n, hd), generator=g, device=cuda)
+            for n in (4, 2))
+    v = torch.randn((2, 70, 2, vd), generator=g, device=cuda)
+    kw = dict(causal=True, window=50)
+    got = flash_attention_gqa(q, k, _misaligned(v), **kw)
+    assert torch.equal(got, flash_attention_gqa(q, k, v, **kw))
+    _close(got, ref.gqa_attention_ref(q, k, v, **kw), ATOL[torch.float32])
+
+
 def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
     from repro_torch.kernels.flash_attention import flash_attention_gqa
     q = torch.randn((1, 8, 2, 64), device=cuda)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        flash_attention_gqa(q, q, torch.randn((1, 8, 2, 32), device=cuda))
+    with pytest.raises(ValueError, match="v head dim 320 outside"):
+        flash_attention_gqa(q, q, torch.randn((1, 8, 2, 320), device=cuda))
+    vb = torch.randn((1, 8, 2, 128), device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_gqa(q.to(torch.bfloat16), q.to(torch.bfloat16),
+                            _misaligned(vb))
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_gqa(q.transpose(1, 3).contiguous().transpose(1, 3),
                             q, q)
@@ -533,6 +596,44 @@ def test_bf16_prefill_runs_flash_on_the_tensor_cores(cuda):
     assert kops.flash_attention.launches_tc == cfg.n_layers
     assert bool(torch.isfinite(got.float()).all())
     _close(got, want, 0.1, 0.1)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b",
+                                  "llama4-maverick-400b-a17b"])
+def test_moe_prefill_cuda_matches_ref_on_the_card(cuda, arch):
+    """The moe family's f32 prefill through the kernels against "ref":
+    one flash launch a layer (MLA's hd 48 / vd 32 for deepseek-v2),
+    logits and every cache entry within the whole-model tolerance."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serve.step import prefill_step
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    params = init_params(cfg, 0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 77), device=cuda)
+    kops.reset_launch_counts()
+    got, cache = prefill_step(cfg, params, {"tokens": tokens})
+    assert kops.launch_counts()["flash_attention"] == cfg.n_layers
+    want, want_cache = prefill_step(cfg, params, {"tokens": tokens},
+                                    attn_backend="ref")
+    assert kops.launch_counts()["flash_attention"] == cfg.n_layers
+    _close(got, want, 1e-4, 3e-3)
+    assert set(cache) == set(want_cache)
+    for name in cache:
+        _close(cache[name], want_cache[name], 1e-4, 3e-3)
+
+
+def test_moe_serving_decodes_on_the_card(cuda):
+    """deepseek-v2's reduced config through the launcher on the card:
+    every request finishes, and decode (MLA absorbed, in PyTorch) launches
+    no flash kernel."""
+    from repro_torch.launch import serve
+    kops.reset_launch_counts()
+    reqs, stats = serve.run("deepseek-v2-236b", n_requests=3, max_new=4,
+                            batch_slots=2)
+    assert all(r.done and len(r.out_tokens) == 4 for r in reqs)
+    assert kops.launch_counts()["flash_attention"] == 0
 
 
 def test_serve_engine_decodes_on_the_card(cuda):

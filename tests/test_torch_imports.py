@@ -45,6 +45,34 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
     assert int(proc.stdout.strip().splitlines()[-1]) >= 20
 
 
+NEW_NAMES = {   # the moe family, MLA and item 18's twins
+    "repro_torch.models.moe": ("moe_block", "MoE", "init_moe_params"),
+    "repro_torch.models.attention": ("mla_prefill", "mla_decode",
+                                     "mla_new_cache_entries"),
+    "repro_torch.models.transformer": ("MLA", "MoEBlock", "SuperBlock"),
+    "repro_torch.core.sampler": ("sample_ego_networks", "frontier_sizes"),
+    "repro_torch.launch.infer_gnn": ("run",),
+}
+
+
+def test_moe_mla_and_sampler_twins_import_without_jax_or_repro():
+    """The modules and names this slice adds, under the same refusing
+    import hook as the probe above."""
+    names = repr(NEW_NAMES)
+    code = PROBE.split("import repro_torch\n")[0] + (
+        "import importlib\n"
+        f"for mod, attrs in {names}.items():\n"
+        "    m = importlib.import_module(mod)\n"
+        "    assert all(callable(getattr(m, a)) for a in attrs), mod\n"
+        "print('ok')\n")
+    env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"
+
+
 def _imports(path):
     """Every (line, module) that an ``import`` or ``from ... import`` in
     the file names, at any depth (function bodies included)."""

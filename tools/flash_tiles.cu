@@ -14,10 +14,10 @@ int go(Args* a, const void* q, const void* k, const void* v, void* out,
        float scale, cudaStream_t s) {
   if (hd > TL::HDP || (TL::HDP > 64 && hd <= TL::HDP / 2))
     return cudaErrorInvalidValue;      // not this variant's head dims
-  const int err = make_args(a, q, k, v, out, B, H, K, Sq, Skv, hd, st[0],
-                            st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-                            st[8], causal, has_window, window, q_offset,
-                            scale, 0, TL::BM);
+  const int err = make_args(a, q, k, v, out, B, H, K, Sq, Skv, hd, hd,
+                            st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+                            st[7], st[8], causal, has_window, window,
+                            q_offset, scale, 0, TL::BM);
   return err ? err : run<TL>(*a, s);
 }
 
@@ -49,8 +49,8 @@ extern "C" int flash_tile_shape(int variant, int* out6) {
   return 0;
 }
 
-// the C entry's arguments with the nine strides as an array, plus the
-// variant
+// the C entry's arguments (v's head dim that of q and k) with the nine
+// strides as an array, plus the variant
 extern "C" int flash_tile(const void* q, const void* k, const void* v,
                           void* out, int B, int H, int K, int Sq, int Skv,
                           int hd, const long long* strides, int causal,
