@@ -140,7 +140,12 @@ the run with a non-zero exit code:
    at the same tolerances, timed beside the plain version, SDPA (null,
    with the reason, where it refuses) and the bounds; a ragged S=1000 in
    both types; and a misaligned v view (f32 bitwise the aligned one,
-   bf16 refused: TMA).
+   bf16 refused: TMA).  Then both kernels at the ssm phase's attention
+   shapes, each against the plain version at the same tolerances and
+   timed beside SDPA and the bound: zamba2's shared attention (B=2,
+   S=2048, H=K=32, hd 112, causal), whisper's encoder (B=4, S=1500,
+   H=K=8, hd 64, non-causal) and its cross-attention (non-causal, Sq =
+   448 and Sq = 1 against Skv = 1500).
 6. llm: smollm-360m at full width (32 layers, d_model 960), random
    weights from a seed.  ``prefill_step`` on B=4 x S=2048 tokens in f32
    through attention backend "cuda" against "ref" (last-position
@@ -168,6 +173,24 @@ the run with a non-zero exit code:
    into routing and dispatch, expert FFN and combine; then
    ``launch.serve.run`` in bf16 (8 requests, 4 slots, 16 new tokens),
    with no flash launch, and its tokens/s.
+
+8. ssm: the recurrent and encoder-decoder families at full width,
+   random weights from a seed, in f32 then bf16.  mamba2-1.3b (48
+   layers, d_model 2048, 64 SSM heads of 64, d_state 128, chunk 256):
+   ``prefill_step`` on 4 x 2048 tokens through "cuda" bitwise "ref" (it
+   has no attention: no kernel launch), then ``launch.serve.run`` in
+   bf16 (8 requests, 4 slots, 16 new tokens).  zamba2-7b (81 layers = 13
+   super-blocks of 6 + 3 tail, d_model 3584, 32 heads of hd 112, LoRA
+   rank 128): 2 x 2048 tokens, "cuda" against "ref" (logits and every
+   cache entry: f32 atol 1e-4, rtol 3e-3; bf16 max error), 13 flash
+   launches a prefill (all on the tensor cores in bf16), then serving as
+   mamba2's.  whisper-base (6 + 6 layers, d_model 512, 8 heads): 4 x 448
+   decoder tokens over 1,500 frames, "cuda" against "ref" as zamba2's,
+   18 flash launches a prefill, then 16 greedy ``decode_step``s from the
+   prefill's cache, 6 flash launches each (the cross-attention), the
+   first step's logits against "ref".  Each prints the weights and peak
+   memory, the prefill's warm and first ms, "ref"'s ms and a bound on
+   its device time, and the decode tokens/s.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Needs the repo's
@@ -198,6 +221,11 @@ LLM_B, LLM_S = 4, 2048           # prefill batch and length
 HD128_ARCH, HD128_S = "qwen2.5-14b", 4096   # the bf16 kernel at hd 128
 MLA_ARCH, MLA_B, MLA_S = "deepseek-v2-236b", 2, 2048  # hd 192, vd 128
 MOE_B, MOE_S = 2, 2048           # the moe prefill: 4,096 tokens
+HD112_ARCH, HD112_B, HD112_S = "zamba2-7b", 2, 2048   # flash at hd 112
+SSM_MODELS = (("mamba2-1.3b", 4, 2048), ("zamba2-7b", 2, 2048))  # B, S
+WHISPER_ARCH = "whisper-base"    # 30 s of audio: 1,500 encoder frames
+WHISPER_B, WHISPER_TOKENS = 4, 448   # whisper's longest decoder sequence
+WHISPER_DECODE_STEPS = 16
 MOE_MODELS = (("deepseek-v2-236b", 3, ("float32", "bfloat16")),
               ("llama4-maverick-400b-a17b", 2, ("bfloat16",)))
 WIDE_FANOUT = 64                 # benchmarks/bench_accuracy.py's fanout
@@ -2123,20 +2151,25 @@ def flash_phase(torch, kops):
     flash_mla(torch, kflash, row)
     torch.cuda.synchronize()
     log(f"[flash] MLA took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    flash_ssm_shapes(torch, kflash, row)
+    torch.cuda.synchronize()
+    log(f"[flash] zamba2 and whisper shapes took "
+        f"{time.perf_counter() - t0:.1f} s")
     return row
 
 
-def _sdpa_ms(torch, q, k, v):
-    """SDPA's time on (B, S, H, d) views, causal, transposed outside the
-    timing; (None, reason) where it refuses these shapes."""
+def _sdpa_ms(torch, q, k, v, causal=True):
+    """SDPA's time on (B, S, H, d) views, transposed outside the timing;
+    (None, reason) where it refuses these shapes."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     try:
-        sdpa(qt, kt, vt, is_causal=True)
+        sdpa(qt, kt, vt, is_causal=causal)
         torch.cuda.synchronize()
     except RuntimeError as e:
         return None, str(e).splitlines()[0][:160]
-    return time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True)), None
+    return time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal)), None
 
 
 def flash_mla(torch, kflash, row):
@@ -2236,18 +2269,90 @@ def flash_mla(torch, kflash, row):
         "aligned view, bf16 refused (TMA needs 16-byte bases)")
 
 
+def flash_ssm_shapes(torch, kflash, row):
+    """Both kernels at the [ssm] phase's attention shapes: zamba2's shared
+    attention (hd 112: the 128-column tiles zero-fill columns 112-127 and
+    clip the store; causal), whisper's encoder (non-causal over 1,500
+    frames, ragged against the 128-key tiles) and its cross-attention
+    (non-causal, Sq = 448 decoder tokens and Sq = 1 in decode against Skv
+    = 1,500), each against the plain version in f32 and bf16 at the
+    tolerances above, timed beside SDPA and the bound (bytes over the
+    memory rate or the live pairs' 4 hd flops over the type's peak)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref as kref
+    gqa, plain = kflash.flash_attention_gqa, kref.gqa_attention_ref
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    z, w = get_config(HD112_ARCH), get_config(WHISPER_ARCH)
+    frames = w.n_frontend_tokens
+    wh = (w.n_heads, w.n_kv_heads, w.resolved_head_dim)
+    shapes = (   # tag, what, B, Sq, Skv, (H, K, hd), causal
+        ("hd112", f"{HD112_ARCH} shared attention", HD112_B, HD112_S,
+         HD112_S, (z.n_heads, z.n_kv_heads, z.resolved_head_dim), True),
+        ("encoder", f"{WHISPER_ARCH} encoder", WHISPER_B, frames, frames,
+         wh, False),
+        ("cross", f"{WHISPER_ARCH} cross-attention", WHISPER_B,
+         WHISPER_TOKENS, frames, wh, False),
+        ("cross1", f"{WHISPER_ARCH} cross-attention in decode", WHISPER_B,
+         1, frames, wh, False))
+    tol = {"f32": (ATOL["float32"], 3e-2), "bf16": FLASH_BF16_TOL}
+    for tag, what, B, Sq, Skv, (H, K, hd), causal in shapes:
+        q = torch.randn((B, Sq, H, hd), generator=gen, device=dev)
+        k, v = (torch.randn((B, Skv, K, hd), generator=gen, device=dev)
+                for _ in range(2))
+        live = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+        flops = 4 * hd * B * H * live
+        parts = []
+        for dt, dtype, size, rate in (
+                ("f32", torch.float32, 4, F32_FLOPS_PER_S),
+                ("bf16", torch.bfloat16, 2, BF16_TC_FLOPS_PER_S)):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            tc0 = kflash.flash_attention.launches_tc
+            got = gqa(qd, kd, vd, causal=causal)
+            n_tc = kflash.flash_attention.launches_tc - tc0
+            check(tuple(got.shape) == (B, Sq, H, hd)
+                  and n_tc == int(dt == "bf16"),
+                  f"flash {tag} {dt}: shape {tuple(got.shape)}, {n_tc} "
+                  "tensor-core launches")
+            err = assert_close(torch, got, plain(qd, kd, vd, causal=causal),
+                               *tol[dt], f"flash_attention {tag} {dt}")
+            del got
+            ms = time_ms(torch, lambda: gqa(qd, kd, vd, causal=causal))
+            sdpa_ms, why = _sdpa_ms(torch, qd, kd, vd, causal=causal)
+            need = (2 * B * Sq * H + 2 * B * Skv * K) * hd * size
+            t_bytes, t_ops = need / HBM_BYTES_PER_S, flops / rate
+            bnd = max(t_bytes, t_ops) * 1e3
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            row.update({f"{tag}_ms_{dt}": ms, f"{tag}_bound_ms_{dt}": bnd,
+                        f"{tag}_sdpa_ms_{dt}": sdpa_ms,
+                        f"{tag}_max_abs_err_{dt}": err})
+            parts.append(
+                f"{dt} err {err:.3e} (atol {tol[dt][0]} rtol {tol[dt][1]}), "
+                f"{ms:.4f} ms, SDPA "
+                + (f"{sdpa_ms:.4f} ms" if sdpa_ms is not None
+                   else f"null ({why})")
+                + f", bound {bnd:.4f} ms ({by}; {ms / bnd:.2f}x)")
+            del qd, kd, vd
+        log(f"[flash] {what} (B={B} Sq={Sq} Skv={Skv} H={H} K={K} hd={hd} "
+            f"{'causal' if causal else 'non-causal'}; {flops / 1e9:.2f} "
+            "GFLOP): " + "; ".join(parts))
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
 # ----------------------------------------------------------------------
 # phase 6: the dense-transformer serving path
 # ----------------------------------------------------------------------
 
 def _prefill(torch, kops, prefill_step, cfg, params, tokens, backend):
-    """One prefill on ``backend``; returns (logits, cache, launches, ms,
+    """One prefill of ``tokens`` (or of a batch dict: whisper's frames and
+    tokens) on ``backend``; returns (logits, cache, launches, ms,
     launches of the tensor-core flash kernel)."""
+    batch = tokens if isinstance(tokens, dict) else {"tokens": tokens}
     torch.cuda.synchronize()
     kops.reset_launch_counts()
     t0 = time.perf_counter()
-    logits, cache = prefill_step(cfg, params, {"tokens": tokens},
-                                 attn_backend=backend)
+    logits, cache = prefill_step(cfg, params, batch, attn_backend=backend)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     return (logits, cache, kops.launch_counts(), ms,
@@ -2534,6 +2639,354 @@ def moe_phase(torch, kops, launches, card):
     return n_tc
 
 
+# ----------------------------------------------------------------------
+# phase 8: the recurrent and encoder-decoder families (mamba2, zamba2,
+# whisper)
+# ----------------------------------------------------------------------
+
+def _cache_leaves(cache):
+    """(name, tensor) of every cache entry, the SSMCache fields named."""
+    for name, v in cache.items():
+        if isinstance(v, tuple):
+            yield from ((f"{name}.{f}", getattr(v, f)) for f in v._fields)
+        else:
+            yield name, v
+
+
+def _hold(torch, arch, dtype, got, ref, rule):
+    """The "cuda" prefill's logits and cache against the "ref" one:
+    ``rule`` "bitwise", "close" (atol 1e-4, rtol 3e-3) or "print" (the
+    max error only).  Returns [(name, max error)]."""
+    pairs = [("logits", got[0], ref[0])] + [
+        (n, t, dict(_cache_leaves(ref[1]))[n])
+        for n, t in _cache_leaves(got[1])]
+    check([n for n, _, _ in pairs[1:]] == [n for n, _ in _cache_leaves(
+        ref[1])], f"{arch} {dtype}: cache entries differ between backends")
+    for n, a, _ in pairs:
+        check(bool(torch.isfinite(a.float()).all()),
+              f"{arch} prefill {dtype}: {n} not finite")
+    out = []
+    for n, a, b in pairs:
+        if rule == "bitwise":
+            check(torch.equal(a, b), f"{arch} prefill {dtype}: {n} cuda vs "
+                  f"ref not bitwise (max err {max_err(torch, a, b):.3e})")
+            out.append((n, 0.0))
+        elif rule == "close":
+            out.append((n, assert_close(torch, a, b, 1e-4, 3e-3,
+                                        f"{arch} prefill {dtype} {n} cuda "
+                                        "vs ref")))
+        else:
+            out.append((n, max_err(torch, a, b)))
+    return out
+
+
+def _prefill_cell(torch, kops, launches, cfg, params, batch, want_flash,
+                  rule):
+    """A model's prefill through "cuda" (first and warm) and "ref", the
+    launches (``want_flash`` flash a prefill, all on the tensor cores in
+    bf16; none under "ref"), the comparison by ``rule`` and a device-time
+    bound.  Adds the counted launches to ``launches``; returns (the
+    "cuda" prefill's result, errors, first ms, warm ms, "ref" ms, device
+    ms, tensor-core launches)."""
+    from repro_torch.serve.step import prefill_step
+    want = {name: (want_flash if name == "flash_attention" else 0)
+            for name in kops.KERNELS}
+    none = {name: 0 for name in kops.KERNELS}
+    want_tc = want_flash if cfg.dtype == "bfloat16" else 0
+    B = (batch["tokens"] if isinstance(batch, dict) else batch).shape[0]
+    got = _prefill(torch, kops, prefill_step, cfg, params, batch, "cuda")
+    check(got[2] == want and got[4] == want_tc, f"{cfg.arch_id} prefill "
+          f"{cfg.dtype}: launches {got[2]}, {got[4]} on the tensor-core "
+          f"kernel; expected {want}, {want_tc}")
+    ref = _prefill(torch, kops, prefill_step, cfg, params, batch, "ref")
+    check(ref[2] == none and ref[4] == 0,
+          f"{cfg.arch_id} prefill {cfg.dtype} ref: launches {ref[2]}")
+    check(tuple(got[0].shape) == (B, 1, cfg.vocab_size),
+          f"{cfg.arch_id} prefill {cfg.dtype}: logits {tuple(got[0].shape)}")
+    errs = _hold(torch, cfg.arch_id, cfg.dtype, got, ref, rule)
+    ref_ms = ref[3]
+    del ref
+    again = _prefill(torch, kops, prefill_step, cfg, params, batch, "cuda")
+    check(again[2] == want and again[4] == want_tc,
+          f"{cfg.arch_id} prefill {cfg.dtype} again: launches {again[2]}")
+    kops.reset_launch_counts()
+    dev_ms = _device_ms(torch, lambda: prefill_step(
+        cfg, params, batch if isinstance(batch, dict)
+        else {"tokens": batch}, attn_backend="cuda"))
+    n_flash = got[2]["flash_attention"] + again[2]["flash_attention"] + \
+        kops.flash_attention.launches
+    n_tc = got[4] + again[4] + kops.flash_attention.launches_tc
+    launches["flash_attention"] += n_flash
+    return got, errs, got[3], again[3], ref_ms, dev_ms, n_tc
+
+
+def _gib(params):
+    return sum(p.numel() * p.element_size()
+               for p in params.parameters()) / 2 ** 30
+
+
+def _mamba_split(torch, cfg, block, B, S):
+    """One Mamba-2 block at the prefill's shape and its ``ssd_chunked``
+    scan alone, on random inputs (CUDA events, median of 5): where the
+    layer's time goes."""
+    from repro_torch.models import ssm
+    s, dtype = cfg.ssm, block.pre_norm.dtype
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+
+    x = randn(B, S, cfg.d_model)
+    xs = randn(B, S, s.n_heads, s.head_dim)
+    Bm, Cm = randn(B, S, s.n_groups, s.d_state), randn(B, S, s.n_groups,
+                                                       s.d_state)
+    dt = torch.rand((B, S, s.n_heads), generator=gen, device=DEVICE) + 0.1
+    A = -torch.exp(block.ssm.A_log.float())
+    blk = time_ms(torch, lambda: ssm.mamba2_block(x, block.ssm, cfg),
+                  reps=5, warmup=1)
+    scan = time_ms(torch, lambda: ssm.ssd_chunked(xs, dt, A, Bm, Cm,
+                                                  s.chunk_size),
+                   reps=5, warmup=1)
+    return blk, scan
+
+
+def _mamba_hold(torch, cfg, block, B, S, heads=4):
+    """The SSD path at full width against references independent of the
+    "cuda"/"ref" switch, in f32: ``ssd_chunked`` at the prefill's shape
+    (B x S, the config's heads, state and chunk; random inputs) on the
+    card, its first ``heads`` heads of sequence 0 against the
+    token-by-token recurrence in f64 on the CPU; and one Mamba-2 block
+    (``block``'s weights, random input) at 1 x S on the card against the
+    same block on the CPU.  Both at atol 1e-4, rtol 3e-3.  Returns (y
+    err, final-state err, block err)."""
+    import copy
+
+    from repro_torch.models import ssm
+    s = cfg.ssm
+    H, P, G, N = s.n_heads, s.head_dim, s.n_groups, s.d_state
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((B, S, H, P), generator=gen)
+    dt = torch.rand((B, S, H), generator=gen) * 0.5 + 0.1
+    A = -(torch.rand(H, generator=gen) + 0.5)
+    Bm, Cm = (torch.randn((B, S, G, N), generator=gen) for _ in range(2))
+    y, state = ssm.ssd_chunked(*(t.to(DEVICE) for t in (x, dt, A, Bm, Cm)),
+                               s.chunk_size)
+    grp = torch.arange(heads) // (H // G)
+    xd, dtd, Ad = x[0, :, :heads].double(), dt[0, :, :heads].double(), \
+        A[:heads].double()
+    Bd, Cd = Bm[0][:, grp].double(), Cm[0][:, grp].double()   # (S, h, N)
+    st = torch.zeros((heads, N, P), dtype=torch.float64)
+    yd = torch.empty((S, heads, P), dtype=torch.float64)
+    for t in range(S):
+        st = (st * torch.exp(dtd[t] * Ad)[:, None, None]
+              + (Bd[t] * dtd[t][:, None])[:, :, None] * xd[t][:, None, :])
+        yd[t] = torch.einsum("hn,hnp->hp", Cd[t], st)
+    y_err = assert_close(torch, y[0, :, :heads].cpu(), yd, 1e-4, 3e-3,
+                         f"{cfg.arch_id} ssd_chunked vs the recurrence: y")
+    st_err = assert_close(torch, state[0, :heads].cpu(), st, 1e-4, 3e-3,
+                          f"{cfg.arch_id} ssd_chunked vs the recurrence: "
+                          "state")
+    del y, state
+    x1 = torch.randn((1, S, cfg.d_model), generator=gen).to(
+        block.ssm.w_xz.dtype)
+    got = ssm.mamba2_block(x1.to(DEVICE), block.ssm, cfg)
+    want = ssm.mamba2_block(x1, copy.deepcopy(block.ssm).cpu(), cfg)
+    blk_err = assert_close(torch, got.cpu(), want, 1e-4, 3e-3,
+                           f"{cfg.arch_id} Mamba-2 block card vs CPU")
+    return y_err, st_err, blk_err
+
+
+def ssm_text_model(torch, kops, launches, arch, B, S, card):
+    """mamba2 or zamba2 at full width: per dtype the prefill through
+    "cuda" against "ref" (zamba2's f32 within atol 1e-4, rtol 3e-3, bf16
+    max error; mamba2 has no attention, so both routes run the same code
+    and its bitwise line checks the launches, not the numbers: those are
+    held by ``_mamba_hold`` in f32), its flash launches (one a
+    super-block), times, memory and one block's split; then
+    ``launch.serve.run`` in bf16.  Returns the tensor-core flash
+    launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer
+    base = get_config(arch)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, base.vocab_size, (B, S)), device=DEVICE)
+    n_tc = 0
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(base, dtype=dtype)
+        n_attn = (transformer._hybrid_layout(cfg)[0]
+                  if cfg.family == "hybrid" else 0)
+        torch.cuda.reset_peak_memory_stats()
+        params = transformer.init_params(cfg, 0, device=DEVICE)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rule = ("bitwise" if cfg.family == "ssm" else
+                "close" if dtype == "float32" else "print")
+        got, errs, first, warm, ref_ms, dev_ms, tc = _prefill_cell(
+            torch, kops, launches, cfg, params, tokens, n_attn, rule)
+        n_tc += tc
+        del got
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[ssm] {arch} {cfg.n_layers} layers d_model "
+            f"{cfg.d_model} {dtype}: {_gib(params):.2f} GiB of weights "
+            f"(drawn in {init_s:.1f} s), peak {peak:.2f} GiB; prefill "
+            f"{B}x{S} tokens {warm:.1f} ms warm ({first:.1f} ms first; "
+            f"\"ref\" {ref_ms:.1f} ms; device at most {dev_ms:.1f} ms, "
+            f"queued ahead), {n_attn} flash launches, "
+            f"{n_attn if dtype == 'bfloat16' else 0} on the tensor cores "
+            "(\"ref\": 0); cuda vs ref "
+            + ("bitwise (no attention: the same code on both routes, a "
+               "launch check): " if rule == "bitwise" else "max err: ")
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs)
+            + (" (atol 1e-4, rtol 3e-3)" if rule == "close" else ""))
+        block = (params.blocks[0] if cfg.family == "ssm"
+                 else params.mamba_blocks[0][0])
+        blk, scan = _mamba_split(torch, cfg, block, B, S)
+        log(f"[ssm] {arch} {dtype} one Mamba-2 block at {B}x{S}: {blk:.2f} "
+            f"ms, of which the ssd_chunked scan (f32) {scan:.2f} ms "
+            f"({scan / blk:.0%})")
+        if dtype == "float32":
+            t1 = time.perf_counter()
+            y_err, st_err, blk_err = _mamba_hold(torch, cfg, block, B, S)
+            log(f"[ssm] {arch} f32 against references of its own: "
+                f"ssd_chunked at {B}x{S} ({cfg.ssm.n_heads} heads x "
+                f"{cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, chunk "
+                f"{cfg.ssm.chunk_size}) on the card, heads 0-3 of "
+                f"sequence 0 against the f64 recurrence on the CPU: y err "
+                f"{y_err:.3e}, state err {st_err:.3e}; one Mamba-2 block "
+                f"at 1x{S} card vs CPU: err {blk_err:.3e} (atol 1e-4, rtol "
+                f"3e-3; {time.perf_counter() - t1:.1f} s)")
+        if dtype == "float32":
+            del params
+            torch.cuda.empty_cache()
+    kops.reset_launch_counts()
+    reqs, stats = launch_serve.run(arch, n_requests=8, max_new=16,
+                                   batch_slots=4, max_seq=128, seed=0,
+                                   params=params, cfg=cfg, device=DEVICE)
+    counts = kops.launch_counts()
+    check(set(counts.values()) == {0}, f"{arch} serve: launches {counts}")
+    check(all(r.done and r.out_tokens for r in reqs),
+          f"{arch} serve: a request did not finish")
+    log(f"[ssm] serve {arch} bf16 ({cfg.n_layers} layers) on {card}: "
+        f"{len(reqs)} requests, 4 slots, {stats['tokens']} tokens in "
+        f"{stats['decode_steps']} decode steps, {stats['seconds']:.2f} s "
+        f"({stats['tokens'] / stats['seconds']:.1f} tok/s, "
+        f"{stats['seconds'] / stats['decode_steps'] * 1e3:.1f} ms per "
+        "step); 0 flash launches")
+    del params
+    torch.cuda.empty_cache()
+    return n_tc
+
+
+def whisper_model(torch, kops, launches, card):
+    """whisper-base at full width (6 + 6 layers, d_model 512, 8 heads):
+    per dtype the prefill of WHISPER_B x WHISPER_TOKENS decoder tokens
+    over 1,500 frames through "cuda" against "ref" (f32 within atol 1e-4,
+    rtol 3e-3; bf16 max error), 18 flash launches a prefill (6 encoder,
+    6 decoder self-attention, 6 cross-attention), then greedy
+    ``decode_step``s from the prefill's cache, 6 flash launches each (the
+    cross-attention), the first step's logits "cuda" against "ref".
+    Returns the tensor-core flash launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    base = get_config(WHISPER_ARCH)
+    B, S, n = WHISPER_B, WHISPER_TOKENS, WHISPER_DECODE_STEPS
+    L, frames = base.n_layers, base.n_frontend_tokens
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, base.vocab_size, (B, S)),
+                             device=DEVICE)
+    feats = torch.as_tensor(rng.standard_normal(
+        (B, frames, base.frontend_dim)).astype(np.float32), device=DEVICE)
+    n_tc = 0
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        torch.cuda.reset_peak_memory_stats()
+        params = transformer.init_params(cfg, 0, device=DEVICE)
+        batch = {"frames": feats.to(params.projector.dtype),
+                 "tokens": tokens}
+        rule = "close" if dtype == "float32" else "print"
+        got, errs, first, warm, ref_ms, dev_ms, tc = _prefill_cell(
+            torch, kops, launches, cfg, params, batch,
+            L + L + cfg.n_encoder_layers, rule)
+        n_tc += tc
+        cache = transformer.init_cache(cfg, B, S + n, frames, device=DEVICE)
+        for name in ("k", "v"):
+            cache[name][:, :, :S] = got[1][name]
+        for name in ("cross_k", "cross_v"):
+            cache[name].copy_(got[1][name])
+        tok = got[0][:, -1].argmax(-1, keepdim=True)
+        del got
+        # the first step through "ref" (on a copy of the cache): no launch
+        kops.reset_launch_counts()
+        ref_lg, _ = transformer.decode_step(
+            cfg, params, {k: v.clone() for k, v in cache.items()},
+            {"token": tok, "pos": S}, attn_backend="ref")
+        check(set(kops.launch_counts().values()) == {0},
+              f"{WHISPER_ARCH} decode {dtype} ref: {kops.launch_counts()}")
+        want_tc = L if dtype == "bfloat16" else 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(n):
+            kops.reset_launch_counts()
+            lg, cache = transformer.decode_step(
+                cfg, params, cache, {"token": tok, "pos": S + t},
+                attn_backend="cuda")
+            check(kops.flash_attention.launches == L
+                  and kops.flash_attention.launches_tc == want_tc,
+                  f"{WHISPER_ARCH} decode {dtype}: "
+                  f"{kops.flash_attention.launches} flash launches, "
+                  f"{kops.flash_attention.launches_tc} tensor-core")
+            launches["flash_attention"] += kops.flash_attention.launches
+            n_tc += kops.flash_attention.launches_tc
+            if t == 0:
+                first_lg = lg
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(lg).all()), f"{WHISPER_ARCH} decode "
+              f"{dtype}: logits not finite")
+        dec_err = (assert_close(torch, first_lg, ref_lg, 1e-4, 3e-3,
+                                f"{WHISPER_ARCH} decode f32 cuda vs ref")
+                   if rule == "close" else max_err(torch, first_lg, ref_lg))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[ssm] {WHISPER_ARCH} {cfg.n_encoder_layers} + {L} layers "
+            f"d_model {cfg.d_model} {dtype}: {_gib(params):.2f} GiB of "
+            f"weights, peak {peak:.2f} GiB; prefill {B}x{S} tokens over "
+            f"{frames} frames {warm:.1f} ms warm ({first:.1f} ms first; "
+            f"\"ref\" {ref_ms:.1f} ms; device at most {dev_ms:.1f} ms), "
+            f"{2 * L + cfg.n_encoder_layers} flash launches"
+            f"{' all on the tensor cores' if dtype == 'bfloat16' else ''}; "
+            "cuda vs ref max err: "
+            + ", ".join(f"{nm} {e:.3e}" for nm, e in errs)
+            + (" (atol 1e-4, rtol 3e-3)" if rule == "close" else "")
+            + f"; {n} greedy decode steps in {dec_s:.3f} s "
+            f"({B * n / dec_s:.1f} tok/s, {dec_s / n * 1e3:.1f} ms a step), "
+            f"{L} flash launches a step, the first step's logits cuda vs "
+            f"ref {dec_err:.3e}, on {card}")
+        del params, cache, lg, first_lg, ref_lg
+        torch.cuda.empty_cache()
+    return n_tc
+
+
+def ssm_phase(torch, kops, launches, card):
+    """mamba2-1.3b, zamba2-7b and whisper-base at full width.  Returns
+    the tensor-core flash launches."""
+    n_tc = 0
+    for arch, B, S in SSM_MODELS:
+        t0 = time.perf_counter()
+        n_tc += ssm_text_model(torch, kops, launches, arch, B, S, card)
+        log(f"[ssm] {arch} took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    n_tc += whisper_model(torch, kops, launches, card)
+    log(f"[ssm] {WHISPER_ARCH} took {time.perf_counter() - t0:.1f} s")
+    return n_tc
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2643,6 +3096,10 @@ def main() -> int:
     t0 = time.perf_counter()
     n_tc += moe_phase(torch, kops, launches, smi)
     log(f"[moe] phase took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n_tc += ssm_phase(torch, kops, launches, smi)
+    log(f"[ssm] phase took {time.perf_counter() - t0:.1f} s")
     for name, v in launches.items():
         check(v > 0, f"{name}: never launched on the main path")
         rows[name]["launches"] = v

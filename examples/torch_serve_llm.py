@@ -5,9 +5,13 @@ continuous-batching decode through the ``ServeEngine`` (the twin of
 
   PYTHONPATH=src python examples/torch_serve_llm.py [--arch qwen2.5-14b]
   PYTHONPATH=src python examples/torch_serve_llm.py --device cpu
+  PYTHONPATH=src python examples/torch_serve_llm.py --device cpu \
+      --arch mamba2-1.3b                   # or zamba2-7b (Mamba-2 hybrid)
 
 The architecture runs ``reduced()``, as in the JAX example.  On the CPU
-the prefill's attention runs the kernel wrapper's plain version.
+the prefill's attention runs the kernel wrapper's plain version.  mamba2
+has no attention, so its prefill launches no kernel; zamba2's launches
+one a super-block.
 """
 import argparse
 import pathlib

@@ -6,6 +6,11 @@ twin of ``repro.launch.serve``).
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch deepseek-v2-236b              # the moe family: MLA + experts
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch mamba2-1.3b                   # ssm: Mamba-2 (or zamba2-7b)
+
+Every family the engine drives serves: dense, moe, ssm and hybrid (the
+engine refuses audio and vlm, as the JAX one does).
 
 Without ``cfg=`` the architecture runs ``reduced()``, as in JAX; pass
 ``cfg=get_config(arch)`` for the full width.

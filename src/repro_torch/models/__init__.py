@@ -1,6 +1,6 @@
-"""The transformer family's models — the twin of ``repro.models``: the
-dense family and the moe family (llama4-maverick, deepseek-v2 with MLA)
-so far (see ``models.transformer``)."""
+"""The model zoo — the twin of ``repro.models``: the dense, moe, ssm,
+hybrid and audio families (see ``models.transformer``; vlm is ROADMAP.md
+Queue 1 item 15)."""
 from repro_torch.models.transformer import (decode_step, forward, init_cache,
                                             init_params)
 

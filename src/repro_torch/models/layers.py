@@ -3,8 +3,6 @@
 Plain PyTorch, in the JAX package's layouts and its rounding points:
 statistics and rotations in f32, results cast back to the input's dtype,
 weights stored as (d_in, d_out) so a projection is ``x @ w``.
-(``layer_norm``, ``gelu_mlp`` and ``sinusoidal_positions`` come with the
-audio family, ROADMAP.md Queue 1 item 14.)
 """
 from __future__ import annotations
 
@@ -22,9 +20,25 @@ def rms_norm(x, scale, eps: float = 1e-6):
     return out.to(x.dtype)
 
 
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """(x - mean) * rsqrt(var + eps) * scale + bias, in f32."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    out = out * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
 def swiglu_mlp(x, w_gate, w_up, w_down):
     """SwiGLU MLP: down(silu(x @ gate) * (x @ up))."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out):
+    """out(gelu(x @ w_in + b_in)) + b_out, with the tanh gelu
+    (``jax.nn.gelu``'s default; ``F.gelu``'s is erf)."""
+    return F.gelu(x @ w_in + b_in, approximate="tanh") @ w_out + b_out
 
 
 def rope(x, positions, theta):
@@ -52,6 +66,15 @@ def apply_rope(x, cos, sin):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n_pos: int, dim: int, device=None):
+    """(n_pos, dim) f32: [sin | cos] of pos / 10000^(2i / dim), the two
+    halves concatenated (not interleaved)."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10_000.0, 2 * i / dim)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def embed_tokens(embedding, tokens, scale: Optional[float] = None):

@@ -1,31 +1,48 @@
-"""The decoder families ported so far — the twin of
-``repro.models.transformer`` for ``family == "dense"`` (smollm-360m,
-granite-8b, qwen2.5-14b, gemma3-4b) and ``family == "moe"`` in both of
-its layouts:
+"""The decoder families and the encoder-decoder — the twin of
+``repro.models.transformer`` for every family but vlm:
 
-- deepseek-v2-236b: MLA attention in every layer, ``first_blocks`` (the
-  dense-first layers, a SwiGLU MLP) then ``blocks`` (an MoE each); its
-  cache is MLA's latents, {"first_c_kv", "first_k_rope", "c_kv",
+- dense (smollm-360m, granite-8b, qwen2.5-14b, gemma3-4b): {"k", "v"}:
+  (L, B, S, K, hd);
+- moe, deepseek-v2-236b: MLA attention in every layer, ``first_blocks``
+  (the dense-first layers, a SwiGLU MLP) then ``blocks`` (an MoE each);
+  its cache is MLA's latents, {"first_c_kv", "first_k_rope", "c_kv",
   "k_rope"}: (layers, B, S, kv_lora) and (layers, B, S, rope);
-- llama4-maverick-400b-a17b: GQA attention, ``super_blocks`` of (a dense
-  layer, an MoE layer); its cache {"k", "v"} is (L / 2, 2, B, S, K, hd).
+- moe, llama4-maverick-400b-a17b: GQA attention, ``super_blocks`` of (a
+  dense layer, an MoE layer); its cache {"k", "v"} is (L / 2, 2, B, S,
+  K, hd);
+- ssm (mamba2-1.3b): ``blocks`` of Mamba-2 (``models.ssm``); its cache
+  {"ssm": SSMCache(conv (L, B, d_conv - 1, conv_dim) in the model dtype,
+  state (L, B, H, N, P) in f32)};
+- hybrid (zamba2-7b): ``mamba_blocks`` (n_super x inner Mamba-2 layers),
+  each super-block followed by the one ``shared_attn`` block whose q, k
+  and v take that super-block's ``lora`` delta, then ``tail_blocks``
+  (n_layers - n_super inner Mamba-2 layers); its cache {"k", "v"}:
+  (n_super, B, S, K, hd), {"mamba": SSMCache((n_super, inner, B, ...)),
+  "tail": SSMCache((tail, B, ...))};
+- audio (whisper-base): a LayerNorm encoder over the stub frontend's
+  frames (``projector``, non-causal attention), a decoder whose layers
+  self-attend (causal) and cross-attend to the encoder's output
+  (non-causal, Sq != Skv), biased attention, GELU MLPs; its cache {"k",
+  "v"}: (L, B, S, K, hd), {"cross_k", "cross_v"}: (L, B, enc_len, K,
+  hd).
 
 Parameters are ``nn.Module`` containers whose attributes carry the JAX
 tree's names (``params.blocks[l].attn.wq``), with weights stored as
 (d_in, d_out) so that a projection is ``x @ w``.  JAX stacks the blocks
-along a leading layer axis and scans over them; here each stack is a
-``ModuleList`` and the scan a Python loop.  Every function takes the
-same arguments as its JAX twin; the prefill adds ``attn_backend`` (see
+along a leading layer axis (two for ``mamba_blocks``) and scans over
+them; here each stack is a ``ModuleList`` and the scan a Python loop.
+Every function takes the same arguments as its JAX twin; the prefill
+and the decode step add ``attn_backend`` (see
 ``models.attention.flash_attention``).
 
   init_params(cfg, seed, device=)            weights from a torch.Generator
   params_from_numpy(cfg, tree, device=)      the JAX params, as numpy arrays
   forward(cfg, params, batch, mode="prefill", return_cache, return_hidden)
   decode_step(cfg, params, cache, batch)     one token per slot, in place
-  init_cache(cfg, batch, seq, device=)
+  init_cache(cfg, batch, seq, enc_len=None, device=)
 
-The other families raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them.  Training (``mode="train"``) is item 16.
+The vlm family raises ``NotImplementedError`` naming the ROADMAP.md item
+that ports it.  Training (``mode="train"``) is item 16.
 """
 from __future__ import annotations
 
@@ -40,19 +57,24 @@ from repro_torch.core.ops import resolve_device
 from repro_torch.models.attention import (decode_attention, flash_attention,
                                           mla_decode, mla_new_cache_entries,
                                           mla_prefill)
-from repro_torch.models.layers import (apply_rope, embed_tokens, rms_norm,
-                                       rope, rope_angles, swiglu_mlp)
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (apply_rope, embed_tokens, gelu_mlp,
+                                       layer_norm, rms_norm, rope,
+                                       rope_angles, sinusoidal_positions,
+                                       swiglu_mlp)
 from repro_torch.models.moe import MoE, init_moe_params, moe_block
+from repro_torch.models.ssm import SSM, SSMCache
 
 _BIG_WINDOW = 1 << 30
 # ROADMAP.md Queue 1 items that port the other families
-_PORTED_BY = {"ssm": 12, "hybrid": 13, "audio": 14, "vlm": 15}
+_PORTED_BY = {"vlm": 15}
 
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is of a family ported so far: dense (without
-    MLA) or moe (either layout)."""
-    if cfg.family == "moe" or (cfg.family == "dense" and cfg.mla is None):
+    MLA), moe (either layout), ssm, hybrid or audio."""
+    if cfg.family in ("moe", "ssm", "hybrid", "audio") or (
+            cfg.family == "dense" and cfg.mla is None):
         return
     item = _PORTED_BY.get(cfg.family)
     raise NotImplementedError(
@@ -156,20 +178,89 @@ class SuperBlock(nn.Module):
         self.dense, self.moe_attn, self.moe = dense, moe_attn, moe
 
 
-class LM(nn.Module):
-    """embed (V, D), final_norm (D,), lm_head (D, V) unless tied, and the
-    family's layer stacks, each a ``ModuleList``: dense ``blocks``
-    (``DenseBlock``); deepseek-v2 ``first_blocks`` (``DenseBlock``) and
-    ``blocks`` (``MoEBlock``); llama4 ``super_blocks``
-    (``SuperBlock``)."""
+class MambaBlock(nn.Module):
+    """A Mamba-2 layer: ``pre_norm`` (D,) and ``ssm`` (``models.ssm.SSM``)."""
 
-    def __init__(self, embed, final_norm, lm_head=None, **stacks):
+    def __init__(self, pre_norm, ssm: SSM):
+        super().__init__()
+        self.pre_norm = _param(pre_norm)
+        self.ssm = ssm
+
+
+class LoRA(nn.Module):
+    """zamba2's per-super-block delta on the shared attention's q, k and
+    v: a_q, a_k, a_v (D, r); b_q (r, H hd), b_k and b_v (r, K hd)."""
+
+    def __init__(self, a_q, b_q, a_k, b_k, a_v, b_v):
+        super().__init__()
+        (self.a_q, self.b_q, self.a_k, self.b_k, self.a_v,
+         self.b_v) = map(_param, (a_q, b_q, a_k, b_k, a_v, b_v))
+
+
+class LN(nn.Module):
+    """A LayerNorm's scale and bias, (D,) each."""
+
+    def __init__(self, scale, bias):
+        super().__init__()
+        self.scale, self.bias = _param(scale), _param(bias)
+
+
+class GeluMLP(nn.Module):
+    """w_in (D, F), b_in (F,), w_out (F, D), b_out (D,)."""
+
+    def __init__(self, w_in, b_in, w_out, b_out):
+        super().__init__()
+        self.w_in, self.b_in, self.w_out, self.b_out = map(
+            _param, (w_in, b_in, w_out, b_out))
+
+
+class EncBlock(nn.Module):
+    """whisper's encoder layer: ln1, attn (biased), ln2, mlp (GELU)."""
+
+    def __init__(self, ln1: LN, attn: Attention, ln2: LN, mlp: GeluMLP):
+        super().__init__()
+        self.ln1, self.attn, self.ln2, self.mlp = ln1, attn, ln2, mlp
+
+
+class DecBlock(nn.Module):
+    """whisper's decoder layer: ln1, self_attn, ln2, cross_attn, ln3,
+    mlp."""
+
+    def __init__(self, ln1: LN, self_attn: Attention, ln2: LN,
+                 cross_attn: Attention, ln3: LN, mlp: GeluMLP):
+        super().__init__()
+        self.ln1, self.self_attn, self.ln2 = ln1, self_attn, ln2
+        self.cross_attn, self.ln3, self.mlp = cross_attn, ln3, mlp
+
+
+def _module_list(blocks) -> nn.ModuleList:
+    return nn.ModuleList(_module_list(b) if isinstance(b, list) else b
+                         for b in blocks)
+
+
+class LM(nn.Module):
+    """embed (V, D), final_norm (D,), lm_head (D, V) unless tied,
+    projector (frontend_dim, D) for audio, and the family's parts: each
+    layer stack a ``ModuleList`` (a list of lists a ``ModuleList`` of
+    them), a single block as it is.  dense ``blocks`` (``DenseBlock``);
+    deepseek-v2 ``first_blocks`` (``DenseBlock``) and ``blocks``
+    (``MoEBlock``); llama4 ``super_blocks`` (``SuperBlock``); ssm
+    ``blocks`` (``MambaBlock``); hybrid ``mamba_blocks`` (n_super lists
+    of ``MambaBlock``), ``tail_blocks``, ``shared_attn`` (one
+    ``DenseBlock``) and ``lora`` (``LoRA``, one a super-block); audio
+    ``enc_blocks`` (``EncBlock``), ``enc_final_ln``, ``dec_blocks``
+    (``DecBlock``) and ``dec_final_ln`` (``LN``)."""
+
+    def __init__(self, embed, final_norm, lm_head=None, projector=None,
+                 **parts):
         super().__init__()
         self.embed = _param(embed)
         self.final_norm = _param(final_norm)
         self.lm_head = None if lm_head is None else _param(lm_head)
-        for name, blocks in stacks.items():
-            setattr(self, name, nn.ModuleList(blocks))
+        self.projector = None if projector is None else _param(projector)
+        for name, part in parts.items():
+            setattr(self, name, part if isinstance(part, nn.Module)
+                    else _module_list(part))
 
 
 def _normal(gen, shape, dtype):
@@ -262,13 +353,79 @@ def _init_moe_arch(gen, cfg: ModelConfig, dtype) -> Dict[str, list]:
     return {"super_blocks": supers}
 
 
+def _hybrid_layout(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n_super, inner): super-blocks of ``attn_interval`` Mamba-2 layers;
+    the n_layers - n_super inner left over are the tail."""
+    inner = cfg.attn_interval
+    return cfg.n_layers // inner, inner
+
+
+def _init_mamba_block(gen, cfg: ModelConfig, dtype) -> MambaBlock:
+    return MambaBlock(torch.zeros(cfg.d_model, dtype=dtype,
+                                  device=gen.device),
+                      ssm_mod.init_ssm_params(gen, cfg, dtype))
+
+
+def _init_hybrid_arch(gen, cfg: ModelConfig, dtype) -> Dict:
+    """zamba2: n_super super-blocks of (inner Mamba-2 layers, the shared
+    attention with that super-block's LoRA), then the tail."""
+    n_super, inner = _hybrid_layout(cfg)
+    tail = cfg.n_layers - n_super * inner
+    hd, H, K, D = (cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads,
+                   cfg.d_model)
+    r = cfg.shared_attn_lora_rank
+
+    def lora():
+        zeros = [torch.zeros((r, n * hd), dtype=dtype, device=gen.device)
+                 for n in (H, K, K)]
+        return LoRA(_normal(gen, (D, r), dtype), zeros[0],
+                    _normal(gen, (D, r), dtype), zeros[1],
+                    _normal(gen, (D, r), dtype), zeros[2])
+
+    return {"mamba_blocks": [[_init_mamba_block(gen, cfg, dtype)
+                              for _ in range(inner)]
+                             for _ in range(n_super)],
+            "tail_blocks": [_init_mamba_block(gen, cfg, dtype)
+                            for _ in range(tail)],
+            "shared_attn": _init_dense_block(gen, cfg, dtype),
+            "lora": [lora() for _ in range(n_super)]}
+
+
+def _init_audio_arch(gen, cfg: ModelConfig, dtype) -> Dict:
+    """whisper: LayerNorm encoder and decoder with biased attention and
+    GELU MLPs (LayerNorm scales one, biases zero)."""
+    D, F, dev = cfg.d_model, cfg.d_ff, gen.device
+
+    def ln():
+        return LN(torch.ones(D, dtype=dtype, device=dev),
+                  torch.zeros(D, dtype=dtype, device=dev))
+
+    def gmlp():
+        return GeluMLP(_normal(gen, (D, F), dtype),
+                       torch.zeros(F, dtype=dtype, device=dev),
+                       _normal(gen, (F, D), dtype),
+                       torch.zeros(D, dtype=dtype, device=dev))
+
+    return {"enc_blocks": [EncBlock(ln(), _init_attn(gen, cfg, dtype), ln(),
+                                    gmlp())
+                           for _ in range(cfg.n_encoder_layers)],
+            "enc_final_ln": ln(),
+            "dec_blocks": [DecBlock(ln(), _init_attn(gen, cfg, dtype), ln(),
+                                    _init_attn(gen, cfg, dtype), ln(),
+                                    gmlp())
+                           for _ in range(cfg.n_layers)],
+            "dec_final_ln": ln()}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device="cuda") -> LM:
     """Random weights in ``cfg.dtype`` from a ``torch.Generator`` on
-    ``device`` seeded with ``seed``: normal(0.02) projections, embeddings
-    and experts (the router in f32), zero norm scales and biases, as the
-    JAX package draws them (its numbers differ: ``jax.random`` is another
-    generator).  ``"cuda"`` raises when no card is visible."""
+    ``device`` seeded with ``seed``: normal(0.02) projections, embeddings,
+    experts (the router in f32), LoRA a's and the audio projector; zero
+    norm scales, biases and LoRA b's; LayerNorm scales one; the SSM's
+    dt_bias and A_log zero and D_skip one (f32): as the JAX package draws
+    them (its numbers differ: ``jax.random`` is another generator).
+    ``"cuda"`` raises when no card is visible."""
     require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -276,13 +433,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     embed = _normal(gen, (cfg.vocab_size, cfg.d_model), dtype)
     lm_head = (None if cfg.tie_embeddings else
                _normal(gen, (cfg.d_model, cfg.vocab_size), dtype))
+    projector = (None if cfg.frontend is None else
+                 _normal(gen, (cfg.frontend_dim, cfg.d_model), dtype))
     if cfg.family == "moe":
-        stacks = _init_moe_arch(gen, cfg, dtype)
+        parts = _init_moe_arch(gen, cfg, dtype)
+    elif cfg.family == "ssm":
+        parts = {"blocks": [_init_mamba_block(gen, cfg, dtype)
+                            for _ in range(cfg.n_layers)]}
+    elif cfg.family == "hybrid":
+        parts = _init_hybrid_arch(gen, cfg, dtype)
+    elif cfg.family == "audio":
+        parts = _init_audio_arch(gen, cfg, dtype)
     else:
-        stacks = {"blocks": [_init_dense_block(gen, cfg, dtype)
-                             for _ in range(cfg.n_layers)]}
+        parts = {"blocks": [_init_dense_block(gen, cfg, dtype)
+                            for _ in range(cfg.n_layers)]}
     return LM(embed, torch.zeros(cfg.d_model, dtype=dtype, device=dev),
-              lm_head, **stacks)
+              lm_head, projector, **parts)
 
 
 def _from_numpy(a, dev) -> torch.Tensor:
@@ -314,9 +480,26 @@ def _super_block_from(d) -> SuperBlock:
                                 ma["pre_mlp_norm"]), MoE(**d["moe"]))
 
 
-def _stack_schemas(cfg: ModelConfig):
-    """{stack name: (its keys, nested, leaves None; its layer count; the
-    function that makes one block from a layer's tensors)}."""
+def _mamba_block_from(d) -> MambaBlock:
+    return MambaBlock(d["pre_norm"], SSM(**d["ssm"]))
+
+
+def _enc_block_from(d) -> EncBlock:
+    return EncBlock(LN(**d["ln1"]), Attention(**d["attn"]), LN(**d["ln2"]),
+                    GeluMLP(**d["mlp"]))
+
+
+def _dec_block_from(d) -> DecBlock:
+    return DecBlock(LN(**d["ln1"]), Attention(**d["self_attn"]),
+                    LN(**d["ln2"]), Attention(**d["cross_attn"]),
+                    LN(**d["ln3"]), GeluMLP(**d["mlp"]))
+
+
+def _part_schemas(cfg: ModelConfig):
+    """{part name: (its keys, nested, leaves None; its layer count: an
+    int for a stack over one leading axis, a pair for two (hybrid
+    ``mamba_blocks``), None for one unstacked block; the function that
+    makes one block from a layer's tensors)}."""
     keys = dict.fromkeys
     gqa = keys(["wq", "wk", "wv", "wo"]
                + (["bq", "bk", "bv"] if cfg.qkv_bias else []))
@@ -326,6 +509,31 @@ def _stack_schemas(cfg: ModelConfig):
         return {"pre_attn_norm": None, "attn": attn, "pre_mlp_norm": None,
                 **tail}
 
+    mamba = {"pre_norm": None,
+             "ssm": keys(["w_xz", "w_bc", "w_dt", "dt_bias", "conv",
+                          "A_log", "D_skip", "norm", "w_out"])}
+    if cfg.family == "ssm":
+        return {"blocks": (mamba, cfg.n_layers, _mamba_block_from)}
+    if cfg.family == "hybrid":
+        n_super, inner = _hybrid_layout(cfg)
+        lora = keys(["a_q", "b_q", "a_k", "b_k", "a_v", "b_v"])
+        return {"mamba_blocks": (mamba, (n_super, inner), _mamba_block_from),
+                "tail_blocks": (mamba, cfg.n_layers - n_super * inner,
+                                _mamba_block_from),
+                "shared_attn": (block(gqa, mlp=mlp), None,
+                                _dense_block_from),
+                "lora": (lora, n_super, lambda d: LoRA(**d))}
+    if cfg.family == "audio":
+        ln = keys(["scale", "bias"])
+        gmlp = keys(["w_in", "b_in", "w_out", "b_out"])
+        return {"enc_blocks": ({"ln1": ln, "attn": gqa, "ln2": ln,
+                                "mlp": gmlp}, cfg.n_encoder_layers,
+                               _enc_block_from),
+                "enc_final_ln": (ln, None, lambda d: LN(**d)),
+                "dec_blocks": ({"ln1": ln, "self_attn": gqa, "ln2": ln,
+                                "cross_attn": gqa, "ln3": ln, "mlp": gmlp},
+                               cfg.n_layers, _dec_block_from),
+                "dec_final_ln": (ln, None, lambda d: LN(**d))}
     if cfg.family != "moe":
         return {"blocks": (block(gqa, mlp=mlp), cfg.n_layers,
                            _dense_block_from)}
@@ -346,10 +554,10 @@ def _stack_schemas(cfg: ModelConfig):
                              cfg.n_layers // 2, _super_block_from)}
 
 
-def _n_layers(tree) -> int:
+def _lead_shape(tree, n_axes: int) -> Tuple[int, ...]:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
-    return np.asarray(tree).shape[0]
+    return tuple(np.asarray(tree).shape[:n_axes])
 
 
 def _keys(tree):
@@ -358,7 +566,8 @@ def _keys(tree):
 
 
 def _layer(tree, l, dev):
-    """Layer ``l`` of every leaf of a stacked (numpy) tree, as tensors."""
+    """Layer ``l`` (an index, a pair of them, or () for the whole leaf)
+    of every leaf of a stacked (numpy) tree, as tensors."""
     if isinstance(tree, dict):
         return {k: _layer(v, l, dev) for k, v in tree.items()}
     return _from_numpy(np.asarray(tree)[l], dev)
@@ -369,38 +578,62 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, *,
     """The JAX package's params tree, as numpy arrays (e.g.
     ``jax.tree.map(np.asarray, params)``), as the port's modules on
     ``device``.  JAX stacks each stack's blocks along a leading layer
-    axis; this takes layer l of every leaf for ``<stack>[l]``.  Raises if
-    the tree does not have the config's keys or layer counts."""
+    axis (hybrid ``mamba_blocks`` along two: super-block, then layer);
+    this takes layer l of every leaf for ``<stack>[l]`` (``[i][j]``).
+    Raises if the tree does not have the config's keys or layer
+    counts."""
     require_ported(cfg)
     dev = resolve_device(device)
-    schemas = _stack_schemas(cfg)
+    schemas = _part_schemas(cfg)
     top = {"embed": None, "final_norm": None,
            **({} if cfg.tie_embeddings else {"lm_head": None}),
+           **({} if cfg.frontend is None else {"projector": None}),
            **{name: sch for name, (sch, _, _) in schemas.items()}}
     if _keys(tree) != top:
         raise ValueError(f"{cfg.arch_id}: params tree does not have the "
                          f"{cfg.family} family's keys")
-    stacks = {}
+    parts = {}
     for name, (_, n, build) in schemas.items():
-        L = _n_layers(tree[name])
-        if L != n:
-            raise ValueError(f"{cfg.arch_id}: params stack {L} layers in "
-                             f"{name}, the config {n}")
-        stacks[name] = [build(_layer(tree[name], l, dev)) for l in range(L)]
+        if n is None:
+            parts[name] = build(_layer(tree[name], (), dev))
+            continue
+        want = n if isinstance(n, tuple) else (n,)
+        got = _lead_shape(tree[name], len(want))
+        if got != want:
+            raise ValueError(f"{cfg.arch_id}: params stack {got} layers in "
+                             f"{name}, the config {want}")
+        if len(want) == 2:
+            parts[name] = [[build(_layer(tree[name], (i, j), dev))
+                            for j in range(want[1])]
+                           for i in range(want[0])]
+        else:
+            parts[name] = [build(_layer(tree[name], l, dev))
+                           for l in range(n)]
     lm_head = (None if cfg.tie_embeddings
                else _from_numpy(tree["lm_head"], dev))
+    projector = (None if cfg.frontend is None
+                 else _from_numpy(tree["projector"], dev))
     return LM(_from_numpy(tree["embed"], dev),
-              _from_numpy(tree["final_norm"], dev), lm_head, **stacks)
+              _from_numpy(tree["final_norm"], dev), lm_head, projector,
+              **parts)
 
 
 # ======================================================================
 # attention sub-blocks
 # ======================================================================
 
-def _qkv(x, p: Attention, cfg: ModelConfig):
+def _qkv(x, p: Attention, cfg: ModelConfig, lora: Optional[LoRA] = None):
+    """q, k and v as (B, S, heads, hd).  zamba2's ``lora`` adds (x @ a) @
+    b to each, the order in which XLA contracts JAX's ``einsum("bsd,dr,
+    re->bse")`` at these shapes (in bf16 the (B, S, r) product rounds to
+    bf16 before the second GEMM, as there)."""
     hd = cfg.resolved_head_dim
     B, S, _ = x.shape
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if lora is not None:
+        q = q + (x @ lora.a_q) @ lora.b_q
+        k = k + (x @ lora.a_k) @ lora.b_k
+        v = v + (x @ lora.a_v) @ lora.b_v
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     return (q.reshape(B, S, cfg.n_heads, hd),
@@ -409,10 +642,11 @@ def _qkv(x, p: Attention, cfg: ModelConfig):
 
 
 def _gqa_full(x, p: Attention, cfg: ModelConfig, rot, window,
-              causal: bool = True, backend: str = "cuda"):
+              causal: bool = True, backend: str = "cuda",
+              lora: Optional[LoRA] = None):
     """Full-sequence GQA attention (prefill).  ``rot`` is the layer's
     rope (cos, sin) from ``rope_angles``, or None.  Returns (out, k, v)."""
-    q, k, v = _qkv(x, p, cfg)
+    q, k, v = _qkv(x, p, cfg, lora)
     if rot is not None:
         q = apply_rope(q, *rot)
         k = apply_rope(k, *rot)
@@ -437,11 +671,11 @@ def _update_cache(cache, new, pos):
 
 
 def _gqa_decode(x, p: Attention, cfg: ModelConfig, pos, theta, window, kc,
-                vc):
+                vc, lora: Optional[LoRA] = None):
     """One-token GQA decode; writes (kc, vc) in place at per-sequence
     ``pos`` (an int or a (B,) tensor: continuous-batching slots may
     differ)."""
-    q, k, v = _qkv(x, p, cfg)
+    q, k, v = _qkv(x, p, cfg, lora)
     B = x.shape[0]
     pos_vec = torch.as_tensor(pos, device=x.device).long().broadcast_to(
         (B,))
@@ -454,29 +688,66 @@ def _gqa_decode(x, p: Attention, cfg: ModelConfig, pos, theta, window, kc,
     return o.reshape(B, 1, -1) @ p.wo, kc, vc
 
 
+def _cross_attn(x, p: Attention, cfg: ModelConfig, k, v,
+                backend: str = "cuda"):
+    """The decoder's queries against the encoder's (k, v): non-causal,
+    Sq (the decoder's tokens, 1 in decode) != Skv (the frames)."""
+    B, S, _ = x.shape
+    q = x @ p.wq
+    if cfg.qkv_bias:
+        q = q + p.bq
+    q = q.reshape(B, S, cfg.n_heads, cfg.resolved_head_dim)
+    o = flash_attention(q, k, v, causal=False, backend=backend)
+    return o.reshape(B, S, -1) @ p.wo
+
+
+def _cross_kv(enc_out, p: Attention, cfg: ModelConfig):
+    """The cross-attention's (k, v), (B, S_enc, K, hd) each."""
+    B, S, _ = enc_out.shape
+    k, v = enc_out @ p.wk, enc_out @ p.wv
+    if cfg.qkv_bias:
+        k, v = k + p.bk, v + p.bv
+    shape = (B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return k.reshape(shape), v.reshape(shape)
+
+
 # ======================================================================
 # forward (prefill)
 # ======================================================================
+
+def _add(h, a, last: bool):
+    """The residual add ``h + a``.  A stack's last one is kept in f32 for
+    the final norm to read: its rounding to bf16 is the one the final
+    norm magnifies most (ROADMAP.md Queue 3).  In f32 it is ``h + a``."""
+    return h.float() + a if last else h + a
+
 
 def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
             mode: str = "prefill", return_cache: bool = False,
             return_hidden: bool = False, attn_backend: str = "cuda"):
     """Returns (logits_or_hidden, aux_loss[, cache]).  batch =
-    {"tokens": (B, S) int}.  ``return_hidden=True`` skips the
-    unembedding and returns the final-norm hidden states; the cache has
-    ``init_cache``'s keys and shapes (dense: {"k", "v"}: (L, B, S, K,
-    hd)).  aux_loss is the MoE layers' summed Switch loss (f32; 0 for
-    dense)."""
+    {"tokens": (B, S) int}, and for audio also "frames": (B, S_enc,
+    frontend_dim), the stub frontend's frame embeddings (taken in the
+    model's dtype).  ``return_hidden=True`` skips the unembedding and
+    returns the final-norm hidden states; the cache has ``init_cache``'s
+    keys and shapes (dense: {"k", "v"}: (L, B, S, K, hd); audio's
+    cross_k and cross_v have S_enc rows).  aux_loss is the MoE layers'
+    summed Switch loss (f32; 0 for the other families)."""
     require_ported(cfg)
     if mode != "prefill":
         raise NotImplementedError(
             f"forward mode {mode!r}: training is not ported to repro_torch "
             "yet (ROADMAP.md Queue 1 item 16)")
+    if cfg.family == "audio":
+        return _audio_forward(cfg, params, batch, return_cache=return_cache,
+                              return_hidden=return_hidden,
+                              attn_backend=attn_backend)
     x, positions = _embed_inputs(cfg, params, batch)
-    stack = _moe_stack if cfg.family == "moe" else _dense_stack
+    stack = {"moe": _moe_stack, "ssm": _ssm_stack,
+             "hybrid": _hybrid_stack}.get(cfg.family, _dense_stack)
     x, aux, cache = stack(cfg, params, x, positions, return_cache,
                           attn_backend)
-    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps).to(params.embed.dtype)
     out = x if return_hidden else unembed(cfg, params, x)
     if return_cache:
         return out, aux, cache
@@ -518,17 +789,32 @@ def _dense_stack(cfg: ModelConfig, params: LM, x, positions,
                             p.attn, cfg, rots.get(theta), window,
                             backend=attn_backend)
         h = h + a
-        h = h + swiglu_mlp(rms_norm(h, p.pre_mlp_norm, cfg.norm_eps),
-                           p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down)
+        h = _add(h, swiglu_mlp(rms_norm(h, p.pre_mlp_norm, cfg.norm_eps),
+                               p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down),
+                 l == len(params.blocks) - 1)
         if return_cache:
             cache["k"][l] = k
             cache["v"][l] = v
     return h, torch.zeros((), device=x.device), cache
 
 
-def _cache_shapes(cfg: ModelConfig, batch: int, seq: int):
-    """{name: shape} of the family's cache."""
+def _cache_shapes(cfg: ModelConfig, batch: int, seq: int,
+                 enc_len: Optional[int] = None):
+    """{name: shape} of the family's attention cache, all in the model's
+    dtype (the ssm and hybrid families' recurrent caches are
+    ``_ssm_caches``')."""
     hd, K = cfg.resolved_head_dim, cfg.n_kv_heads
+    if cfg.family == "ssm":
+        return {}
+    if cfg.family == "hybrid":
+        n_super, _ = _hybrid_layout(cfg)
+        return {n: (n_super, batch, seq, K, hd) for n in ("k", "v")}
+    if cfg.family == "audio":
+        enc_len = enc_len or cfg.n_frontend_tokens
+        L = cfg.n_layers
+        return {"k": (L, batch, seq, K, hd), "v": (L, batch, seq, K, hd),
+                "cross_k": (L, batch, enc_len, K, hd),
+                "cross_v": (L, batch, enc_len, K, hd)}
     if cfg.family != "moe":
         return {n: (cfg.n_layers, batch, seq, K, hd) for n in ("k", "v")}
     if _moe_layout(cfg) == "interleaved":
@@ -541,6 +827,24 @@ def _cache_shapes(cfg: ModelConfig, batch: int, seq: int):
         out[pre + "c_kv"] = (n, batch, seq, a.kv_lora_rank)
         out[pre + "k_rope"] = (n, batch, seq, a.rope_head_dim)
     return out
+
+
+def _ssm_caches(cfg: ModelConfig, batch: int, dtype, dev) -> Dict:
+    """The zeroed recurrent caches: ssm {"ssm"} over its L layers; hybrid
+    {"mamba"} over (n_super, inner) and {"tail"} over its tail layers.
+    Each an ``SSMCache``: conv in ``dtype``, state in f32."""
+    if cfg.family == "ssm":
+        return {"ssm": ssm_mod.init_ssm_cache(batch, cfg, dtype,
+                                              lead=(cfg.n_layers,),
+                                              device=dev)}
+    if cfg.family == "hybrid":
+        n_super, inner = _hybrid_layout(cfg)
+        tail = cfg.n_layers - n_super * inner
+        return {"mamba": ssm_mod.init_ssm_cache(
+                    batch, cfg, dtype, lead=(n_super, inner), device=dev),
+                "tail": ssm_mod.init_ssm_cache(batch, cfg, dtype,
+                                               lead=(tail,), device=dev)}
+    return {}
 
 
 def _moe_stack(cfg: ModelConfig, params: LM, x, positions,
@@ -557,6 +861,7 @@ def _moe_stack(cfg: ModelConfig, params: LM, x, positions,
     aux = torch.zeros((), device=x.device)
     h = x
     if _moe_layout(cfg) == "first_dense":
+        final = [*params.first_blocks, *params.blocks][-1]
         for pre, stack in (("first_", params.first_blocks),
                            ("", params.blocks)):
             for l, p in enumerate(stack):
@@ -567,10 +872,11 @@ def _moe_stack(cfg: ModelConfig, params: LM, x, positions,
                 hn = rms_norm(h, p.pre_mlp_norm, eps)
                 if isinstance(p, MoEBlock):
                     mo, a_l = moe_block(hn, p.moe, cfg)
-                    h, aux = h + mo, aux + a_l
+                    aux = aux + a_l
                 else:
-                    h = h + swiglu_mlp(hn, p.mlp.w_gate, p.mlp.w_up,
-                                       p.mlp.w_down)
+                    mo = swiglu_mlp(hn, p.mlp.w_gate, p.mlp.w_up,
+                                    p.mlp.w_down)
+                h = _add(h, mo, p is final)
                 if return_cache:
                     cache[pre + "c_kv"][l] = ckv
                     cache[pre + "k_rope"][l] = krope
@@ -587,35 +893,176 @@ def _moe_stack(cfg: ModelConfig, params: LM, x, positions,
                               cfg, rot, _BIG_WINDOW, backend=attn_backend)
         h = h + a
         mo, a_l = moe_block(rms_norm(h, ma.pre_mlp_norm, eps), p.moe, cfg)
-        h, aux = h + mo, aux + a_l
+        h = _add(h, mo, i == len(params.super_blocks) - 1)
+        aux = aux + a_l
         if return_cache:
             cache["k"][i, 0], cache["k"][i, 1] = k1, k2
             cache["v"][i, 0], cache["v"][i, 1] = v1, v2
     return h, aux, cache
 
 
+def _mamba_layers(cfg: ModelConfig, blocks, h, caches: Optional[SSMCache],
+                  last: bool = False):
+    """Mamba-2 prefill over ``blocks``, each with its pre-norm and
+    residual (``last``: these layers end the stack); writes layer l's
+    final conv inputs and state into ``caches`` (an ``SSMCache`` stacked
+    over these layers) when given."""
+    for l, p in enumerate(blocks):
+        o = ssm_mod.mamba2_block(rms_norm(h, p.pre_norm, cfg.norm_eps),
+                                 p.ssm, cfg, return_state=caches is not None)
+        if caches is not None:
+            o, c = o
+            caches.conv[l] = c.conv
+            caches.state[l] = c.state
+        h = _add(h, o, last and l == len(blocks) - 1)
+    return h
+
+
+def _ssm_stack(cfg: ModelConfig, params: LM, x, positions,
+               return_cache: bool, attn_backend: str):
+    """mamba2: the Mamba-2 layers (no attention: ``attn_backend`` and
+    ``positions`` unused).  Returns (h, 0, cache)."""
+    B = x.shape[0]
+    cache = (_ssm_caches(cfg, B, x.dtype, x.device) if return_cache
+             else None)
+    h = _mamba_layers(cfg, params.blocks, x,
+                      cache["ssm"] if return_cache else None, last=True)
+    return h, torch.zeros((), device=x.device), cache
+
+
+def _hybrid_stack(cfg: ModelConfig, params: LM, x, positions,
+                  return_cache: bool, attn_backend: str):
+    """zamba2: per super-block its Mamba-2 layers, then the shared
+    attention block with the super-block's LoRA (causal, rope); then the
+    tail's Mamba-2 layers.  Returns (h, 0, cache)."""
+    n_super, _ = _hybrid_layout(cfg)
+    B, S = x.shape[:2]
+    shared, eps = params.shared_attn, cfg.norm_eps
+    cache = None
+    if return_cache:
+        cache = {n: torch.empty(shape, dtype=x.dtype, device=x.device)
+                 for n, shape in _cache_shapes(cfg, B, S).items()}
+        cache.update(_ssm_caches(cfg, B, x.dtype, x.device))
+    rot = rope_angles(positions, cfg.rope_theta, cfg.resolved_head_dim)
+    h = x
+    for i in range(n_super):
+        h = _mamba_layers(cfg, params.mamba_blocks[i], h, None if cache is
+                          None else SSMCache(cache["mamba"].conv[i],
+                                             cache["mamba"].state[i]))
+        a, k, v = _gqa_full(rms_norm(h, shared.pre_attn_norm, eps),
+                            shared.attn, cfg, rot, _BIG_WINDOW,
+                            backend=attn_backend, lora=params.lora[i])
+        h = h + a
+        h = _add(h, swiglu_mlp(rms_norm(h, shared.pre_mlp_norm, eps),
+                               shared.mlp.w_gate, shared.mlp.w_up,
+                               shared.mlp.w_down),
+                 i == n_super - 1 and not len(params.tail_blocks))
+        if return_cache:
+            cache["k"][i] = k
+            cache["v"][i] = v
+    h = _mamba_layers(cfg, params.tail_blocks, h,
+                      cache["tail"] if return_cache else None, last=True)
+    return h, torch.zeros((), device=x.device), cache
+
+
+def _ln(x, p: LN):
+    return layer_norm(x, p.scale, p.bias)
+
+
+def _gelu(x, p: GeluMLP):
+    return gelu_mlp(x, p.w_in, p.b_in, p.w_out, p.b_out)
+
+
+def encode_audio(cfg: ModelConfig, params: LM, frames,
+                 attn_backend: str = "cuda"):
+    """whisper's encoder over the stub frontend's frame embeddings (B,
+    S_enc, frontend_dim): the projector, sinusoidal positions, then per
+    layer non-causal self-attention and a GELU MLP; the final LayerNorm.
+    The frames are taken in the model's dtype (JAX would promote the
+    encoder to f32 for f32 frames under a bf16 model)."""
+    x = frames.to(params.projector.dtype) @ params.projector
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 x.device).to(x.dtype)[None]
+    for p in params.enc_blocks:
+        a, _, _ = _gqa_full(_ln(x, p.ln1), p.attn, cfg, None, _BIG_WINDOW,
+                            causal=False, backend=attn_backend)
+        x = x + a
+        x = x + _gelu(_ln(x, p.ln2), p.mlp)
+    return _ln(x, params.enc_final_ln)
+
+
+def _audio_forward(cfg: ModelConfig, params: LM, batch: Dict, *,
+                   return_cache: bool, return_hidden: bool,
+                   attn_backend: str):
+    """whisper's prefill: the encoder, then per decoder layer causal
+    self-attention (no rope: sinusoidal positions on the embeddings),
+    non-causal cross-attention to the encoder's output and a GELU MLP;
+    the final LayerNorm (``final_norm`` is unused, as in JAX)."""
+    dev = params.embed.device
+    enc_out = encode_audio(cfg, params,
+                           torch.as_tensor(batch["frames"], device=dev),
+                           attn_backend)
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    x = embed_tokens(params.embed, tokens)
+    B, S = x.shape[:2]
+    x = x + sinusoidal_positions(S, cfg.d_model, dev).to(x.dtype)[None]
+    cache = None
+    if return_cache:
+        cache = {n: torch.empty(shape, dtype=x.dtype, device=dev)
+                 for n, shape in _cache_shapes(cfg, B, S,
+                                               enc_out.shape[1]).items()}
+    for l, p in enumerate(params.dec_blocks):
+        a, k, v = _gqa_full(_ln(x, p.ln1), p.self_attn, cfg, None,
+                            _BIG_WINDOW, backend=attn_backend)
+        x = x + a
+        ck, cv = _cross_kv(enc_out, p.cross_attn, cfg)
+        x = x + _cross_attn(_ln(x, p.ln2), p.cross_attn, cfg, ck, cv,
+                            attn_backend)
+        x = _add(x, _gelu(_ln(x, p.ln3), p.mlp),
+                 l == len(params.dec_blocks) - 1)
+        if return_cache:
+            cache["k"][l], cache["v"][l] = k, v
+            cache["cross_k"][l], cache["cross_v"][l] = ck, cv
+    x = _ln(x, params.dec_final_ln).to(params.embed.dtype)
+    out = x if return_hidden else unembed(cfg, params, x)
+    zero = torch.zeros((), device=dev)
+    return (out, zero, cache) if return_cache else (out, zero)
+
+
 # ======================================================================
 # KV cache and the decode step
 # ======================================================================
 
-def init_cache(cfg: ModelConfig, batch: int, seq: int, *, device="cuda"):
-    """The zeroed cache in ``cfg.dtype``: dense {"k", "v"}: (L, batch,
-    seq, K, hd); llama4 {"k", "v"}: (L / 2, 2, batch, seq, K, hd);
-    deepseek-v2 {"first_c_kv", "c_kv"}: (layers, batch, seq, kv_lora)
-    and {"first_k_rope", "k_rope"}: (layers, batch, seq, rope)."""
+def init_cache(cfg: ModelConfig, batch: int, seq: int,
+               enc_len: Optional[int] = None, *, device="cuda"):
+    """The zeroed cache in ``cfg.dtype`` (the SSM states in f32): dense
+    {"k", "v"}: (L, batch, seq, K, hd); llama4 {"k", "v"}: (L / 2, 2,
+    batch, seq, K, hd); deepseek-v2 {"first_c_kv", "c_kv"}: (layers,
+    batch, seq, kv_lora) and {"first_k_rope", "k_rope"}: (layers, batch,
+    seq, rope); ssm {"ssm": SSMCache}; hybrid {"k", "v"}: (n_super,
+    batch, seq, K, hd), {"mamba", "tail": SSMCache}; audio {"k", "v"}
+    and {"cross_k", "cross_v"} with ``enc_len`` rows (default the
+    config's ``n_frontend_tokens``)."""
     require_ported(cfg)
     dev = resolve_device(device)
-    return {n: torch.zeros(shape, dtype=torch_dtype(cfg), device=dev)
-            for n, shape in _cache_shapes(cfg, batch, seq).items()}
+    dtype = torch_dtype(cfg)
+    cache = {n: torch.zeros(shape, dtype=dtype, device=dev)
+             for n, shape in _cache_shapes(cfg, batch, seq,
+                                           enc_len).items()}
+    cache.update(_ssm_caches(cfg, batch, dtype, dev))
+    return cache
 
 
-def decode_step(cfg: ModelConfig, params: LM, cache: Dict, batch: Dict):
+def decode_step(cfg: ModelConfig, params: LM, cache: Dict, batch: Dict, *,
+                attn_backend: str = "cuda"):
     """batch = {"token": (B, 1) int, "pos": an int or (B,) ints}.
 
     Returns (logits (B, 1, V) f32, cache).  Unlike JAX, which returns a
     new cache, the step writes each layer's new entries into ``cache``
     in place (saving a copy of the whole cache per token) and returns
-    the same dict."""
+    the same dict.  ``attn_backend`` is audio's cross-attention route
+    (the flash kernel, "cuda", or its plain version, "ref"); the other
+    families' decode attention is plain PyTorch, as in JAX."""
     require_ported(cfg)
     dev = params.embed.device
     token = torch.as_tensor(batch["token"], device=dev)
@@ -623,8 +1070,19 @@ def decode_step(cfg: ModelConfig, params: LM, cache: Dict, batch: Dict):
     x = embed_tokens(params.embed, token, _embed_scale(cfg))
     if cfg.family == "moe":
         x = _moe_decode(cfg, params, cache, x, pos)
-        x = _final_norm_decode(cfg, params, x)
-        return unembed(cfg, params, x), cache
+    elif cfg.family == "ssm":
+        x = _mamba_decode(cfg, params.blocks, cache["ssm"], x, last=True)
+    elif cfg.family == "hybrid":
+        x = _hybrid_decode(cfg, params, cache, x, pos)
+    elif cfg.family == "audio":
+        x = _audio_decode(cfg, params, cache, x, pos, attn_backend)
+    else:
+        x = _dense_decode(cfg, params, cache, x, pos)
+    x = _final_norm_decode(cfg, params, x).to(params.embed.dtype)
+    return unembed(cfg, params, x), cache
+
+
+def _dense_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos):
     windows, thetas = layer_meta(cfg)
     for l, (p, window, theta) in enumerate(zip(params.blocks, windows,
                                                thetas)):
@@ -632,14 +1090,80 @@ def decode_step(cfg: ModelConfig, params: LM, cache: Dict, batch: Dict):
                               p.attn, cfg, pos, theta, window,
                               cache["k"][l], cache["v"][l])
         x = x + a
-        x = x + swiglu_mlp(rms_norm(x, p.pre_mlp_norm, cfg.norm_eps),
-                           p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down)
-    x = _final_norm_decode(cfg, params, x)
-    return unembed(cfg, params, x), cache
+        x = _add(x, swiglu_mlp(rms_norm(x, p.pre_mlp_norm, cfg.norm_eps),
+                               p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down),
+                 l == len(params.blocks) - 1)
+    return x
 
 
 def _final_norm_decode(cfg: ModelConfig, params: LM, x):
+    if cfg.family == "audio":
+        return _ln(x, params.dec_final_ln)
     return rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
+def _mamba_decode(cfg: ModelConfig, blocks, caches: SSMCache, h,
+                  last: bool = False):
+    """One token through Mamba-2 ``blocks``, each layer's conv window and
+    state written into ``caches`` (stacked over these layers) in place
+    (``last``: these layers end the stack).
+    The recurrence has no positions: a slot's state advances whatever
+    token it is fed."""
+    for l, p in enumerate(blocks):
+        c = SSMCache(caches.conv[l], caches.state[l])
+        o, new = ssm_mod.mamba2_decode(rms_norm(h, p.pre_norm, cfg.norm_eps),
+                                       p.ssm, cfg, c)
+        c.conv.copy_(new.conv)
+        c.state.copy_(new.state)
+        h = _add(h, o, last and l == len(blocks) - 1)
+    return h
+
+
+def _hybrid_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos):
+    """zamba2's decode: per super-block its Mamba-2 layers, then the
+    shared attention's GQA decode with the super-block's LoRA; then the
+    tail."""
+    n_super, _ = _hybrid_layout(cfg)
+    shared, eps = params.shared_attn, cfg.norm_eps
+    h = x
+    for i in range(n_super):
+        h = _mamba_decode(cfg, params.mamba_blocks[i],
+                          SSMCache(cache["mamba"].conv[i],
+                                   cache["mamba"].state[i]), h)
+        a, _, _ = _gqa_decode(rms_norm(h, shared.pre_attn_norm, eps),
+                              shared.attn, cfg, pos, cfg.rope_theta,
+                              _BIG_WINDOW, cache["k"][i], cache["v"][i],
+                              lora=params.lora[i])
+        h = h + a
+        h = _add(h, swiglu_mlp(rms_norm(h, shared.pre_mlp_norm, eps),
+                               shared.mlp.w_gate, shared.mlp.w_up,
+                               shared.mlp.w_down),
+                 i == n_super - 1 and not len(params.tail_blocks))
+    return _mamba_decode(cfg, params.tail_blocks, cache["tail"], h,
+                         last=True)
+
+
+def _audio_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos,
+                  attn_backend: str):
+    """whisper's decode: the sinusoidal position of each slot's ``pos``,
+    then per decoder layer the self-attention's GQA decode (no rope), the
+    cross-attention of the one new token against the layer's cached
+    encoder (k, v) (non-causal, through ``attn_backend``) and the MLP.
+    The cross caches are read, never written."""
+    B = x.shape[0]
+    pos_vec = pos.long().broadcast_to((B,))
+    table = sinusoidal_positions(cache["k"].shape[2], cfg.d_model, x.device)
+    h = x + table[pos_vec][:, None].to(x.dtype)
+    for l, p in enumerate(params.dec_blocks):
+        a, _, _ = _gqa_decode(_ln(h, p.ln1), p.self_attn, cfg, pos, None,
+                              _BIG_WINDOW, cache["k"][l], cache["v"][l])
+        h = h + a
+        h = h + _cross_attn(_ln(h, p.ln2), p.cross_attn, cfg,
+                            cache["cross_k"][l], cache["cross_v"][l],
+                            attn_backend)
+        h = _add(h, _gelu(_ln(h, p.ln3), p.mlp),
+                 l == len(params.dec_blocks) - 1)
+    return h
 
 
 def _moe_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos):
@@ -652,6 +1176,7 @@ def _moe_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos):
     if _moe_layout(cfg) == "first_dense":
         B = x.shape[0]
         pos_vec = pos.long().broadcast_to((B,))
+        final = [*params.first_blocks, *params.blocks][-1]
         for pre, stack in (("first_", params.first_blocks),
                            ("", params.blocks)):
             for l, p in enumerate(stack):
@@ -664,10 +1189,11 @@ def _moe_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos):
                                    pos_vec + 1, pos_vec)
                 hn = rms_norm(h, p.pre_mlp_norm, eps)
                 if isinstance(p, MoEBlock):
-                    h = h + moe_block(hn, p.moe, cfg)[0]
+                    mo = moe_block(hn, p.moe, cfg)[0]
                 else:
-                    h = h + swiglu_mlp(hn, p.mlp.w_gate, p.mlp.w_up,
-                                       p.mlp.w_down)
+                    mo = swiglu_mlp(hn, p.mlp.w_gate, p.mlp.w_up,
+                                    p.mlp.w_down)
+                h = _add(h, mo, p is final)
         return h
     for i, p in enumerate(params.super_blocks):
         d, ma = p.dense, p.moe_attn
@@ -681,5 +1207,6 @@ def _moe_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos):
                               cfg, pos, cfg.rope_theta, _BIG_WINDOW,
                               cache["k"][i, 1], cache["v"][i, 1])
         h = h + a
-        h = h + moe_block(rms_norm(h, ma.pre_mlp_norm, eps), p.moe, cfg)[0]
+        h = _add(h, moe_block(rms_norm(h, ma.pre_mlp_norm, eps), p.moe,
+                              cfg)[0], i == len(params.super_blocks) - 1)
     return h

@@ -9,9 +9,17 @@ does (there is no prefill admission in either).
 
 Protocol per slot: ``pending`` is the token to feed next at ``next_pos``;
 feeding it yields the logits that pick the following token.  The cache
-(``transformer.init_cache``'s, by family: k/v per layer, or MLA's latent
-caches for deepseek-v2) lives on the params' device and is written in
-place by each step.
+(``transformer.init_cache``'s, by family: k/v per layer, MLA's latent
+caches for deepseek-v2, the nested ``SSMCache`` of the ssm and hybrid
+families) lives on the params' device and is written in place by each
+step.
+
+A recurrent cache inherits the JAX engine's lock-step protocol as it is:
+admission's replay steps every slot, so the other slots' SSM state
+advances on their pending token, and a reused slot starts from the
+state its last request left (a KV cache masks both by ``cache_len``; a
+recurrent state cannot).  The port mirrors the reference here, token for
+token (``tests/test_torch_ssm.py``).
 """
 from __future__ import annotations
 

@@ -17,11 +17,13 @@ from repro_torch.models import transformer
 
 def prefill_step(cfg: ModelConfig, params, batch: Dict[str, Any], *,
                  attn_backend: str = "cuda"):
-    """batch = {"tokens": (B, S) int}.  Returns (logits (B, 1, V) f32,
-    the filled cache): dense {"k", "v"}: (L, B, S, K, hd); llama4 {"k",
-    "v"}: (L / 2, 2, B, S, K, hd); deepseek-v2 MLA's latents {"first_c_kv",
-    "c_kv"}: (layers, B, S, kv_lora), {"first_k_rope", "k_rope"}: (layers,
-    B, S, rope)."""
+    """batch = {"tokens": (B, S) int}, and for audio (whisper) also
+    "frames": (B, S_enc, frontend_dim).  Returns (logits (B, 1, V) f32,
+    the filled cache, ``transformer.init_cache``'s keys and shapes:
+    dense {"k", "v"}: (L, B, S, K, hd); llama4 {"k", "v"}: (L / 2, 2, B,
+    S, K, hd); deepseek-v2 MLA's latents; ssm {"ssm": SSMCache}; hybrid
+    {"k", "v", "mamba", "tail"}; audio {"k", "v", "cross_k",
+    "cross_v"})."""
     hidden, _, cache = transformer.forward(
         cfg, params, batch, mode="prefill", return_cache=True,
         return_hidden=True, attn_backend=attn_backend)

@@ -21,6 +21,12 @@ CASES = [
      "every tenant bitwise-equal to its solo-SLO engine"),
     ("torch_serve_llm.py", ["--requests", "3", "--max-new", "4"],
      "served 3 requests, 12 tokens"),
+    ("torch_serve_llm.py", ["--arch", "mamba2-1.3b", "--requests", "3",
+                            "--max-new", "4"],
+     "served 3 requests, 12 tokens"),
+    ("torch_serve_llm.py", ["--arch", "zamba2-7b", "--requests", "3",
+                            "--max-new", "4"],
+     "served 3 requests, 12 tokens"),
 ]
 
 

@@ -1183,3 +1183,142 @@ def test_cluster_kill_and_rejoin_on_the_card(cuda, cuda_cluster):
         before[0]["digests"]
     st = dep.router.statuses()[1]
     assert st["restored"] and st["timings"]["restore_s"] > 0
+
+
+# the [ssm] phase's attention: zamba2's hd 112 (the 128-column tiles
+# zero-fill columns 112-127 and clip the store), whisper's non-causal
+# encoder (ragged against the 128-key tiles) and its cross-attention
+# (non-causal, Sq != Skv, Sq = 1 in decode)
+SSM_FLASH_CASES = [   # B, Sq, Skv, H, K, hd, causal
+    (2, 300, 300, 4, 4, 112, True),
+    (1, 130, 130, 8, 2, 112, True),
+    (2, 333, 333, 2, 2, 64, False),
+    (2, 45, 300, 3, 3, 64, False),
+    (3, 1, 300, 2, 2, 64, False),
+    (1, 1, 129, 4, 4, 112, False),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal", SSM_FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_hd_112_and_non_causal(cuda, B, Sq, Skv, H, K, hd,
+                                                  causal, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    g = torch.Generator(device=cuda).manual_seed(Sq + Skv + hd)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((B, Skv, K, hd), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    before_tc = kops.flash_attention.launches_tc
+    got = flash_attention_gqa(q, k, v, causal=causal)
+    assert kops.flash_attention.launches_tc == before_tc + int(
+        dtype == torch.bfloat16)
+    assert got.shape == (B, Sq, H, hd)
+    tol = ATOL[dtype] if dtype == torch.float32 else 8e-3
+    _close(got, ref.gqa_attention_ref(q, k, v, causal=causal), tol,
+           3e-2 if dtype == torch.float32 else 1e-2)
+
+
+def _to_card(params, dev):
+    """A copy of a model's params on ``dev`` (the CPU model stays)."""
+    import copy
+    return copy.deepcopy(params).to(dev)
+
+
+@pytest.mark.parametrize("arch,n_layers", [("mamba2-1.3b", 2),
+                                           ("zamba2-7b", 5)])
+def test_ssm_and_hybrid_on_the_card_match_the_cpu(cuda, arch, n_layers):
+    """mamba2 and zamba2 (reduced; zamba2 at 5 layers: two super-blocks
+    and a tail) in f32 on the card through "cuda" against the same model
+    on the CPU: prefill logits and every cache entry, then three decode
+    steps (the cache written in place on both)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              n_layers=n_layers)
+    cpu = transformer.init_params(cfg, 0, device="cpu")
+    card = _to_card(cpu, cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 77),
+                           generator=torch.Generator().manual_seed(1))
+    kops.reset_launch_counts()
+    got, _, cache = transformer.forward(cfg, card, {"tokens": tokens.to(cuda)},
+                                        return_cache=True)
+    n_attn = (transformer._hybrid_layout(cfg)[0] if cfg.family == "hybrid"
+              else 0)
+    assert kops.launch_counts()["flash_attention"] == n_attn
+    want, _, want_cache = transformer.forward(cfg, cpu, {"tokens": tokens},
+                                              return_cache=True)
+    _close(got, want, 1e-4, 3e-3)
+
+    def leaves(c):
+        for n, v in c.items():
+            yield from ((f"{n}.{f}", getattr(v, f)) for f in v._fields) \
+                if isinstance(v, tuple) else [(n, v)]
+
+    for (n, a), (_, b) in zip(leaves(cache), leaves(want_cache)):
+        _close(a, b, 1e-4, 3e-3)
+    dcache = transformer.init_cache(cfg, 2, 8, device=cuda)
+    hcache = transformer.init_cache(cfg, 2, 8, device="cpu")
+    for t in range(3):
+        tok = tokens[:, t:t + 1]
+        a, dcache = transformer.decode_step(cfg, card, dcache,
+                                            {"token": tok.to(cuda), "pos": t})
+        b, hcache = transformer.decode_step(cfg, cpu, hcache,
+                                            {"token": tok, "pos": t})
+        _close(a, b, 1e-4, 3e-3)
+
+
+def test_whisper_decode_cross_attention_cuda_matches_ref(cuda):
+    """whisper (reduced, f32) on the card: the prefill through "cuda"
+    against "ref", then decode steps whose cross-attention (non-causal,
+    one query against the 13 frames) takes the kernel, one launch a
+    layer, against the same steps through "ref"."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(get_config("whisper-base").reduced(),
+                              dtype="float32")
+    params = transformer.init_params(cfg, 0)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    batch = {"frames": torch.randn((2, 13, cfg.frontend_dim), generator=g,
+                                   device=cuda),
+             "tokens": torch.randint(0, cfg.vocab_size, (2, 9), generator=g,
+                                     device=cuda)}
+    kops.reset_launch_counts()
+    got, _, pre = transformer.forward(cfg, params, batch, return_cache=True)
+    assert kops.launch_counts()["flash_attention"] == (
+        cfg.n_encoder_layers + 2 * cfg.n_layers)
+    want, _ = transformer.forward(cfg, params, batch, attn_backend="ref")
+    _close(got, want, 1e-4, 3e-3)
+    caches = {}
+    for backend in ("cuda", "ref"):
+        c = transformer.init_cache(cfg, 2, 12, 13, device=cuda)
+        for n in ("k", "v"):
+            c[n][:, :, :9] = pre[n]
+        for n in ("cross_k", "cross_v"):
+            c[n].copy_(pre[n])
+        caches[backend] = c
+    tok = got[:, -1].argmax(-1, keepdim=True)
+    for t in range(3):
+        kops.reset_launch_counts()
+        a, _ = transformer.decode_step(cfg, params, caches["cuda"],
+                                       {"token": tok, "pos": 9 + t},
+                                       attn_backend="cuda")
+        assert kops.launch_counts()["flash_attention"] == cfg.n_layers
+        b, _ = transformer.decode_step(cfg, params, caches["ref"],
+                                       {"token": tok, "pos": 9 + t},
+                                       attn_backend="ref")
+        assert kops.launch_counts()["flash_attention"] == cfg.n_layers
+        _close(a, b, 1e-4, 3e-3)
+        tok = b[:, -1].argmax(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b"])
+def test_ssm_serving_decodes_on_the_card(cuda, arch):
+    from repro_torch.launch import serve
+    kops.reset_launch_counts()
+    reqs, stats = serve.run(arch, n_requests=3, max_new=4, batch_slots=2)
+    assert all(r.done and len(r.out_tokens) == 4 for r in reqs)
+    assert kops.launch_counts()["flash_attention"] == 0

@@ -45,11 +45,18 @@ def test_port_and_chip_smoke_import_without_jax_or_repro():
     assert int(proc.stdout.strip().splitlines()[-1]) >= 20
 
 
-NEW_NAMES = {   # the moe family, MLA and item 18's twins
+NEW_NAMES = {   # the moe, ssm, hybrid and audio families and item 18's twins
     "repro_torch.models.moe": ("moe_block", "MoE", "init_moe_params"),
+    "repro_torch.models.ssm": ("ssd_chunked", "mamba2_block", "mamba2_decode",
+                               "init_ssm_params", "init_ssm_cache", "SSM",
+                               "SSMCache"),
+    "repro_torch.models.layers": ("layer_norm", "gelu_mlp",
+                                  "sinusoidal_positions"),
     "repro_torch.models.attention": ("mla_prefill", "mla_decode",
                                      "mla_new_cache_entries"),
-    "repro_torch.models.transformer": ("MLA", "MoEBlock", "SuperBlock"),
+    "repro_torch.models.transformer": ("MLA", "MoEBlock", "SuperBlock",
+                                       "MambaBlock", "LoRA", "EncBlock",
+                                       "DecBlock", "encode_audio"),
     "repro_torch.core.sampler": ("sample_ego_networks", "frontier_sizes"),
     "repro_torch.launch.infer_gnn": ("run",),
 }

@@ -7,6 +7,8 @@ forcing, and the clamped cache write.  Params are the JAX package's,
 carried over as numpy by ``params_from_numpy``; inputs come from numpy
 seeds; configs are ``reduced()``."""
 import dataclasses
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -22,6 +24,9 @@ import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
+
+sys.path.insert(0, str(pathlib.Path(__file__).parent / "helpers"))
+import bf16_oracle  # noqa: E402
 
 # f32: the whole-model tolerance of infer_all (tests/test_kernels.py:235).
 # bf16: both packages round every projection, norm and residual to bf16,
@@ -227,9 +232,7 @@ def test_init_params_draws_the_moe_shapes_from_a_seed(arch):
                                                   b.parameters()))
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("mamba2-1.3b", 12), ("zamba2-7b", 13), ("whisper-base", 14),
-    ("llava-next-34b", 15)])
+@pytest.mark.parametrize("arch,item", [("llava-next-34b", 15)])
 def test_other_families_name_the_roadmap_item(arch, item):
     cfg = tconfigs.get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}\\)"):
@@ -302,11 +305,9 @@ def test_prefill_forward_and_cache_match_jax(arch, dtype):
 def test_bf16_prefill_logits_and_cache_match_jax(arch):
     """The bf16 prefill's logits, aux loss and every cache entry for the
     configs the test above runs in f32 only.  Their final-norm hidden
-    states are not compared in bf16: a few elements that sit on a bf16
-    cancellation in the residual stream differ by one ulp of the
-    residual's magnitude (2-4: 0.0156), past atol 2e-2 (granite-8b: 1 of
-    20,480, 0.0239; deepseek-v2: 7, at most 0.0317).  ROADMAP.md Queue 3
-    records them; the logits, which that premise of TOL covers, hold."""
+    states are held to the f32 oracle instead
+    (``test_bf16_hidden_states_no_farther_from_the_f32_oracle_than_jax``).
+    """
     jc, tc, jp, tp = _model(arch, "bfloat16", seed=2)
     tokens = np.random.default_rng(3).integers(0, tc.vocab_size, (2, 40))
     want, jaux, jcache = jtf.forward(jc, jp, {"tokens": jnp.asarray(tokens)},
@@ -322,6 +323,22 @@ def test_bf16_prefill_logits_and_cache_match_jax(arch):
         assert cache[name].shape == jcache[name].shape
         np.testing.assert_allclose(_np(cache[name]), _np(jcache[name]),
                                    **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("arch,n_layers", bf16_oracle.ROWS)
+def test_bf16_hidden_states_no_farther_from_the_f32_oracle_than_jax(
+        arch, n_layers):
+    """The bf16 final-norm hidden states of every family are held to
+    ``repro``'s prefill in f32 on the same bf16 params and inputs
+    (ROADMAP.md Queue 3): the port's max and 99.9th-percentile error
+    from it are no larger than ``repro``'s bf16 run's.  The two bf16 runs
+    round at different points (XLA-CPU folds adds into norms and lowers
+    ``silu`` op by op; the port keeps the library's activations and the
+    stack's last residual add in f32), so they are compared through the
+    exact result, not with each other.  granite-8b and deepseek-v2 are
+    the rows whose hidden states parted from ``repro``'s past 2e-2."""
+    (tm, tq), (jm, jq) = bf16_oracle.errors(arch, n_layers, seed=2)
+    assert tm <= jm and tq <= jq, (tm, tq, jm, jq)
 
 
 def _ragged_decode(arch, dtype):
