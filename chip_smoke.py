@@ -192,6 +192,28 @@ the run with a non-zero exit code:
    memory, the prefill's warm and first ms, "ref"'s ms and a bound on
    its device time, and the decode tokens/s.
 
+9. train: smollm-360m at full width, random weights from a seed.  (a)
+   One f32 step's two halves from the same params and batch (4 x 2048):
+   ``train.step.loss_and_grads`` through attention backend "cuda" (the
+   flash kernel in the forward and in each checkpointed layer's
+   recompute: 2 launches a layer, the plain version's gradient) and
+   "ref", the loss (atol 1e-4), every gradient element (atol 1e-5, rtol
+   1e-3) and the grad norm held against "ref", then ``adamw_update``.
+   (c) Those params and AdamW moments through ``save_checkpoint`` and
+   ``restore_checkpoint`` (the JAX package's npz layout), bitwise.  (b)
+   ``launch.train.run`` in bf16 for 20 steps of 8 x 2048: s a step,
+   tokens/s, peak memory, 2 x 32 x 20 flash launches on the tensor
+   cores, finite losses.  (d) One bf16 ``train_step`` of llava-next-34b
+   at full width cut to 2 layers (2,880 patches + 1,216 text tokens, the
+   CE over the ragged text span), 4 tensor-core launches.
+10. vlm: llava-next-34b at full width (d_model 7168, 56 over 8 heads,
+   hd 128, d_ff 20480, vocab 64000) cut to 8 layers: ``prefill_step``
+   over 2,880 patch embeddings of 1,024 and 1,216 tokens in f32 and
+   bf16, "cuda" against "ref" (f32 atol 1e-4, rtol 3e-3 on the logits
+   and the cache), 8 flash launches a prefill (on the tensor cores in
+   bf16), the weights and peak memory, the prefill's warm and first ms
+   and its device-time bound.
+
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Needs the repo's
 ``src/`` beside this file and a CUDA card; exits non-zero without them.
@@ -226,6 +248,12 @@ SSM_MODELS = (("mamba2-1.3b", 4, 2048), ("zamba2-7b", 2, 2048))  # B, S
 WHISPER_ARCH = "whisper-base"    # 30 s of audio: 1,500 encoder frames
 WHISPER_B, WHISPER_TOKENS = 4, 448   # whisper's longest decoder sequence
 WHISPER_DECODE_STEPS = 16
+TRAIN_ARCH, TRAIN_S = "smollm-360m", 2048     # [train]: full width
+TRAIN_F32_B, TRAIN_B, TRAIN_STEPS = 4, 8, 20   # f32 step; bf16 run
+TRAIN_LOSS_ATOL = 1e-4           # f32 loss, "cuda" against "ref"
+TRAIN_GRAD_TOL = (1e-5, 1e-3)    # atol, rtol: tests/test_torch_train.py's
+VLM_ARCH, VLM_TEXT = "llava-next-34b", 1216    # 2,880 patches + 1,216 text
+VLM_TRAIN_LAYERS, VLM_LAYERS = 2, 8            # depth cuts: train, prefill
 MOE_MODELS = (("deepseek-v2-236b", 3, ("float32", "bfloat16")),
               ("llama4-maverick-400b-a17b", 2, ("bfloat16",)))
 WIDE_FANOUT = 64                 # benchmarks/bench_accuracy.py's fanout
@@ -2146,6 +2174,22 @@ def flash_phase(torch, kops):
         f"K={K2} causal): err {err2:.3e}; {ms2:.4f} ms, SDPA {lib2:.4f} ms, "
         f"tensor-core bound {tc2:.4f} ms ({ms2 / lib2:.2f}x SDPA)")
     del q, k, v, qt, kt, vt
+    # llava-next-34b's heads (a GQA group of 7) at its prefill's length,
+    # as the [vlm] prefill and the [train] vlm step run them
+    vc = get_config(VLM_ARCH)
+    H3, K3, hd3 = vc.n_heads, vc.n_kv_heads, vc.resolved_head_dim
+    S3 = vc.n_frontend_tokens + VLM_TEXT
+    tc0 = kflash.flash_attention.launches_tc
+    hold(f"{VLM_ARCH} heads", gqa, plain, qkv(S3, B=1, H=H3, K=K3, hd=hd3),
+         dict(causal=True))
+    check(kflash.flash_attention.launches_tc == tc0 + 1,
+          f"flash_attention {VLM_ARCH} heads: the bf16 call was not on the "
+          "tensor-core kernel")
+    log(f"[flash] {VLM_ARCH} heads (B=1 S={S3} H={H3} K={K3} hd {hd3} "
+        f"causal): f32 err {errs[f'{VLM_ARCH} heads f32']:.3e} (atol "
+        f"{ATOL['float32']} rtol 3e-2), bf16 err "
+        f"{errs[f'{VLM_ARCH} heads bf16']:.3e} (atol {FLASH_BF16_TOL[0]} "
+        f"rtol {FLASH_BF16_TOL[1]}, on the tensor cores)")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     flash_mla(torch, kflash, row)
@@ -2987,6 +3031,326 @@ def ssm_phase(torch, kops, launches, card):
     return n_tc
 
 
+# ----------------------------------------------------------------------
+# phase 9: training (smollm-360m; llava-next's vlm step)
+# ----------------------------------------------------------------------
+
+def _loss_grads(torch, kops, step, cfg, params, batch, backend):
+    """``step.loss_and_grads`` on ``backend``; returns (ce, grads, flash
+    launches, tensor-core launches, s)."""
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    (_, (ce, _)), grads = step.loss_and_grads(cfg, params, batch,
+                                              attn_backend=backend)
+    torch.cuda.synchronize()
+    return (ce, grads, kops.launch_counts()["flash_attention"],
+            kops.flash_attention.launches_tc, time.perf_counter() - t0)
+
+
+def _grad_err(torch, got, want, atol, rtol):
+    """(the largest |got - want| over every gradient, the elements
+    outside atol + rtol |want|)."""
+    err, bad = 0.0, 0
+    for n, g in got.items():
+        d = (g.float() - want[n].float()).abs()
+        err = max(err, float(d.max()))
+        bad += int((d > atol + rtol * want[n].float().abs()).sum())
+    return err, bad
+
+
+def _train_split(torch, cfg, params, step, optimizer):
+    """One bf16 step of the launcher's shape on the synthetic stream,
+    timed in parts: (loss_and_grads s, the s of its attention backward
+    calls, ``FlashAttentionFn.backward`` each synchronized, adamw_update
+    s)."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.train.data import DataConfig, synthetic_batches
+    host = next(synthetic_batches(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_S, batch_size=TRAIN_B,
+        seed=5)))
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in host.items()}
+    spent = []
+    backward = kflash.FlashAttentionFn.backward
+
+    def timed(ctx, g):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = backward(ctx, g)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    kflash.FlashAttentionFn.backward = staticmethod(timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, grads = step.loss_and_grads(cfg, params, batch)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        kflash.FlashAttentionFn.backward = backward
+    opt_cfg = optimizer.AdamWConfig()
+    opt = optimizer.init_opt_state(params, opt_cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    optimizer.adamw_update(params, grads, opt, opt_cfg,
+                           decay=step.decay_mask(cfg, params))
+    torch.cuda.synchronize()
+    return total, sum(spent), time.perf_counter() - t0
+
+
+def train_phase(torch, kops, launches, card):
+    """smollm-360m at full width: (a) one f32 step's two halves,
+    ``loss_and_grads`` through "cuda" and "ref" from the same params and
+    batch (loss, every gradient and grad_norm held against "ref") and
+    ``adamw_update``; (c) that step's params and AdamW state through
+    ``save_checkpoint`` / ``restore_checkpoint``, bitwise; (b)
+    ``launch.train.run`` in bf16 at full width, its step times, memory,
+    launches and losses; (d) one bf16 vlm ``train_step`` of llava-next-34b
+    at full width cut to VLM_TRAIN_LAYERS layers, its CE over a ragged
+    text span.  Returns the tensor-core flash launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer
+    from repro_torch.train import checkpoint, optimizer, step
+    base = get_config(TRAIN_ARCH)
+    L = base.n_layers
+    cfg = dataclasses.replace(base, dtype="float32")
+    rng = np.random.default_rng(1)
+    batch = {n: torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+        TRAIN_F32_B, TRAIN_S)), device=DEVICE) for n in ("tokens", "labels")}
+    params = transformer.init_params(cfg, 0, device=DEVICE)
+    params.requires_grad_(True)
+    got = _loss_grads(torch, kops, step, cfg, params, batch, "cuda")
+    ref = _loss_grads(torch, kops, step, cfg, params, batch, "ref")
+    check(got[2] == 2 * L and got[3] == 0 and ref[2] == 0,
+          f"train f32: flash launches {got[2]} ({got[3]} tensor-core), ref "
+          f"{ref[2]}; expected {2 * L} (forward and recompute), 0")
+    launches["flash_attention"] += got[2]
+    loss_err = abs(float(got[0]) - float(ref[0]))
+    check(loss_err <= TRAIN_LOSS_ATOL and bool(torch.isfinite(got[0])),
+          f"train f32: loss cuda {float(got[0])} ref {float(ref[0])}")
+    g_err, bad = _grad_err(torch, got[1], ref[1], *TRAIN_GRAD_TOL)
+    check(bad == 0, f"train f32: {bad} gradient elements outside atol "
+          f"{TRAIN_GRAD_TOL[0]} rtol {TRAIN_GRAD_TOL[1]} (max err "
+          f"{g_err:.3e})")
+    wq = float(got[1]["blocks.0.attn.wq"].abs().max())
+    check(wq > 0, "train f32: the attention's gradients are zero")
+    opt_cfg = optimizer.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    opt = optimizer.init_opt_state(params, opt_cfg)
+    _, opt, metrics = optimizer.adamw_update(
+        params, got[1], opt, opt_cfg, decay=step.decay_mask(cfg, params))
+    gnorm_ref = float(optimizer.global_norm(ref[1].values()))
+    gnorm = float(metrics["grad_norm"])
+    check(abs(gnorm - gnorm_ref) <= TRAIN_GRAD_TOL[1] * gnorm_ref,
+          f"train f32: grad_norm {gnorm} ref {gnorm_ref}")
+    log(f"[train] {TRAIN_ARCH} {L} layers d_model {cfg.d_model} f32 on "
+        f"{card}: one step at {TRAIN_F32_B}x{TRAIN_S}, loss_and_grads "
+        f"\"cuda\" {got[4]:.2f} s (the process's first backward, its "
+        f"warm-up included; {got[2]} flash launches: forward and "
+        f"checkpointed recompute), \"ref\" {ref[4]:.2f} s; loss "
+        f"{float(got[0]):.6f} vs {float(ref[0]):.6f} (err {loss_err:.3e}, "
+        f"atol {TRAIN_LOSS_ATOL}); grad_norm {gnorm:.6f} vs "
+        f"{gnorm_ref:.6f} (rtol {TRAIN_GRAD_TOL[1]}); largest gradient "
+        f"difference {g_err:.3e} (atol {TRAIN_GRAD_TOL[0]}, rtol "
+        f"{TRAIN_GRAD_TOL[1]}, every element); attention wq grad max "
+        f"{wq:.3e}")
+    del got, ref
+    # (c) the checkpoint round trip
+    path = ROOT / "build" / "train_smoke.npz"
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(path, params, opt, step=1, cfg=cfg,
+                               metadata={"arch": TRAIN_ARCH})
+    save_s = time.perf_counter() - t0
+    fresh = transformer.init_params(cfg, 1, device=DEVICE)
+    fresh_opt = optimizer.init_opt_state(fresh, opt_cfg)
+    t0 = time.perf_counter()
+    _, fresh_opt, ck_step = checkpoint.restore_checkpoint(
+        path, fresh, fresh_opt, cfg=cfg)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    same = (ck_step == 1 and int(fresh_opt.step) == 1 and all(
+        torch.equal(a, b) for a, b in zip(fresh.parameters(),
+                                          params.parameters()))
+        and all(torch.equal(fresh_opt.m[n], opt.m[n])
+                and torch.equal(fresh_opt.v[n], opt.v[n]) for n in opt.m))
+    check(same, "train: the checkpoint did not restore bitwise")
+    log(f"[train] checkpoint of the f32 step (params, AdamW m and v: "
+        f"{path.stat().st_size / 2 ** 30:.2f} GiB npz) saved in "
+        f"{save_s:.1f} s, restored bitwise in {load_s:.1f} s")
+    path.unlink()
+    del params, opt, fresh, fresh_opt
+    torch.cuda.empty_cache()
+
+    # (b) the launcher in bf16 at full width
+    times = []
+    timed_step = launch_train.train_step
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = timed_step(*a, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    launch_train.train_step = timed
+    try:
+        t0 = time.perf_counter()
+        params, losses = launch_train.run(
+            TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+            reduced=False, lr=3e-4, log_every=5, seed=0, device=DEVICE)
+        run_s = time.perf_counter() - t0
+    finally:
+        launch_train.train_step = timed_step
+    n_flash = kops.launch_counts()["flash_attention"]
+    n_tc = kops.flash_attention.launches_tc
+    want = 2 * L * TRAIN_STEPS
+    check(n_flash == want and n_tc == want,
+          f"train bf16: {n_flash} flash launches ({n_tc} tensor-core), "
+          f"expected {want}")
+    launches["flash_attention"] += n_flash
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train bf16: losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    s_step = statistics.median(times[1:])
+    log(f"[train] launch.train.run {TRAIN_ARCH} bf16 full width on {card}: "
+        f"{TRAIN_STEPS} steps of {TRAIN_B}x{TRAIN_S} in {run_s:.1f} s, "
+        f"{s_step:.3f} s a step (median of steps 2-{TRAIN_STEPS}; first "
+        f"{times[0]:.2f} s), {TRAIN_B * TRAIN_S / s_step:.0f} tokens/s, "
+        f"peak {peak:.2f} GiB; {n_flash} flash launches ({n_tc} on the "
+        f"tensor cores; expected 2 x {L} layers x {TRAIN_STEPS} steps); "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    # one forward launch at the launcher's shape, timed alone
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    hd = base.resolved_head_dim
+    q, k, v = (torch.randn((TRAIN_B, TRAIN_S, n, hd), generator=gen,
+                           device=DEVICE, dtype=torch.bfloat16)
+               for n in (base.n_heads, base.n_kv_heads, base.n_kv_heads))
+    flash_ms = time_ms(torch, lambda: flash_attention_gqa(q, k, v,
+                                                          causal=True))
+    del q, k, v
+    log(f"[train] one bf16 flash launch at {TRAIN_B}x{TRAIN_S} "
+        f"({base.n_heads} over {base.n_kv_heads} heads, hd {hd}, causal): "
+        f"{flash_ms:.4f} ms; {2 * L} a step: {2 * L * flash_ms:.1f} ms")
+    split = _train_split(torch, base, params, step, optimizer)
+    log(f"[train] one more bf16 step of {TRAIN_B}x{TRAIN_S}, split (each "
+        f"part synchronized): loss_and_grads {split[0]:.3f} s, of which "
+        f"the attention backward (the plain version recomputed in chunks "
+        f"of 512 query rows, {L} layers) {split[1]:.3f} s "
+        f"({split[1] / split[0]:.0%}); adamw_update {split[2]:.3f} s")
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) one vlm step of llava-next-34b at full width, 2 layers
+    vcfg = dataclasses.replace(get_config(VLM_ARCH),
+                               n_layers=VLM_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    vparams = transformer.init_params(vcfg, 0, device=DEVICE)
+    vparams.requires_grad_(True)
+    vbatch = _vlm_batch(torch, vcfg, np.random.default_rng(2))
+    vbatch["labels"] = torch.as_tensor(np.random.default_rng(3).integers(
+        0, vcfg.vocab_size, (1, VLM_TEXT)), device=DEVICE)
+    vopt_cfg = optimizer.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=2)
+    vopt = optimizer.init_opt_state(vparams, vopt_cfg)
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, vopt, vm = step.train_step(vcfg, vopt_cfg, vparams, vopt, vbatch)
+    torch.cuda.synchronize()
+    v_s = time.perf_counter() - t0
+    n_v = kops.launch_counts()["flash_attention"]
+    n_vtc = kops.flash_attention.launches_tc
+    check(n_v == n_vtc == 2 * VLM_TRAIN_LAYERS,
+          f"vlm train: flash launches {n_v} ({n_vtc} tensor-core), "
+          f"expected {2 * VLM_TRAIN_LAYERS}")
+    launches["flash_attention"] += n_v
+    check(all(bool(torch.isfinite(vm[k])) for k in ("loss", "grad_norm"))
+          and float(vm["grad_norm"]) > 0,
+          f"vlm train: loss {float(vm['loss'])}, grad_norm "
+          f"{float(vm['grad_norm'])}")
+    n_params = sum(p.numel() for p in vparams.parameters())
+    log(f"[train] {VLM_ARCH} bf16 cut to {VLM_TRAIN_LAYERS} layers (d_model "
+        f"{vcfg.d_model}, {vcfg.n_heads} over {vcfg.n_kv_heads} heads, hd "
+        f"{vcfg.resolved_head_dim}, {n_params / 1e9:.2f} B params, f32 "
+        f"AdamW state) on {card}: one train_step of {vcfg.n_frontend_tokens}"
+        f" patches + {VLM_TEXT} text tokens (the CE over the text span, "
+        f"padded to chunks of 512) in {v_s:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; loss "
+        f"{float(vm['loss']):.4f}, grad_norm {float(vm['grad_norm']):.4f}; "
+        f"{n_v} flash launches, all on the tensor cores")
+    del vparams, vopt
+    torch.cuda.empty_cache()
+    return n_tc + n_vtc
+
+
+# ----------------------------------------------------------------------
+# phase 10: the vlm family (llava-next-34b)
+# ----------------------------------------------------------------------
+
+def _vlm_batch(torch, cfg, rng):
+    """The stub vision encoder's patch embeddings (1, 2,880, 1,024) in the
+    model's dtype and VLM_TEXT text tokens, from ``rng``."""
+    from repro_torch.models import transformer
+    return {"patches": torch.as_tensor(rng.standard_normal(
+                (1, cfg.n_frontend_tokens, cfg.frontend_dim)),
+                dtype=transformer.torch_dtype(cfg), device=DEVICE),
+            "tokens": torch.as_tensor(rng.integers(
+                0, cfg.vocab_size, (1, VLM_TEXT)), device=DEVICE)}
+
+
+def vlm_phase(torch, kops, launches, card):
+    """llava-next-34b at full width cut to VLM_LAYERS layers: per dtype
+    ``prefill_step`` over 2,880 patches and VLM_TEXT tokens through "cuda"
+    against "ref" (f32 atol 1e-4, rtol 3e-3 on the logits and the cache;
+    bf16 max error), one flash launch a layer (on the tensor cores in
+    bf16).  Returns the tensor-core flash launches."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    base = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    n_tc = 0
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = transformer.init_params(cfg, 0, device=DEVICE)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        batch = _vlm_batch(torch, cfg, np.random.default_rng(4))
+        rule = "close" if dtype == "float32" else "print"
+        got, errs, first, warm, ref_ms, dev_ms, tc = _prefill_cell(
+            torch, kops, launches, cfg, params, batch, VLM_LAYERS, rule)
+        n_tc += tc
+        S = cfg.n_frontend_tokens + VLM_TEXT
+        check(tuple(got[1]["k"].shape) == (VLM_LAYERS, 1, S, cfg.n_kv_heads,
+                                           cfg.resolved_head_dim),
+              f"vlm {dtype}: cache {tuple(got[1]['k'].shape)}")
+        del got
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[vlm] {VLM_ARCH} cut to {VLM_LAYERS} layers (d_model "
+            f"{cfg.d_model}, {cfg.n_heads} over {cfg.n_kv_heads} heads, hd "
+            f"{cfg.resolved_head_dim}) {dtype} on {card}: {_gib(params):.2f}"
+            f" GiB of weights (drawn in {init_s:.1f} s), peak {peak:.2f} "
+            f"GiB; prefill of {cfg.n_frontend_tokens} patches + {VLM_TEXT} "
+            f"tokens ({S} positions) {warm:.1f} ms warm ({first:.1f} ms "
+            f"first; \"ref\" {ref_ms:.1f} ms; device at most {dev_ms:.1f} "
+            f"ms, queued ahead), {VLM_LAYERS} flash launches, "
+            f"{VLM_LAYERS if dtype == 'bfloat16' else 0} on the tensor "
+            "cores (\"ref\": 0); cuda vs ref max err: "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs)
+            + (" (atol 1e-4, rtol 3e-3)" if rule == "close" else ""))
+        del params
+        torch.cuda.empty_cache()
+    return n_tc
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3100,6 +3464,14 @@ def main() -> int:
     t0 = time.perf_counter()
     n_tc += ssm_phase(torch, kops, launches, smi)
     log(f"[ssm] phase took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n_tc += train_phase(torch, kops, launches, smi)
+    log(f"[train] phase took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n_tc += vlm_phase(torch, kops, launches, smi)
+    log(f"[vlm] phase took {time.perf_counter() - t0:.1f} s")
     for name, v in launches.items():
         check(v > 0, f"{name}: never launched on the main path")
         rows[name]["launches"] = v

@@ -34,11 +34,21 @@ and they mask ragged Sq and Skv themselves.  The tensor-core kernel reads
 through TMA, which needs every base address 16-byte aligned and every
 outer stride a multiple of 8 elements: the wrapper raises on a bf16 view
 that breaks this (``tma_strides``) and never re-routes it.  On CPU
-tensors the wrappers return the plain versions,
-``ref.flash_attention_ref`` and ``ref.gqa_attention_ref``.
+tensors the wrappers return the plain version,
+``ref.gqa_attention_ref`` (the Pallas signature on a one-head view).
 ``flash_attention.launches`` counts kernel launches through either
 signature and either kernel; ``flash_attention.launches_tc`` counts the
 tensor-core kernel's alone.
+
+Training: the TPU kernel has no backward (no ``custom_vjp``); the JAX
+trainer differentiates ``flash_attention_jnp``, whose kv step sits under
+``jax.checkpoint``, so its backward recomputes the scores block by
+block.  Here, when grad mode is on and q, k or v requires grad, both
+signatures go through ``FlashAttentionFn``: its forward is the kernel
+(the plain version on the CPU), and its backward recomputes the plain
+version in chunks of ``BACKWARD_ROWS`` query rows and differentiates
+that.  ``_launch`` raises on a tensor that requires grad with grad mode
+on, so no kernel result reaches autograd without that backward.
 """
 from __future__ import annotations
 
@@ -54,6 +64,7 @@ SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 SOURCE_TC = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:65"
 MAX_HEAD_DIM = 256
+BACKWARD_ROWS = 512                # query rows a chunk of the backward
 _GRID_Y_MAX = 65535                # row tiles a launch, gridDim.y's most
 
 
@@ -153,6 +164,10 @@ def _launch(q, k, v, *, q_offset: int, causal: bool,
     dtype."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if _needs_grad(q, k, v):
+        raise RuntimeError("flash_attention: the kernel's result has no "
+                           "backward of its own; an input that requires "
+                           "grad goes through FlashAttentionFn")
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}, "
@@ -202,6 +217,71 @@ def _launch(q, k, v, *, q_offset: int, causal: bool,
     return out
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _forward(q, k, v, q_offset: int, causal: bool, window: Optional[int],
+             scale: float):
+    """(B, S, heads, hd) views: the kernel for CUDA tensors, the plain
+    version for CPU ones."""
+    if q.device.type == "cpu":
+        return ref.gqa_attention_ref(q, k, v, q_offset=q_offset,
+                                     causal=causal, window=window,
+                                     scale=scale)
+    return _launch(q, k, v, q_offset=q_offset, causal=causal, window=window,
+                   scale=scale)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with the kernel's forward and the plain version's
+    gradient.  q (B, Sq, H, hd), k (B, Skv, K, hd), v (B, Skv, K, vd).
+
+    The forward launches the kernel, as prefill does, and saves q, k and
+    v.  The backward recomputes ``ref.gqa_attention_ref`` in f32 under
+    autograd, ``BACKWARD_ROWS`` query rows at a time (with
+    ``q_offset`` >= 0, a causal chunk reads only the keys up to its last
+    row: the rest are masked to an exact zero weight), and returns its
+    gradients, k's and v's summed over the chunks in f32 and cast once.
+    That is what the JAX trainer does with ``flash_attention_jnp``: it
+    differentiates the plain function and recomputes its blocks in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_offset, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (q_offset, causal, window, scale)
+        return _forward(q, k, v, q_offset, causal, window, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        q_offset, causal, window, scale = ctx.opts
+        Sq, Skv = q.shape[1], k.shape[1]
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for s in range(0, Sq, BACKWARD_ROWS):
+            e = min(s + BACKWARD_ROWS, Sq)
+            n = Skv
+            if causal and q_offset >= 0:
+                n = min(Skv, q_offset + e)
+            with torch.enable_grad():
+                qc = q[:, s:e].detach().float().requires_grad_()
+                kc = k[:, :n].detach().float().requires_grad_()
+                vc = v[:, :n].detach().float().requires_grad_()
+                out = ref.gqa_attention_ref(qc, kc, vc, q_offset=q_offset + s,
+                                            causal=causal, window=window,
+                                            scale=scale)
+                gq, gk, gv = torch.autograd.grad(out, (qc, kc, vc),
+                                                 g[:, s:e].float())
+            dq[:, s:e] = gq
+            dk[:, :n] += gk
+            dv[:, :n] += gv
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
                     block_k: int = 128):
     """The Pallas signature: q (BH, Sq, hd); k, v (BH, Skv, hd), f32 or
@@ -210,12 +290,8 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
     result, and the CUDA kernel's tiles are its own."""
     del block_q, block_k
     _check(q, k, v, 3)
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal)
-    out = _launch(q[:, :, None], k[:, :, None], v[:, :, None], q_offset=0,
-                  causal=causal, window=None,
-                  scale=1.0 / math.sqrt(q.shape[-1]))
-    return out[:, :, 0]
+    return flash_attention_gqa(q[:, :, None], k[:, :, None], v[:, :, None],
+                               causal=causal)[:, :, 0]
 
 
 flash_attention.launches = 0
@@ -229,12 +305,10 @@ def flash_attention_gqa(q, k, v, *, q_offset: int = 0, causal: bool = True,
     (B, Skv, K, hd) and v (B, Skv, K, vd) with H % K == 0; query positions
     start at ``q_offset``; ``window`` keeps keys with q_pos - kv_pos <
     window; the scale defaults to 1/sqrt(hd).  Returns (B, Sq, H, vd) in
-    q's dtype."""
+    q's dtype, through ``FlashAttentionFn`` when it needs a gradient."""
     _check(q, k, v, 4)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
-        return ref.gqa_attention_ref(q, k, v, q_offset=q_offset,
-                                     causal=causal, window=window,
-                                     scale=scale)
-    return _launch(q, k, v, q_offset=q_offset, causal=causal, window=window,
-                   scale=scale)
+    if _needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, q_offset, causal, window,
+                                      scale)
+    return _forward(q, k, v, q_offset, causal, window, scale)

@@ -1,5 +1,5 @@
 """The decoder families and the encoder-decoder — the twin of
-``repro.models.transformer`` for every family but vlm:
+``repro.models.transformer`` for every family:
 
 - dense (smollm-360m, granite-8b, qwen2.5-14b, gemma3-4b): {"k", "v"}:
   (L, B, S, K, hd);
@@ -24,7 +24,10 @@
   self-attend (causal) and cross-attend to the encoder's output
   (non-causal, Sq != Skv), biased attention, GELU MLPs; its cache {"k",
   "v"}: (L, B, S, K, hd), {"cross_k", "cross_v"}: (L, B, enc_len, K,
-  hd).
+  hd);
+- vlm (llava-next-34b): the dense stack over the stub projector's patch
+  embeddings (``patches @ projector``) followed by the text tokens; its
+  cache is the dense one, over image and text positions.
 
 Parameters are ``nn.Module`` containers whose attributes carry the JAX
 tree's names (``params.blocks[l].attn.wq``), with weights stored as
@@ -37,20 +40,24 @@ and the decode step add ``attn_backend`` (see
 
   init_params(cfg, seed, device=)            weights from a torch.Generator
   params_from_numpy(cfg, tree, device=)      the JAX params, as numpy arrays
-  forward(cfg, params, batch, mode="prefill", return_cache, return_hidden)
+  params_to_numpy(cfg, params)               the inverse, JAX's stacked tree
+  forward(cfg, params, batch, mode="prefill", return_cache, return_hidden,
+          remat)                             train (checkpointed) / prefill
   decode_step(cfg, params, cache, batch)     one token per slot, in place
   init_cache(cfg, batch, seq, enc_len=None, device=)
 
-The vlm family raises ``NotImplementedError`` naming the ROADMAP.md item
-that ports it.  Training (``mode="train"``) is item 16.
+Parameters are made with ``requires_grad=False``: inference builds no
+graph.  The trainer (``train.step``) turns them on with
+``requires_grad_(True)``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ops import resolve_device
@@ -66,20 +73,7 @@ from repro_torch.models.moe import MoE, init_moe_params, moe_block
 from repro_torch.models.ssm import SSM, SSMCache
 
 _BIG_WINDOW = 1 << 30
-# ROADMAP.md Queue 1 items that port the other families
-_PORTED_BY = {"vlm": 15}
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is of a family ported so far: dense (without
-    MLA), moe (either layout), ssm, hybrid or audio."""
-    if cfg.family in ("moe", "ssm", "hybrid", "audio") or (
-            cfg.family == "dense" and cfg.mla is None):
-        return
-    item = _PORTED_BY.get(cfg.family)
-    raise NotImplementedError(
-        f"{cfg.arch_id}: the {cfg.family!r} family is not ported to "
-        f"repro_torch yet (ROADMAP.md Queue 1 item {item})")
+MODES = ("train", "prefill")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -240,16 +234,17 @@ def _module_list(blocks) -> nn.ModuleList:
 
 class LM(nn.Module):
     """embed (V, D), final_norm (D,), lm_head (D, V) unless tied,
-    projector (frontend_dim, D) for audio, and the family's parts: each
-    layer stack a ``ModuleList`` (a list of lists a ``ModuleList`` of
-    them), a single block as it is.  dense ``blocks`` (``DenseBlock``);
+    projector (frontend_dim, D) for audio and vlm, and the family's
+    parts: each layer stack a ``ModuleList`` (a list of lists a
+    ``ModuleList`` of them), a single block as it is.  dense ``blocks`` (``DenseBlock``);
     deepseek-v2 ``first_blocks`` (``DenseBlock``) and ``blocks``
     (``MoEBlock``); llama4 ``super_blocks`` (``SuperBlock``); ssm
     ``blocks`` (``MambaBlock``); hybrid ``mamba_blocks`` (n_super lists
     of ``MambaBlock``), ``tail_blocks``, ``shared_attn`` (one
     ``DenseBlock``) and ``lora`` (``LoRA``, one a super-block); audio
     ``enc_blocks`` (``EncBlock``), ``enc_final_ln``, ``dec_blocks``
-    (``DecBlock``) and ``dec_final_ln`` (``LN``)."""
+    (``DecBlock``) and ``dec_final_ln`` (``LN``); vlm's ``blocks`` are
+    dense."""
 
     def __init__(self, embed, final_norm, lm_head=None, projector=None,
                  **parts):
@@ -421,12 +416,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device="cuda") -> LM:
     """Random weights in ``cfg.dtype`` from a ``torch.Generator`` on
     ``device`` seeded with ``seed``: normal(0.02) projections, embeddings,
-    experts (the router in f32), LoRA a's and the audio projector; zero
+    experts (the router in f32), LoRA a's and the frontend's projector; zero
     norm scales, biases and LoRA b's; LayerNorm scales one; the SSM's
     dt_bias and A_log zero and D_skip one (f32): as the JAX package draws
     them (its numbers differ: ``jax.random`` is another generator).
     ``"cuda"`` raises when no card is visible."""
-    require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = torch_dtype(cfg)
@@ -554,6 +548,13 @@ def _part_schemas(cfg: ModelConfig):
                              cfg.n_layers // 2, _super_block_from)}
 
 
+def _top_keys(cfg: ModelConfig) -> List[str]:
+    """The params tree's leaves outside every block."""
+    return (["embed", "final_norm"]
+            + ([] if cfg.tie_embeddings else ["lm_head"])
+            + ([] if cfg.frontend is None else ["projector"]))
+
+
 def _lead_shape(tree, n_axes: int) -> Tuple[int, ...]:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
@@ -582,12 +583,9 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, *,
     this takes layer l of every leaf for ``<stack>[l]`` (``[i][j]``).
     Raises if the tree does not have the config's keys or layer
     counts."""
-    require_ported(cfg)
     dev = resolve_device(device)
     schemas = _part_schemas(cfg)
-    top = {"embed": None, "final_norm": None,
-           **({} if cfg.tie_embeddings else {"lm_head": None}),
-           **({} if cfg.frontend is None else {"projector": None}),
+    top = {**dict.fromkeys(_top_keys(cfg)),
            **{name: sch for name, (sch, _, _) in schemas.items()}}
     if _keys(tree) != top:
         raise ValueError(f"{cfg.arch_id}: params tree does not have the "
@@ -616,6 +614,80 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, *,
     return LM(_from_numpy(tree["embed"], dev),
               _from_numpy(tree["final_norm"], dev), lm_head, projector,
               **parts)
+
+
+def _leaf_paths(schema, pre=()):
+    for k, v in schema.items():
+        if v is None:
+            yield pre + (k,)
+        else:
+            yield from _leaf_paths(v, pre + (k,))
+
+
+class LayoutEntry(NamedTuple):
+    """A leaf of the JAX params tree: its leading layer axes (() for a
+    leaf JAX does not stack), the port's parameter names that fill it in
+    layer order (row-major over ``lead``), and for a stack with no layers
+    (zamba2 whose layers divide into super-blocks: an empty tail) the
+    name of a parameter of the same shape elsewhere."""
+    lead: Tuple[int, ...]
+    names: List[str]
+    proto: Optional[str]
+
+
+def jax_layout(cfg: ModelConfig) -> Dict[Tuple[str, ...], LayoutEntry]:
+    """{the path of a leaf in the JAX package's params tree: where the
+    port keeps it}.  A stacked leaf (L, ...) is the port's parameter
+    ``<stack>.<l>.<path>`` for each layer l (hybrid ``mamba_blocks``
+    (n_super, inner, ...): ``mamba_blocks.<i>.<j>.<path>``); the others
+    are the parameter of the same name."""
+    out = {(k,): LayoutEntry((), [k], None) for k in _top_keys(cfg)}
+    schemas = _part_schemas(cfg)
+    leads = {part: () if n is None else n if isinstance(n, tuple) else (n,)
+             for part, (_, n, _) in schemas.items()}
+    for part, (schema, _, _) in schemas.items():
+        lead, proto = leads[part], None
+        if 0 in lead:        # the first layer of a stack of the same blocks
+            proto = next(other + ".0" * len(leads[other])
+                         for other, (o_schema, _, _) in schemas.items()
+                         if o_schema == schema and 0 not in leads[other])
+        for path in _leaf_paths(schema):
+            leaf = ".".join(path)
+            names = [".".join((part, *map(str, idx), leaf))
+                     for idx in np.ndindex(*lead)]
+            out[(part,) + path] = LayoutEntry(
+                lead, names, proto and f"{proto}.{leaf}")
+    return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_to_numpy(cfg: ModelConfig, params) -> Dict:
+    """The inverse of ``params_from_numpy``: the JAX package's params
+    tree as numpy arrays, each stack's layers stacked along its leading
+    axes again (hybrid ``mamba_blocks`` along two; an empty stack as
+    zeros of length 0).  ``params`` is the ``LM`` or any {parameter name:
+    tensor} with its names (gradients, optimizer moments).  bf16 comes
+    out as f32, exactly: numpy has no bf16 (the JAX package's
+    checkpoints store it so)."""
+    named = (dict(params.named_parameters()) if isinstance(params, nn.Module)
+             else params)
+    tree: Dict = {}
+    for path, e in jax_layout(cfg).items():
+        if e.names:
+            arr = np.stack([_to_numpy(named[n]) for n in e.names]).reshape(
+                e.lead + tuple(named[e.names[0]].shape))
+        else:
+            p = _to_numpy(named[e.proto])
+            arr = np.zeros(e.lead + p.shape, p.dtype)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = arr
+    return tree
 
 
 # ======================================================================
@@ -712,7 +784,7 @@ def _cross_kv(enc_out, p: Attention, cfg: ModelConfig):
 
 
 # ======================================================================
-# forward (prefill)
+# forward (train / prefill)
 # ======================================================================
 
 def _add(h, a, last: bool):
@@ -722,31 +794,52 @@ def _add(h, a, last: bool):
     return h.float() + a if last else h + a
 
 
+def _body(remat: bool, fn, *args):
+    """``fn(*args)``, one layer (or super-block) body; with ``remat``
+    under ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    dropped after the forward and recomputed in the backward, as
+    ``jax.checkpoint`` does with the JAX package's scanned bodies."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
             mode: str = "prefill", return_cache: bool = False,
-            return_hidden: bool = False, attn_backend: str = "cuda"):
+            return_hidden: bool = False, attn_backend: str = "cuda",
+            remat: bool = True):
     """Returns (logits_or_hidden, aux_loss[, cache]).  batch =
-    {"tokens": (B, S) int}, and for audio also "frames": (B, S_enc,
+    {"tokens": (B, S) int}; audio also "frames": (B, S_enc,
     frontend_dim), the stub frontend's frame embeddings (taken in the
-    model's dtype).  ``return_hidden=True`` skips the unembedding and
-    returns the final-norm hidden states; the cache has ``init_cache``'s
-    keys and shapes (dense: {"k", "v"}: (L, B, S, K, hd); audio's
-    cross_k and cross_v have S_enc rows).  aux_loss is the MoE layers'
-    summed Switch loss (f32; 0 for the other families)."""
-    require_ported(cfg)
-    if mode != "prefill":
-        raise NotImplementedError(
-            f"forward mode {mode!r}: training is not ported to repro_torch "
-            "yet (ROADMAP.md Queue 1 item 16)")
+    model's dtype); vlm also "patches": (B, n_img, frontend_dim), the
+    stub vision encoder's patch embeddings, whose projections come
+    before the tokens (positions cover both).  ``return_hidden=True``
+    skips the unembedding and returns the final-norm hidden states; the
+    cache has ``init_cache``'s keys and shapes (dense and vlm: {"k",
+    "v"}: (L, B, S, K, hd); audio's cross_k and cross_v have S_enc
+    rows).  aux_loss is the MoE layers' summed Switch loss (f32; 0 for
+    the other families).
+
+    ``mode``: "prefill" (the port's default: its callers are inference)
+    or "train" (the JAX package's default), where ``remat`` runs each
+    layer body as JAX's ``_maybe_remat`` does (dense and vlm layers,
+    deepseek-v2's dense-first and MoE layers, llama4's super-blocks,
+    mamba layers, zamba2's super-blocks, whisper's decoder layers) under
+    ``torch.utils.checkpoint``.  Train mode builds no cache."""
+    if mode not in MODES:
+        raise ValueError(f"forward mode {mode!r}: choose one of {MODES}")
+    if mode == "train" and return_cache:
+        raise ValueError("forward mode 'train' builds no cache")
+    remat = remat and mode == "train"
     if cfg.family == "audio":
         return _audio_forward(cfg, params, batch, return_cache=return_cache,
                               return_hidden=return_hidden,
-                              attn_backend=attn_backend)
+                              attn_backend=attn_backend, remat=remat)
     x, positions = _embed_inputs(cfg, params, batch)
     stack = {"moe": _moe_stack, "ssm": _ssm_stack,
              "hybrid": _hybrid_stack}.get(cfg.family, _dense_stack)
     x, aux, cache = stack(cfg, params, x, positions, return_cache,
-                          attn_backend)
+                          attn_backend, remat)
     x = rms_norm(x, params.final_norm, cfg.norm_eps).to(params.embed.dtype)
     out = x if return_hidden else unembed(cfg, params, x)
     if return_cache:
@@ -764,13 +857,32 @@ def _embed_scale(cfg: ModelConfig) -> Optional[float]:
 
 
 def _embed_inputs(cfg: ModelConfig, params: LM, batch: Dict):
-    tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
+    """The token embeddings, after vlm's projected patches: JAX's
+    ``einsum("bnf,fd->bnd")`` in the promoted type of the patches and
+    the projector, then cast to the embeddings' dtype."""
+    dev = params.embed.device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
     x = embed_tokens(params.embed, tokens, _embed_scale(cfg))
+    if cfg.frontend == "vision":
+        patches = torch.as_tensor(batch["patches"], device=dev)
+        dt = torch.promote_types(patches.dtype, params.projector.dtype)
+        img = patches.to(dt) @ params.projector.to(dt)
+        x = torch.cat([img.to(x.dtype), x], dim=1)
     return x, torch.arange(x.shape[1], device=x.device)
 
 
+def _dense_layer(cfg: ModelConfig, p: DenseBlock, h, rot, window,
+                 attn_backend: str, last: bool):
+    a, k, v = _gqa_full(rms_norm(h, p.pre_attn_norm, cfg.norm_eps), p.attn,
+                        cfg, rot, window, backend=attn_backend)
+    h = h + a
+    h = _add(h, swiglu_mlp(rms_norm(h, p.pre_mlp_norm, cfg.norm_eps),
+                           p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down), last)
+    return h, k, v
+
+
 def _dense_stack(cfg: ModelConfig, params: LM, x, positions,
-                 return_cache: bool, attn_backend: str):
+                 return_cache: bool, attn_backend: str, remat: bool):
     windows, thetas = layer_meta(cfg)
     cache = None
     if return_cache:
@@ -785,13 +897,8 @@ def _dense_stack(cfg: ModelConfig, params: LM, x, positions,
     h = x
     for l, (p, window, theta) in enumerate(zip(params.blocks, windows,
                                                thetas)):
-        a, k, v = _gqa_full(rms_norm(h, p.pre_attn_norm, cfg.norm_eps),
-                            p.attn, cfg, rots.get(theta), window,
-                            backend=attn_backend)
-        h = h + a
-        h = _add(h, swiglu_mlp(rms_norm(h, p.pre_mlp_norm, cfg.norm_eps),
-                               p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down),
-                 l == len(params.blocks) - 1)
+        h, k, v = _body(remat, _dense_layer, cfg, p, h, rots.get(theta),
+                        window, attn_backend, l == len(params.blocks) - 1)
         if return_cache:
             cache["k"][l] = k
             cache["v"][l] = v
@@ -847,8 +954,43 @@ def _ssm_caches(cfg: ModelConfig, batch: int, dtype, dev) -> Dict:
     return {}
 
 
+def _moe_layer(cfg: ModelConfig, p, h, positions, attn_backend: str,
+               last: bool):
+    """deepseek-v2's layer: MLA, then its MoE (``MoEBlock``) or SwiGLU
+    MLP (dense-first).  Returns (h, aux, c_kv, k_rope)."""
+    eps = cfg.norm_eps
+    a, ckv, krope = mla_prefill(rms_norm(h, p.pre_attn_norm, eps), p.attn,
+                                cfg, positions, backend=attn_backend)
+    h = h + a
+    hn = rms_norm(h, p.pre_mlp_norm, eps)
+    aux = torch.zeros((), device=h.device)
+    if isinstance(p, MoEBlock):
+        mo, aux = moe_block(hn, p.moe, cfg)
+    else:
+        mo = swiglu_mlp(hn, p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down)
+    return _add(h, mo, last), aux, ckv, krope
+
+
+def _super_layer(cfg: ModelConfig, p: SuperBlock, h, rot,
+                 attn_backend: str, last: bool):
+    """llama4's super-block: a dense layer, then attention and the MoE.
+    Returns (h, aux, k1, v1, k2, v2)."""
+    eps = cfg.norm_eps
+    d, ma = p.dense, p.moe_attn
+    a, k1, v1 = _gqa_full(rms_norm(h, d.pre_attn_norm, eps), d.attn, cfg,
+                          rot, _BIG_WINDOW, backend=attn_backend)
+    h = h + a
+    h = h + swiglu_mlp(rms_norm(h, d.pre_mlp_norm, eps), d.mlp.w_gate,
+                       d.mlp.w_up, d.mlp.w_down)
+    a, k2, v2 = _gqa_full(rms_norm(h, ma.pre_attn_norm, eps), ma.attn, cfg,
+                          rot, _BIG_WINDOW, backend=attn_backend)
+    h = h + a
+    mo, aux = moe_block(rms_norm(h, ma.pre_mlp_norm, eps), p.moe, cfg)
+    return _add(h, mo, last), aux, k1, v1, k2, v2
+
+
 def _moe_stack(cfg: ModelConfig, params: LM, x, positions,
-               return_cache: bool, attn_backend: str):
+               return_cache: bool, attn_backend: str, remat: bool):
     """Both MoE layouts (``_moe_stack`` of the JAX package): deepseek-v2's
     MLA layers, dense-first then MoE, and llama4's (dense, MoE)
     super-blocks.  Returns (h, summed aux loss f32, cache)."""
@@ -857,7 +999,6 @@ def _moe_stack(cfg: ModelConfig, params: LM, x, positions,
     if return_cache:
         cache = {n: torch.empty(shape, dtype=x.dtype, device=x.device)
                  for n, shape in _cache_shapes(cfg, B, S).items()}
-    eps = cfg.norm_eps
     aux = torch.zeros((), device=x.device)
     h = x
     if _moe_layout(cfg) == "first_dense":
@@ -865,35 +1006,19 @@ def _moe_stack(cfg: ModelConfig, params: LM, x, positions,
         for pre, stack in (("first_", params.first_blocks),
                            ("", params.blocks)):
             for l, p in enumerate(stack):
-                a, ckv, krope = mla_prefill(
-                    rms_norm(h, p.pre_attn_norm, eps), p.attn, cfg,
-                    positions, backend=attn_backend)
-                h = h + a
-                hn = rms_norm(h, p.pre_mlp_norm, eps)
-                if isinstance(p, MoEBlock):
-                    mo, a_l = moe_block(hn, p.moe, cfg)
-                    aux = aux + a_l
-                else:
-                    mo = swiglu_mlp(hn, p.mlp.w_gate, p.mlp.w_up,
-                                    p.mlp.w_down)
-                h = _add(h, mo, p is final)
+                h, a_l, ckv, krope = _body(remat, _moe_layer, cfg, p, h,
+                                           positions, attn_backend,
+                                           p is final)
+                aux = aux + a_l
                 if return_cache:
                     cache[pre + "c_kv"][l] = ckv
                     cache[pre + "k_rope"][l] = krope
         return h, aux, cache
     rot = rope_angles(positions, cfg.rope_theta, cfg.resolved_head_dim)
     for i, p in enumerate(params.super_blocks):
-        d, ma = p.dense, p.moe_attn
-        a, k1, v1 = _gqa_full(rms_norm(h, d.pre_attn_norm, eps), d.attn,
-                              cfg, rot, _BIG_WINDOW, backend=attn_backend)
-        h = h + a
-        h = h + swiglu_mlp(rms_norm(h, d.pre_mlp_norm, eps), d.mlp.w_gate,
-                           d.mlp.w_up, d.mlp.w_down)
-        a, k2, v2 = _gqa_full(rms_norm(h, ma.pre_attn_norm, eps), ma.attn,
-                              cfg, rot, _BIG_WINDOW, backend=attn_backend)
-        h = h + a
-        mo, a_l = moe_block(rms_norm(h, ma.pre_mlp_norm, eps), p.moe, cfg)
-        h = _add(h, mo, i == len(params.super_blocks) - 1)
+        h, a_l, k1, v1, k2, v2 = _body(
+            remat, _super_layer, cfg, p, h, rot, attn_backend,
+            i == len(params.super_blocks) - 1)
         aux = aux + a_l
         if return_cache:
             cache["k"][i, 0], cache["k"][i, 1] = k1, k2
@@ -901,43 +1026,69 @@ def _moe_stack(cfg: ModelConfig, params: LM, x, positions,
     return h, aux, cache
 
 
+def _mamba_layer(cfg: ModelConfig, p: MambaBlock, h, last: bool,
+                 return_state: bool):
+    o = ssm_mod.mamba2_block(rms_norm(h, p.pre_norm, cfg.norm_eps), p.ssm,
+                             cfg, return_state=return_state)
+    if return_state:
+        o, c = o
+        return _add(h, o, last), c
+    return _add(h, o, last), None
+
+
 def _mamba_layers(cfg: ModelConfig, blocks, h, caches: Optional[SSMCache],
-                  last: bool = False):
-    """Mamba-2 prefill over ``blocks``, each with its pre-norm and
-    residual (``last``: these layers end the stack); writes layer l's
-    final conv inputs and state into ``caches`` (an ``SSMCache`` stacked
-    over these layers) when given."""
+                  last: bool = False, remat: bool = False):
+    """Mamba-2 over ``blocks``, each with its pre-norm and residual
+    (``last``: these layers end the stack; ``remat``: each layer under
+    checkpoint); writes layer l's final conv inputs and state into
+    ``caches`` (an ``SSMCache`` stacked over these layers) when given."""
     for l, p in enumerate(blocks):
-        o = ssm_mod.mamba2_block(rms_norm(h, p.pre_norm, cfg.norm_eps),
-                                 p.ssm, cfg, return_state=caches is not None)
+        h, c = _body(remat, _mamba_layer, cfg, p, h,
+                     last and l == len(blocks) - 1, caches is not None)
         if caches is not None:
-            o, c = o
             caches.conv[l] = c.conv
             caches.state[l] = c.state
-        h = _add(h, o, last and l == len(blocks) - 1)
     return h
 
 
 def _ssm_stack(cfg: ModelConfig, params: LM, x, positions,
-               return_cache: bool, attn_backend: str):
+               return_cache: bool, attn_backend: str, remat: bool):
     """mamba2: the Mamba-2 layers (no attention: ``attn_backend`` and
     ``positions`` unused).  Returns (h, 0, cache)."""
     B = x.shape[0]
     cache = (_ssm_caches(cfg, B, x.dtype, x.device) if return_cache
              else None)
     h = _mamba_layers(cfg, params.blocks, x,
-                      cache["ssm"] if return_cache else None, last=True)
+                      cache["ssm"] if return_cache else None, last=True,
+                      remat=remat)
     return h, torch.zeros((), device=x.device), cache
 
 
+def _hybrid_super(cfg: ModelConfig, blocks, shared: DenseBlock, lora: LoRA,
+                  h, rot, attn_backend: str, last: bool,
+                  caches: Optional[SSMCache]):
+    """zamba2's super-block: its Mamba-2 layers, then the shared
+    attention block with the super-block's LoRA (causal, rope).  Returns
+    (h, k, v)."""
+    eps = cfg.norm_eps
+    h = _mamba_layers(cfg, blocks, h, caches)
+    a, k, v = _gqa_full(rms_norm(h, shared.pre_attn_norm, eps), shared.attn,
+                        cfg, rot, _BIG_WINDOW, backend=attn_backend,
+                        lora=lora)
+    h = h + a
+    h = _add(h, swiglu_mlp(rms_norm(h, shared.pre_mlp_norm, eps),
+                           shared.mlp.w_gate, shared.mlp.w_up,
+                           shared.mlp.w_down), last)
+    return h, k, v
+
+
 def _hybrid_stack(cfg: ModelConfig, params: LM, x, positions,
-                  return_cache: bool, attn_backend: str):
-    """zamba2: per super-block its Mamba-2 layers, then the shared
-    attention block with the super-block's LoRA (causal, rope); then the
-    tail's Mamba-2 layers.  Returns (h, 0, cache)."""
+                  return_cache: bool, attn_backend: str, remat: bool):
+    """zamba2: the super-blocks (each one checkpointed whole under
+    ``remat``, as JAX's), then the tail's Mamba-2 layers (not, as
+    JAX's).  Returns (h, 0, cache)."""
     n_super, _ = _hybrid_layout(cfg)
     B, S = x.shape[:2]
-    shared, eps = params.shared_attn, cfg.norm_eps
     cache = None
     if return_cache:
         cache = {n: torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -946,17 +1097,12 @@ def _hybrid_stack(cfg: ModelConfig, params: LM, x, positions,
     rot = rope_angles(positions, cfg.rope_theta, cfg.resolved_head_dim)
     h = x
     for i in range(n_super):
-        h = _mamba_layers(cfg, params.mamba_blocks[i], h, None if cache is
-                          None else SSMCache(cache["mamba"].conv[i],
-                                             cache["mamba"].state[i]))
-        a, k, v = _gqa_full(rms_norm(h, shared.pre_attn_norm, eps),
-                            shared.attn, cfg, rot, _BIG_WINDOW,
-                            backend=attn_backend, lora=params.lora[i])
-        h = h + a
-        h = _add(h, swiglu_mlp(rms_norm(h, shared.pre_mlp_norm, eps),
-                               shared.mlp.w_gate, shared.mlp.w_up,
-                               shared.mlp.w_down),
-                 i == n_super - 1 and not len(params.tail_blocks))
+        h, k, v = _body(
+            remat, _hybrid_super, cfg, params.mamba_blocks[i],
+            params.shared_attn, params.lora[i], h, rot, attn_backend,
+            i == n_super - 1 and not len(params.tail_blocks),
+            None if cache is None else SSMCache(cache["mamba"].conv[i],
+                                                cache["mamba"].state[i]))
         if return_cache:
             cache["k"][i] = k
             cache["v"][i] = v
@@ -991,10 +1137,23 @@ def encode_audio(cfg: ModelConfig, params: LM, frames,
     return _ln(x, params.enc_final_ln)
 
 
+def _dec_layer(cfg: ModelConfig, p: DecBlock, x, enc_out,
+               attn_backend: str, last: bool):
+    """whisper's decoder layer.  Returns (x, k, v, cross k, cross v)."""
+    a, k, v = _gqa_full(_ln(x, p.ln1), p.self_attn, cfg, None, _BIG_WINDOW,
+                        backend=attn_backend)
+    x = x + a
+    ck, cv = _cross_kv(enc_out, p.cross_attn, cfg)
+    x = x + _cross_attn(_ln(x, p.ln2), p.cross_attn, cfg, ck, cv,
+                        attn_backend)
+    return _add(x, _gelu(_ln(x, p.ln3), p.mlp), last), k, v, ck, cv
+
+
 def _audio_forward(cfg: ModelConfig, params: LM, batch: Dict, *,
                    return_cache: bool, return_hidden: bool,
-                   attn_backend: str):
-    """whisper's prefill: the encoder, then per decoder layer causal
+                   attn_backend: str, remat: bool):
+    """whisper's forward: the encoder (never checkpointed, as in JAX),
+    then per decoder layer (under ``remat``, checkpointed) causal
     self-attention (no rope: sinusoidal positions on the embeddings),
     non-causal cross-attention to the encoder's output and a GELU MLP;
     the final LayerNorm (``final_norm`` is unused, as in JAX)."""
@@ -1012,14 +1171,9 @@ def _audio_forward(cfg: ModelConfig, params: LM, batch: Dict, *,
                  for n, shape in _cache_shapes(cfg, B, S,
                                                enc_out.shape[1]).items()}
     for l, p in enumerate(params.dec_blocks):
-        a, k, v = _gqa_full(_ln(x, p.ln1), p.self_attn, cfg, None,
-                            _BIG_WINDOW, backend=attn_backend)
-        x = x + a
-        ck, cv = _cross_kv(enc_out, p.cross_attn, cfg)
-        x = x + _cross_attn(_ln(x, p.ln2), p.cross_attn, cfg, ck, cv,
-                            attn_backend)
-        x = _add(x, _gelu(_ln(x, p.ln3), p.mlp),
-                 l == len(params.dec_blocks) - 1)
+        x, k, v, ck, cv = _body(remat, _dec_layer, cfg, p, x, enc_out,
+                                attn_backend,
+                                l == len(params.dec_blocks) - 1)
         if return_cache:
             cache["k"][l], cache["v"][l] = k, v
             cache["cross_k"][l], cache["cross_v"][l] = ck, cv
@@ -1043,7 +1197,6 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
     batch, seq, K, hd), {"mamba", "tail": SSMCache}; audio {"k", "v"}
     and {"cross_k", "cross_v"} with ``enc_len`` rows (default the
     config's ``n_frontend_tokens``)."""
-    require_ported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
     cache = {n: torch.zeros(shape, dtype=dtype, device=dev)
@@ -1063,7 +1216,6 @@ def decode_step(cfg: ModelConfig, params: LM, cache: Dict, batch: Dict, *,
     the same dict.  ``attn_backend`` is audio's cross-attention route
     (the flash kernel, "cuda", or its plain version, "ref"); the other
     families' decode attention is plain PyTorch, as in JAX."""
-    require_ported(cfg)
     dev = params.embed.device
     token = torch.as_tensor(batch["token"], device=dev)
     pos = torch.as_tensor(batch["pos"], device=dev)

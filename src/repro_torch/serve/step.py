@@ -18,7 +18,9 @@ from repro_torch.models import transformer
 def prefill_step(cfg: ModelConfig, params, batch: Dict[str, Any], *,
                  attn_backend: str = "cuda"):
     """batch = {"tokens": (B, S) int}, and for audio (whisper) also
-    "frames": (B, S_enc, frontend_dim).  Returns (logits (B, 1, V) f32,
+    "frames": (B, S_enc, frontend_dim), for vlm (llava-next) also
+    "patches": (B, n_img, frontend_dim), projected before the tokens (the
+    cache then covers n_img + S positions).  Returns (logits (B, 1, V) f32,
     the filled cache, ``transformer.init_cache``'s keys and shapes:
     dense {"k", "v"}: (L, B, S, K, hd); llama4 {"k", "v"}: (L / 2, 2, B,
     S, K, hd); deepseek-v2 MLA's latents; ssm {"ssm": SSMCache}; hybrid

@@ -268,5 +268,6 @@ def test_backends_are_named_and_the_engine_refuses_audio():
     with pytest.raises(ValueError, match="text decoders"):
         ServeEngine(tc, tp, device="cpu")
     vlm = tconfigs.get_config("llava-next-34b").reduced()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ttf.init_params(vlm, 0, device="cpu")
+    with pytest.raises(ValueError, match="text decoders"):
+        ServeEngine(vlm, ttf.init_params(vlm, 0, device="cpu"),
+                    device="cpu")

@@ -27,12 +27,16 @@ CASES = [
     ("torch_serve_llm.py", ["--arch", "zamba2-7b", "--requests", "3",
                             "--max-new", "4"],
      "served 3 requests, 12 tokens"),
+    ("torch_train_lm.py", ["--tiny", "--steps", "3", "--seq", "32"],
+     "saved build/lm100m_torch.npz"),
 ]
 
 
 def _run(name, args):
+    # one intra-op thread: the examples' CPU sizes are small, and the
+    # tests share the CPU with other pytest workers
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
-           "CUDA_VISIBLE_DEVICES": ""}
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
     return subprocess.run([sys.executable, str(ROOT / "examples" / name),
                            *args], cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=300)

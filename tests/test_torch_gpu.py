@@ -1322,3 +1322,115 @@ def test_ssm_serving_decodes_on_the_card(cuda, arch):
     reqs, stats = serve.run(arch, n_requests=3, max_new=4, batch_slots=2)
     assert all(r.done and len(r.out_tokens) == 4 for r in reqs)
     assert kops.launch_counts()["flash_attention"] == 0
+
+
+# ----------------------------------------------------------------------
+# training: the flash kernel under autograd
+# ----------------------------------------------------------------------
+
+# B, Sq, Skv, H, K, hd, vd, q_offset, causal, window: causal GQA over
+# several backward chunks, non-causal, cross-attention (Sq != Skv), a
+# window, a q offset, and MLA's hd 192 / vd 128
+FN_CASES = [(2, 1100, 1100, 6, 2, 64, 64, 0, True, None),
+            (2, 300, 300, 4, 4, 64, 64, 0, False, None),
+            (2, 48, 700, 4, 2, 64, 64, 0, False, None),
+            (1, 600, 600, 4, 2, 128, 128, 0, True, 200),
+            (1, 200, 700, 4, 1, 64, 64, 500, True, None),
+            (1, 530, 530, 4, 4, 192, 128, 0, True, None)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,K,hd,vd,q_offset,causal,window",
+                         FN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fn_forward_is_the_kernel_and_grads_are_plain(
+        cuda, B, Sq, Skv, H, K, hd, vd, q_offset, causal, window, dtype):
+    """Under autograd ``flash_attention_gqa`` goes through
+    ``FlashAttentionFn``: its output is the kernel's, bit for bit, one
+    launch (on the tensor cores in bf16); its q, k and v gradients are the
+    plain version's autograd gradients within the kernel tolerances."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    g = torch.Generator(device=cuda).manual_seed(Sq + hd + vd)
+    q = torch.randn((B, Sq, H, hd), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Skv, K, hd), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Skv, K, vd), generator=g, device=cuda).to(dtype)
+    go = torch.randn((B, Sq, H, vd), generator=g, device=cuda).to(dtype)
+    kw = dict(q_offset=q_offset, causal=causal, window=window)
+    with torch.no_grad():
+        kernel = flash_attention_gqa(q, k, v, **kw)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    kops.reset_launch_counts()
+    out = flash_attention_gqa(*ins, **kw)
+    assert kops.launch_counts()["flash_attention"] == 1
+    assert kops.flash_attention.launches_tc == int(dtype == torch.bfloat16)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    assert torch.equal(out, kernel)
+    got = torch.autograd.grad(out, ins, go)
+    assert kops.launch_counts()["flash_attention"] == 1   # plain backward
+    ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.gqa_attention_ref(*ref_ins, **kw),
+                               ref_ins, go)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert float(a.float().abs().max()) > 0
+        _close(a, b, *({torch.float32: (2e-5, 3e-2),
+                        torch.bfloat16: (8e-3, 1e-2)}[dtype]))
+
+
+def test_flash_launch_refuses_an_input_that_requires_grad(cuda):
+    """No kernel result reaches autograd without its backward: the
+    launch itself raises on an input that requires grad with grad mode
+    on; under ``no_grad`` the same tensors launch."""
+    from repro_torch.kernels import flash_attention as kflash
+    q = torch.randn((1, 64, 2, 64), device=cuda, requires_grad=True)
+    k = torch.randn((1, 64, 2, 64), device=cuda)
+    kw = dict(q_offset=0, causal=True, window=None, scale=0.125)
+    with pytest.raises(RuntimeError, match="FlashAttentionFn"):
+        kflash._launch(q, k, k, **kw)
+    with torch.no_grad():
+        out = kflash._launch(q, k, k, **kw)
+    assert not out.requires_grad
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_cuda_matches_ref_on_the_card(cuda, dtype):
+    """One training step at a small width: "cuda" launches the flash
+    kernel twice a layer (the forward and the checkpointed layer's
+    recompute), "ref" never; the loss and every gradient agree (f32: atol
+    1e-5, rtol 1e-3; bf16: atol 2e-2, rtol 2e-2), the attention
+    projections' gradients are nonzero, and ``train_step`` moves the
+    params."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train import optimizer, step
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              dtype=dtype)
+    params = init_params(cfg, 0).requires_grad_(True)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    batch = {n: torch.randint(0, cfg.vocab_size, (2, 300), generator=gen,
+                              device=cuda) for n in ("tokens", "labels")}
+    out = {}
+    for backend in ("cuda", "ref"):
+        kops.reset_launch_counts()
+        out[backend] = step.loss_and_grads(cfg, params, batch,
+                                           attn_backend=backend)
+        want = 2 * cfg.n_layers if backend == "cuda" else 0
+        assert kops.launch_counts()["flash_attention"] == want
+        assert kops.flash_attention.launches_tc == (
+            want if dtype == "bfloat16" else 0)
+    (lc, _), gc = out["cuda"]
+    (lr_, _), gr = out["ref"]
+    tol = (1e-5, 1e-3) if dtype == "float32" else (2e-2, 2e-2)
+    _close(lc, lr_, 1e-5 if dtype == "float32" else 2e-2, 1e-4)
+    for name, g in gc.items():
+        _close(g, gr[name], *tol)
+    assert float(gc["blocks.0.attn.wq"].float().abs().max()) > 0
+    opt_cfg = optimizer.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    before = params.blocks[0].attn.wk.detach().clone()
+    _, opt, metrics = step.train_step(cfg, opt_cfg, params,
+                                      optimizer.init_opt_state(params,
+                                                               opt_cfg),
+                                      batch)
+    assert int(opt.step) == 1 and bool(torch.isfinite(metrics["loss"]))
+    assert not torch.equal(before, params.blocks[0].attn.wk)
