@@ -213,6 +213,26 @@ the run with a non-zero exit code:
    and the cache), 8 flash launches a prefill (on the tensor cores in
    bf16), the weights and peak memory, the prefill's warm and first ms
    and its device-time bound.
+11. dryrun: ``launch.dryrun.dry_run`` of smollm-360m (bf16, full width)
+   on the card mesh at the [train] shape (8 x 2048) and the [llm]
+   prefill shape (4 x 2048), a trace on the meta device; then the same
+   arguments built on the card, the bytes they request of the caching
+   allocator within 1% + 2 MiB of the predicted
+   ``argument_size_in_bytes`` (its ``memory_allocated()`` growth, which
+   rounds each block up, printed beside); the predicted temp bytes
+   beside the step's
+   ``max_memory_allocated()``; the real step through "cuda" (2 flash
+   launches a layer for the train step, 1 for the prefill, all on the
+   tensor cores), timed, with ``mfu`` (the model's 6 N D or 2 N D FLOPs
+   over the step's time and the bf16 tensor-core peak) and the share of
+   the traced FLOPs.  Then the mesh paths on one card: deepseek-v2's
+   full-width MoE block in f32 at capacity factor 64 on 2 x 256 tokens,
+   ``moe_block`` under ``moe_ep`` on a 1 x 4 mesh against the baseline
+   (within 1e-4), and gemma3-4b's long_500k decode heads (8 over 4,
+   hd 256) over S = 524,288 cached positions in f32, one layer:
+   ``cp_decode_attention`` on an 8 x 1 mesh against
+   ``decode_attention``, plain and with gemma3's window of 1,024
+   (within 2e-5), each timed beside the plain decode.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Needs the repo's
@@ -231,13 +251,10 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12          # H100 SXM, f32 outside the tensor cores
 N_NODES_SCALE = 64               # ogbn-papers100M stand-in: 16384 * 64
 FANOUT, D, HEADS, LAYERS = 8, 128, 4, 3
 ATOL = {"float32": 2e-5, "bfloat16": 3e-2}      # tests/test_kernels.py:19
 FLASH_BF16_TOL = (8e-3, 1e-2)    # atol, rtol: the bf16 flash check
-BF16_TC_FLOPS_PER_S = 989e12     # H100 SXM, bf16 tensor cores, dense
 LLM_ARCH = "smollm-360m"         # the JAX serving entry points' default
 LLM_B, LLM_S = 4, 2048           # prefill batch and length
 HD128_ARCH, HD128_S = "qwen2.5-14b", 4096   # the bf16 kernel at hd 128
@@ -254,6 +271,10 @@ TRAIN_LOSS_ATOL = 1e-4           # f32 loss, "cuda" against "ref"
 TRAIN_GRAD_TOL = (1e-5, 1e-3)    # atol, rtol: tests/test_torch_train.py's
 VLM_ARCH, VLM_TEXT = "llava-next-34b", 1216    # 2,880 patches + 1,216 text
 VLM_TRAIN_LAYERS, VLM_LAYERS = 2, 8            # depth cuts: train, prefill
+DRYRUN_ARCH = "smollm-360m"      # [dryrun]: the [train] and [llm] shapes
+DRYRUN_ARG_TOL = (0.01, 2 << 20)  # rel, bytes: the argument-bytes check
+EP_B, EP_S, EP_MESH = 2, 256, (1, 4)   # [dryrun] moe_ep, deepseek-v2 f32
+CP_ARCH, CP_S, CP_MESH = "gemma3-4b", 524_288, (8, 1)  # long_500k decode
 MOE_MODELS = (("deepseek-v2-236b", 3, ("float32", "bfloat16")),
               ("llama4-maverick-400b-a17b", 2, ("bfloat16",)))
 WIDE_FANOUT = 64                 # benchmarks/bench_accuracy.py's fanout
@@ -307,11 +328,18 @@ def time_ms(torch, fn, reps=20, warmup=3):
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
+def hw(key):
+    """A rate of the card's data-sheet table
+    (``repro_torch.roofline.analysis.HW``: one table for the port)."""
+    from repro_torch.roofline.analysis import HW
+    return HW[key]
+
+
 def bound(bytes_, flops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate
     and flops over the f32 peak."""
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_bytes = bytes_ / hw("hbm_bw") * 1e3
+    t_ops = flops / hw("peak_flops_f32") * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2116,7 +2144,7 @@ def flash_phase(torch, kops):
     flops = 4 * hd * B * H * S * (S + 1) // 2          # live causal pairs
     row = kernel_row("flash_attention", mod, errs["prefill f32"], ms,
                      plain_ms, need, flops, lib_ms)
-    tc_ms = max(need / 2 / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS_PER_S) * 1e3
+    tc_ms = max(need / 2 / hw("hbm_bw"), flops / hw("peak_flops_bf16")) * 1e3
     row.update(source_bf16=kflash.SOURCE_TC, ms_bf16=ms_b,
                library_ms_bf16=lib_ms_b, bound_ms_bf16=tc_ms,
                max_abs_err_bf16=errs["prefill bf16"])
@@ -2169,7 +2197,7 @@ def flash_phase(torch, kops):
     lib2 = time_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
                                        enable_gqa=True))
     need2 = (2 * S2 * H2 + 2 * S2 * K2) * hd2 * 2
-    tc2 = max(need2 / HBM_BYTES_PER_S, flops2 / BF16_TC_FLOPS_PER_S) * 1e3
+    tc2 = max(need2 / hw("hbm_bw"), flops2 / hw("peak_flops_bf16")) * 1e3
     log(f"[flash] bf16 hd {hd2} ({HD128_ARCH} heads: B=1 S={S2} H={H2} "
         f"K={K2} causal): err {err2:.3e}; {ms2:.4f} ms, SDPA {lib2:.4f} ms, "
         f"tensor-core bound {tc2:.4f} ms ({ms2 / lib2:.2f}x SDPA)")
@@ -2267,8 +2295,8 @@ def flash_mla(torch, kflash, row):
         sdpa_ms, why = _sdpa_ms(torch, q, k, v)
         size = 4 if tag == "f32" else 2
         need = B * S * H * (2 * hd + 2 * vd) * size     # q, k, v, out
-        rate = F32_FLOPS_PER_S if tag == "f32" else BF16_TC_FLOPS_PER_S
-        bnd = max(need / HBM_BYTES_PER_S, flops / rate) * 1e3
+        rate = hw("peak_flops_f32") if tag == "f32" else hw("peak_flops_bf16")
+        bnd = max(need / hw("hbm_bw"), flops / rate) * 1e3
         row.update({f"mla_ms_{tag}": ms, f"mla_bound_ms_{tag}": bnd,
                     f"mla_sdpa_ms_{tag}": sdpa_ms,
                     f"mla_max_abs_err_{tag}": err})
@@ -2348,8 +2376,8 @@ def flash_ssm_shapes(torch, kflash, row):
         flops = 4 * hd * B * H * live
         parts = []
         for dt, dtype, size, rate in (
-                ("f32", torch.float32, 4, F32_FLOPS_PER_S),
-                ("bf16", torch.bfloat16, 2, BF16_TC_FLOPS_PER_S)):
+                ("f32", torch.float32, 4, hw("peak_flops_f32")),
+                ("bf16", torch.bfloat16, 2, hw("peak_flops_bf16"))):
             qd, kd, vd = (t.to(dtype) for t in (q, k, v))
             tc0 = kflash.flash_attention.launches_tc
             got = gqa(qd, kd, vd, causal=causal)
@@ -2364,7 +2392,7 @@ def flash_ssm_shapes(torch, kflash, row):
             ms = time_ms(torch, lambda: gqa(qd, kd, vd, causal=causal))
             sdpa_ms, why = _sdpa_ms(torch, qd, kd, vd, causal=causal)
             need = (2 * B * Sq * H + 2 * B * Skv * K) * hd * size
-            t_bytes, t_ops = need / HBM_BYTES_PER_S, flops / rate
+            t_bytes, t_ops = need / hw("hbm_bw"), flops / rate
             bnd = max(t_bytes, t_ops) * 1e3
             by = "bytes" if t_bytes >= t_ops else "operations"
             row.update({f"{tag}_ms_{dt}": ms, f"{tag}_bound_ms_{dt}": bnd,
@@ -3351,6 +3379,186 @@ def vlm_phase(torch, kops, launches, card):
     return n_tc
 
 
+# ----------------------------------------------------------------------
+# phase 11: the dry-run's predictions and the mesh paths on the card
+# ----------------------------------------------------------------------
+
+def _requested(torch):
+    """The bytes the caching allocator's callers requested and hold (its
+    blocks, ``memory_allocated()``, round a request up: up to 1 MiB
+    more for a large one it does not split)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def dryrun_cell(torch, kops, launches, kind, B, S, card):
+    """One dry-run record of DRYRUN_ARCH on the card mesh against the
+    card: argument bytes, temp bytes beside the peak, and ``mfu`` of the
+    real step through "cuda".  Returns its tensor-core flash launches."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+    from repro_torch.serve.step import prefill_step
+    from repro_torch.train import optimizer, step
+    cfg = dataclasses.replace(get_config(DRYRUN_ARCH), dtype="bfloat16")
+    shape = InputShape(f"{kind}_{B}x{S}", S, B, kind)
+    t0 = time.perf_counter()
+    rec = dryrun.dry_run(cfg, shape, "card")
+    trace_s = time.perf_counter() - t0
+    ma, ca = rec["memory_analysis"], rec["cost_analysis"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base, base_req = torch.cuda.memory_allocated(), _requested(torch)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = transformer.init_params(cfg, 0, device=DEVICE)
+    names = ("tokens", "labels") if kind == "train" else ("tokens",)
+    batch = {n: torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                              device=DEVICE, dtype=torch.int32)
+             for n in names}
+    opt_cfg = optimizer.AdamWConfig()       # f32 state: step_arguments'
+    opt = (optimizer.init_opt_state(params, opt_cfg) if kind == "train"
+           else None)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - base
+    requested = _requested(torch) - base_req
+    want = ma["argument_size_in_bytes"]
+    rel, slack = DRYRUN_ARG_TOL
+    check(abs(requested - want) <= rel * want + slack,
+          f"[dryrun] {kind}: the arguments requested {requested} bytes of "
+          f"the card's allocator, the dry-run predicted {want}")
+    if kind == "train":
+        params.requires_grad_(True)
+
+        def run():
+            step.train_step(cfg, opt_cfg, params, opt, batch,
+                            attn_backend="cuda")
+    else:
+        def run():
+            prefill_step(cfg, params, batch, attn_backend="cuda")
+    L = cfg.n_layers
+    per_step = 2 * L if kind == "train" else L
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    tc0 = kops.flash_attention.launches_tc
+    reps = 3 if kind == "train" else 5
+    ms = time_ms(torch, run, reps=reps, warmup=1)
+    n = kops.launch_counts()["flash_attention"]
+    n_tc = kops.flash_attention.launches_tc - tc0
+    check(n == n_tc == per_step * (reps + 1),
+          f"[dryrun] {kind}: {n} flash launches ({n_tc} tensor-core) in "
+          f"{reps + 1} steps; expected {per_step} a step")
+    launches["flash_attention"] += n
+    peak = torch.cuda.max_memory_allocated() - base
+    mfu = rec["model_flops_global"] / (ms / 1e3 * hw("peak_flops_bf16"))
+    share = ca["flops_global"] / (ms / 1e3 * hw("peak_flops_bf16"))
+    log(f"[dryrun] {DRYRUN_ARCH} bf16 {kind} {B}x{S} on {card}: trace "
+        f"{trace_s:.1f} s; arguments predicted {want} B, requested of "
+        f"the card's allocator {requested} B "
+        f"({(requested - want) / want * 100:+.4f}%), its blocks "
+        f"(memory_allocated) {grown} B "
+        f"({(grown - want) / want * 100:+.3f}%); temp predicted "
+        f"{ma['temp_size_in_bytes'] / 2**30:.2f} GiB (the \"ref\" "
+        f"attention's), step peak above the arguments "
+        f"{(peak - grown) / 2**30:.2f} GiB; step {ms:.1f} ms (CUDA events, "
+        f"median of {reps}), {per_step} flash launches a step; model FLOPs "
+        f"{rec['model_flops_global']:.4e}, traced FLOPs "
+        f"{ca['flops_global']:.4e} (ratio {rec['model_flops_ratio']:.3f});"
+        f" mfu {mfu:.4f}, traced-FLOP share {share:.4f} of "
+        f"{hw('peak_flops_bf16'):.4g} FLOP/s; roofline {rec['roofline']}")
+    del params, opt, batch
+    torch.cuda.empty_cache()
+    return n_tc
+
+
+def moe_ep_check(torch, card):
+    """moe_block under moe_ep on an EP_MESH one-card mesh against the
+    baseline: deepseek-v2's full-width MoE block in f32."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding.context import sharding_context
+    cfg = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=64.0))
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    p = moe.init_moe_params(gen, cfg, torch.float32)
+    x = torch.randn((EP_B, EP_S, cfg.d_model), generator=gen,
+                    device=DEVICE) * 0.5
+    want, want_aux = moe.moe_block(x, p, cfg)
+    mesh = make_host_mesh(*EP_MESH, device=DEVICE)
+    old = os.environ.get("REPRO_TUNING")
+    os.environ["REPRO_TUNING"] = "moe_ep"
+    try:
+        with sharding_context(mesh):
+            got, aux = moe.moe_block(x, p, cfg)
+            ep_ms = time_ms(torch, lambda: moe.moe_block(x, p, cfg), reps=5)
+    finally:
+        if old is None:
+            del os.environ["REPRO_TUNING"]
+        else:
+            os.environ["REPRO_TUNING"] = old
+    base_ms = time_ms(torch, lambda: moe.moe_block(x, p, cfg), reps=5)
+    err = assert_close(torch, got, want, 1e-4, 0, "moe_ep vs moe_block")
+    aux_err = abs(float(aux) - float(want_aux))
+    check(aux_err <= 1e-6, f"moe_ep aux loss: {float(aux)} against "
+          f"{float(want_aux)}")
+    m = cfg.moe
+    log(f"[dryrun] moe_ep {MLA_ARCH} MoE block f32 ({m.n_experts} experts "
+        f"of {m.d_ff_expert}, top-{m.top_k}, capacity "
+        f"{moe._capacity(EP_B * EP_S, m.n_experts, m.top_k, 64.0)}) on "
+        f"{EP_B}x{EP_S} tokens, {EP_MESH[0]} x {EP_MESH[1]} mesh on {card}:"
+        f" max err {err:.3e} against moe_block (atol 1e-4), aux "
+        f"{aux_err:.1e}; {ep_ms:.3f} ms against {base_ms:.3f} ms")
+    del p, x, want, got
+    torch.cuda.empty_cache()
+
+
+def cp_decode_check(torch, card):
+    """cp_decode_attention on a CP_MESH one-card mesh against
+    decode_attention at gemma3-4b's long_500k heads, one layer, f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import attention
+    cfg = get_config(CP_ARCH)
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    q = torch.randn((1, 1, H, hd), generator=gen, device=DEVICE)
+    kc, vc = (torch.randn((1, CP_S, K, hd), generator=gen, device=DEVICE)
+              for _ in range(2))
+    clen = CP_S - 3
+    mesh = make_host_mesh(*CP_MESH, device=DEVICE)
+    parts = []
+    for window in (None, cfg.sliding_window):
+        kw = dict(cache_len=clen, window=window)
+        want = attention.decode_attention(q, kc, vc, **kw)
+        got = attention.cp_decode_attention(q, kc, vc, mesh=mesh, **kw)
+        err = assert_close(torch, got, want, 2e-5, 0,
+                           f"cp_decode window {window}")
+        cp_ms = time_ms(torch, lambda: attention.cp_decode_attention(
+            q, kc, vc, mesh=mesh, **kw), reps=5)
+        plain_ms = time_ms(torch, lambda: attention.decode_attention(
+            q, kc, vc, **kw), reps=5)
+        parts.append(f"window {window}: max err {err:.3e}, {cp_ms:.3f} ms "
+                     f"against {plain_ms:.3f} ms")
+    log(f"[dryrun] cp_decode {CP_ARCH} heads ({H} over {K}, hd {hd}) over "
+        f"S={CP_S} f32, cache_len {clen}, {CP_MESH[0]} x {CP_MESH[1]} "
+        f"mesh on {card} (atol 2e-5): " + "; ".join(parts))
+    del q, kc, vc
+    torch.cuda.empty_cache()
+
+
+def dryrun_phase(torch, kops, launches, card):
+    """Returns the tensor-core flash launches of the real steps."""
+    n_tc = dryrun_cell(torch, kops, launches, "train", TRAIN_B, TRAIN_S,
+                       card)
+    n_tc += dryrun_cell(torch, kops, launches, "prefill", LLM_B, LLM_S,
+                        card)
+    moe_ep_check(torch, card)
+    cp_decode_check(torch, card)
+    return n_tc
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3472,6 +3680,10 @@ def main() -> int:
     t0 = time.perf_counter()
     n_tc += vlm_phase(torch, kops, launches, smi)
     log(f"[vlm] phase took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n_tc += dryrun_phase(torch, kops, launches, smi)
+    log(f"[dryrun] phase took {time.perf_counter() - t0:.1f} s")
     for name, v in launches.items():
         check(v > 0, f"{name}: never launched on the main path")
         rows[name]["launches"] = v

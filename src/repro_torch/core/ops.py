@@ -55,7 +55,9 @@ def resolve_device(device="cuda") -> torch.device:
     """The device an entry point runs on.  ``"cuda"`` (the default)
     raises when no card is visible: the port never drops to the CPU
     unless asked.  Selecting CUDA turns TF32 off, so f32 GEMMs run in
-    full f32 like the JAX package's."""
+    full f32 like the JAX package's.  ``"meta"`` (shapes without
+    storage: the dry-run's abstract trees) is taken as it is; nothing
+    runs there."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -64,7 +66,7 @@ def resolve_device(device="cuda") -> torch.device:
                 "plain PyTorch versions on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}: use cuda or cpu")
     return dev
 

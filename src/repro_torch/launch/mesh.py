@@ -9,24 +9,52 @@ tensors.  Shards go round-robin over the visible cards, so on one card
 all P x M shards share it (every message between them is still a copy
 into the receiver's own buffer); on four cards a message between cards
 is a peer copy.  On the CPU every shard is ``cpu``.
+
+A mesh has the JAX mesh's two attributes that the sharding rules
+(``sharding.specs``) and the dry-run read: ``axis_names``, ``("data",
+"model")``, and ``shape``, {axis: size}.  ``make_production_mesh`` gives
+the JAX package's two production meshes, 16 x 16 and 2 x 16 x 16, as
+an ``AbstractMesh``: those two attributes and no devices, so the rules
+and the dry-run take either kind.  ``repro.sharding.compat`` has no
+counterpart: it only bridges JAX versions, and its ``make_mesh`` is this
+module's ``make_host_mesh`` and ``make_production_mesh``.
+
+The mesh paths of the transformer (``models.moe._moe_block_ep``,
+``models.attention.cp_decode_attention``) and ``launch.train.run(mesh=)``
+run on a mesh whose shards share one device, where placement is the
+identity; ``check_one_device`` refuses a mesh over several cards, and an
+abstract mesh outside a trace on the meta device.  Placing params and
+caches across cards is ROADMAP.md Queue 1 item 19.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import math
+from typing import Dict, List, Tuple
 
 import torch
+
+AXES = ("data", "model")
+ITEM_19 = ("placing shards on more than one device is ROADMAP.md Queue 1 "
+           "item 19")
 
 
 class Mesh:
     """P x M shards; shard (p, m) lives on ``devices[p * M + m]``."""
+
+    axis_names: Tuple[str, ...] = AXES
 
     def __init__(self, P: int, M: int, devices: List[torch.device]):
         if P < 1 or M < 1 or len(devices) != P * M:
             raise ValueError(f"a {P} x {M} mesh needs {P * M} devices, "
                              f"got {len(devices)}")
         self.P, self.M = P, M
+        self.shape = {"data": P, "model": M}
         self.devices = [torch.device(d) for d in devices]
         self._copy_streams: Dict[torch.device, object] = {}
+
+    @property
+    def size(self) -> int:
+        return self.P * self.M
 
     @property
     def is_cuda(self) -> bool:
@@ -67,3 +95,53 @@ def make_host_mesh(n_data: int = 1, n_model: int = 1,
     else:
         devices = [dev] * n
     return Mesh(n_data, n_model, devices)
+
+
+class AbstractMesh:
+    """A mesh's axis names and sizes, and no devices: what the sharding
+    rules and the dry-run read of a mesh the port cannot build."""
+
+    devices = None
+
+    def __init__(self, shape: Dict[str, int]):
+        self.axis_names = tuple(shape)
+        self.shape = dict(shape)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def __repr__(self) -> str:
+        return ("AbstractMesh("
+                + " x ".join(f"{a}={n}" for a, n in self.shape.items())
+                + ")")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The JAX package's production meshes: 16 x 16 ``("data",
+    "model")``, or 2 x 16 x 16 ``("pod", "data", "model")``."""
+    if multi_pod:
+        return AbstractMesh({"pod": 2, "data": 16, "model": 16})
+    return AbstractMesh({"data": 16, "model": 16})
+
+
+def check_one_device(mesh, device) -> None:
+    """Raise unless every shard of ``mesh`` is ``device``: the mesh paths
+    then run with placement the identity.  An ``AbstractMesh`` passes only
+    for a trace on the meta device (the dry-run); a mesh over several
+    cards, or one abstract mesh outside a trace, raises
+    ``NotImplementedError`` (item 19)."""
+    device = torch.device(device)
+    if mesh.devices is None:
+        if device.type != "meta":
+            raise NotImplementedError(
+                f"{mesh!r} needs {mesh.size} devices and holds none: it "
+                f"runs only as a trace on the meta device; {ITEM_19}")
+        return
+    devs = mesh.distinct_devices()
+    if len(devs) > 1:
+        raise NotImplementedError(
+            f"{mesh!r} spans {len(devs)} devices; {ITEM_19}")
+    if devs[0] != device:
+        raise ValueError(f"{mesh!r} holds {devs[0]}, the tensors are on "
+                         f"{device}")

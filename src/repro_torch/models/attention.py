@@ -22,8 +22,10 @@
   any kernel); ``mla_new_cache_entries`` gives a new token's (c_kv,
   k_rope).
 
-The sequence-parallel ``cp_decode_attention`` is ROADMAP.md Queue 1
-item 17.
+- ``cp_decode_attention``: JAX's sequence-parallel decode attention
+  (the long_500k path under ``tuning.on("cp_decode")``) over the
+  ``data`` shards of a mesh whose shards share one device; across cards
+  it raises (ROADMAP.md Queue 1 item 19).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.launch.mesh import check_one_device
 from repro_torch.kernels import ref
 from repro_torch.models.layers import rms_norm, rope
 
@@ -81,6 +84,56 @@ def decode_attention(q, k_cache, v_cache, *, cache_len,
     p = torch.softmax(torch.where(msk[:, None, None, :], s, _NEG_INF),
                       dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def cp_decode_attention(q, k_cache, v_cache, *, cache_len, mesh,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """``decode_attention`` with the caches' sequence split over the
+    mesh's ``data`` shards (S % data == 0), as JAX's ``shard_map`` path
+    computes it.  Shard i takes its slice [i S_loc, (i + 1) S_loc) of
+    each cache as a view, masks by the global positions i S_loc +
+    arange(S_loc), and computes its scores' max; the global max is the
+    max over the shards; each shard then computes p, l and acc in f32,
+    and l and acc are summed in shard order.  Only the (B, K, G) maxima
+    and sums and the (B, K, G, hd) accumulators cross between shards,
+    never the cache.  The mesh's shards share q's device
+    (``launch.mesh.check_one_device``)."""
+    check_one_device(mesh, q.device)
+    B, Sq, H, hd = q.shape
+    if Sq != 1:
+        raise ValueError(f"cp_decode_attention takes one token, got {Sq}")
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    P = mesh.shape["data"]
+    if S % P:
+        raise ValueError(f"cp_decode_attention: S={S} does not divide "
+                         f"over {P} data shards")
+    S_loc = S // P
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qf = q.reshape(B, K, H // K, hd).float() * scale
+    clen = torch.as_tensor(cache_len, device=q.device).broadcast_to(
+        (B,))[:, None]
+    local = torch.arange(S_loc, device=q.device)
+    scores = []
+    for i in range(P):
+        kv_pos = i * S_loc + local
+        s = torch.einsum("bkgd,bskd->bkgs", qf,
+                         k_cache[:, i * S_loc:(i + 1) * S_loc].float())
+        msk = kv_pos[None, :] < clen
+        if window is not None:
+            msk &= (clen - 1 - kv_pos[None, :]) < window
+        scores.append(torch.where(msk[:, None, None, :], s, _NEG_INF))
+    m = torch.stack([s.amax(dim=-1) for s in scores]).amax(dim=0)
+    l = acc = None
+    for i, s in enumerate(scores):
+        p = torch.exp(s - m[..., None])
+        l_i = p.sum(dim=-1)
+        acc_i = torch.einsum("bkgs,bskd->bkgd", p, v_cache[
+            :, i * S_loc:(i + 1) * S_loc].float())
+        l = l_i if l is None else l + l_i
+        acc = acc_i if acc is None else acc + acc_i
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, 1, H, hd).to(q.dtype)
 
 

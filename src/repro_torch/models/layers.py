@@ -12,6 +12,25 @@ import torch
 import torch.nn.functional as F
 
 
+class MetaDraws:
+    """Stands in for the ``torch.Generator`` that the ``init_*`` functions
+    draw from, on the meta device, where no generator exists: there
+    ``normal_init`` gives an empty tensor of the shape it would draw, so
+    ``transformer.abstract_params`` builds ``init_params``' tree through
+    the same code and allocates nothing."""
+    device = torch.device("meta")
+
+
+def normal_init(gen, shape, dtype):
+    """normal(0.02), as ``jax.nn.initializers.normal(0.02)``, drawn in f32
+    from ``gen`` on its device and cast to ``dtype``; on the meta device
+    (``MetaDraws``) an empty tensor of that shape and dtype."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
+    return (torch.randn(shape, generator=gen, device=gen.device) * 0.02).to(
+        dtype)
+
+
 def rms_norm(x, scale, eps: float = 1e-6):
     """x * rsqrt(mean(x^2) + eps) * (1 + scale), in f32."""
     xf = x.float()

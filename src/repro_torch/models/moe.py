@@ -22,17 +22,26 @@ What decides whether the two packages agree, and how the port keeps it:
   route / dispatch / moe_ffn / combine: its steps, for timing
   init_moe_params(gen, cfg, dtype)
 
-The expert-parallel ``_moe_block_ep`` (``shard_map``, gated by
-``tuning.on("moe_ep")``) needs a mesh and the tuning flags, which the
-port does not have yet: it is ROADMAP.md Queue 1 item 17.
+Under ``tuning.on("moe_ep")`` and a mesh in ``sharding.context``,
+``moe_block`` runs the expert-parallel ``_moe_block_ep`` (JAX's
+``shard_map`` path): each model shard dispatches to its own experts and
+the partial outputs are summed.  It runs on a mesh whose shards share
+one device; across cards it raises (ROADMAP.md Queue 1 item 19).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch import tuning
+from repro_torch.launch.mesh import check_one_device
+from repro_torch.models.layers import normal_init
+from repro_torch.sharding.context import current_mesh
+from repro_torch.sharding.specs import logical_axes, shard_if_divisible
 
 
 def _capacity(n_tokens: int, n_experts: int, top_k: int,
@@ -61,10 +70,6 @@ class MoE(nn.Module):
             None if w is None else _param(w) for w in shared)
 
 
-def _normal(gen, shape, dtype):
-    return (torch.randn(shape, generator=gen, device=gen.device) * 0.02).to(
-        dtype)
-
 
 def init_moe_params(gen: torch.Generator, cfg, dtype) -> MoE:
     """normal(0.02) router (f32) and expert weights, as the JAX package
@@ -78,17 +83,17 @@ def init_moe_params(gen: torch.Generator, cfg, dtype) -> MoE:
     def experts(shape):
         out = torch.empty((E,) + shape, dtype=dtype, device=dev)
         for e in range(E):
-            out[e] = _normal(gen, shape, dtype)
+            out[e] = normal_init(gen, shape, dtype)
         return out
 
-    p = dict(router=_normal(gen, (D, E), torch.float32),
+    p = dict(router=normal_init(gen, (D, E), torch.float32),
              w_gate=experts((D, Fe)), w_up=experts((D, Fe)),
              w_down=experts((Fe, D)))
     if m.n_shared_experts:
         Fs = Fe * m.n_shared_experts
-        p.update(shared_w_gate=_normal(gen, (D, Fs), dtype),
-                 shared_w_up=_normal(gen, (D, Fs), dtype),
-                 shared_w_down=_normal(gen, (Fs, D), dtype))
+        p.update(shared_w_gate=normal_init(gen, (D, Fs), dtype),
+                 shared_w_up=normal_init(gen, (D, Fs), dtype),
+                 shared_w_down=normal_init(gen, (Fs, D), dtype))
     return MoE(**p)
 
 
@@ -108,10 +113,13 @@ class Routing(NamedTuple):
     inv: torch.Tensor
 
 
-def route(flat, router, n_experts: int, top_k: int,
-          capacity: int) -> Routing:
+def route(flat, router, n_experts: int, top_k: int, capacity: int, *,
+          expert_offset: int = 0) -> Routing:
     """Router logits in f32, softmax, top-k (ties to the lower id),
-    renormalized gates, and the sort-based slot of every (token, k)."""
+    renormalized gates, and the sort-based slot of every (token, k) over
+    ``n_experts`` experts from ``expert_offset`` on (JAX's
+    ``_dispatch_compute``): a slot routed outside them is dropped, as
+    one over the capacity is."""
     T = flat.shape[0]
     E, K, C = n_experts, top_k, capacity
     dev = flat.device
@@ -121,13 +129,14 @@ def route(flat, router, n_experts: int, top_k: int,
     gate, expert = gate[:, :K], expert[:, :K]
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    eflat = expert.reshape(T * K)
+    eflat = expert.reshape(T * K) - expert_offset
+    eflat = torch.where((eflat >= 0) & (eflat < E), eflat, E)  # E: drop
     n = torch.arange(T * K, device=dev)
     order = torch.argsort(eflat, stable=True)
     es, ts, gs = eflat[order], n[order] // K, gate.reshape(T * K)[order]
     starts = torch.searchsorted(es, torch.arange(E, device=dev))
-    pos = n - starts[es]
-    keep = pos < C
+    pos = n - starts[es.clamp(max=E - 1)]
+    keep = (pos < C) & (es < E)
     slot = torch.where(keep, es * C + pos, E * C)
     inv = torch.empty_like(order)
     inv[order] = n
@@ -174,7 +183,13 @@ def shared_ffn(flat, p: MoE):
 def moe_block(x, p: MoE, cfg):
     """x: (B, S, D).  Returns (out (B, S, D), aux_loss f32 0-d): the
     routed experts at capacity C, plus the always-on shared experts, and
-    the Switch load-balance loss E * sum(mean prob x top-1 share)."""
+    the Switch load-balance loss E * sum(mean prob x top-1 share).
+
+    With REPRO_TUNING=moe_ep and a mesh in ``sharding_context``, the
+    dispatch runs expert-parallel (``_moe_block_ep``)."""
+    mesh = current_mesh()
+    if tuning.on("moe_ep") and mesh is not None:
+        return _moe_block_ep(x, p, cfg, mesh)
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
@@ -190,3 +205,50 @@ def moe_block(x, p: MoE, cfg):
     if m.n_shared_experts:
         out = out + shared_ffn(flat, p)
     return out.reshape(B, S, D), aux
+
+
+def _moe_block_ep(x, p: MoE, cfg, mesh):
+    """Expert-parallel MoE, JAX's ``shard_map`` path, on a mesh whose
+    shards share x's device (``launch.mesh.check_one_device``).
+
+    The tokens split over the data-parallel shards (when B divides over
+    them) and are replicated over ``model``; model shard m dispatches
+    every local token to its experts [m E/M, (m + 1) E/M) only, at the
+    capacity of the local tokens over all E experts, with views of its
+    experts' weights.  The shards' partial outputs (zero where a token
+    was not routed there) are summed in shard order in the activation
+    dtype, where JAX psums them over ``model``.  The aux loss is each
+    data shard's Switch loss, averaged over them (JAX's pmean); the
+    shared experts are added after."""
+    check_one_device(mesh, x.device)
+    m = cfg.moe
+    B, S, D = x.shape
+    E, K = m.n_experts, m.top_k
+    M = mesh.shape["model"]
+    if E % M:
+        raise ValueError(f"moe_ep: {E} experts do not divide over {M} "
+                         "model shards")
+    E_loc = E // M
+    dp = logical_axes(mesh)["dp"]
+    b_ax = shard_if_divisible(mesh, B, dp)
+    B_loc = B if b_ax is None else B // math.prod(mesh.shape[a] for a in dp)
+    T_loc = B_loc * S
+    C = _capacity(T_loc, E, K, m.capacity_factor)
+    outs, auxes = [], []
+    for xd in x.split(B_loc):                   # the data shards' tokens
+        flat = xd.reshape(T_loc, D)
+        out = None
+        for lo in range(0, E, E_loc):           # the model shards, in order
+            r = route(flat, p.router, E_loc, K, C, expert_offset=lo)
+            w = [t[lo:lo + E_loc] for t in (p.w_gate, p.w_up, p.w_down)]
+            part = combine(moe_ffn(dispatch(flat, r, E_loc, C), *w), r)
+            out = part if out is None else out + part
+        outs.append(out)
+        # every model shard routes alike: its aux loss is the same
+        ce = F.one_hot(r.expert[:, 0], E).float().mean(dim=0)
+        auxes.append(E * torch.sum(r.probs.mean(dim=0) * ce))
+    out = torch.cat(outs).reshape(B, S, D)
+    aux = auxes[0] if b_ax is None else torch.stack(auxes).mean()
+    if m.n_shared_experts:
+        out = out + shared_ffn(x.reshape(B * S, D), p).reshape(B, S, D)
+    return out, aux

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.ops import resolve_device
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import normal_init, rms_norm
 
 
 class SSMCache(NamedTuple):
@@ -196,10 +196,6 @@ def mamba2_decode(x, p: SSM, cfg,
     return y @ p.w_out, SSMCache(conv=new_conv, state=state)
 
 
-def _normal(gen, shape, dtype):
-    return (torch.randn(shape, generator=gen, device=gen.device) * 0.02).to(
-        dtype)
-
 
 def init_ssm_params(gen: torch.Generator, cfg, dtype) -> SSM:
     """normal(0.02) projections and conv; dt_bias and A_log zero and
@@ -210,14 +206,15 @@ def init_ssm_params(gen: torch.Generator, cfg, dtype) -> SSM:
     def full(n, v, dt=torch.float32):
         return torch.full((n,), v, dtype=dt, device=dev)
 
-    return SSM(w_xz=_normal(gen, (D, 2 * s.d_inner), dtype),
-               w_bc=_normal(gen, (D, 2 * s.n_groups * s.d_state), dtype),
-               w_dt=_normal(gen, (D, s.n_heads), dtype),
+    return SSM(w_xz=normal_init(gen, (D, 2 * s.d_inner), dtype),
+               w_bc=normal_init(gen, (D, 2 * s.n_groups * s.d_state),
+                                dtype),
+               w_dt=normal_init(gen, (D, s.n_heads), dtype),
                dt_bias=full(s.n_heads, 0.0),
-               conv=_normal(gen, (s.d_conv, conv_dim(cfg)), dtype),
+               conv=normal_init(gen, (s.d_conv, conv_dim(cfg)), dtype),
                A_log=full(s.n_heads, 0.0), D_skip=full(s.n_heads, 1.0),
                norm=full(s.d_inner, 0.0, dtype),
-               w_out=_normal(gen, (s.d_inner, D), dtype))
+               w_out=normal_init(gen, (s.d_inner, D), dtype))
 
 
 def init_ssm_cache(batch: int, cfg, dtype, *, lead=(),

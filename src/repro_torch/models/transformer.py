@@ -45,6 +45,8 @@ and the decode step add ``attn_backend`` (see
           remat)                             train (checkpointed) / prefill
   decode_step(cfg, params, cache, batch)     one token per slot, in place
   init_cache(cfg, batch, seq, enc_len=None, device=)
+  abstract_params(cfg) / abstract_cache(cfg, batch, seq, enc_len=None)
+                                             the same trees on the meta device
 
 Parameters are made with ``requires_grad=False``: inference builds no
 graph.  The trainer (``train.step``) turns them on with
@@ -59,18 +61,21 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tuning
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.ops import resolve_device
-from repro_torch.models.attention import (decode_attention, flash_attention,
+from repro_torch.models.attention import (cp_decode_attention,
+                                          decode_attention, flash_attention,
                                           mla_decode, mla_new_cache_entries,
                                           mla_prefill)
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (apply_rope, embed_tokens, gelu_mlp,
-                                       layer_norm, rms_norm, rope,
-                                       rope_angles, sinusoidal_positions,
-                                       swiglu_mlp)
+from repro_torch.models.layers import (MetaDraws, apply_rope, embed_tokens,
+                                       gelu_mlp, layer_norm, normal_init,
+                                       rms_norm, rope, rope_angles,
+                                       sinusoidal_positions, swiglu_mlp)
 from repro_torch.models.moe import MoE, init_moe_params, moe_block
 from repro_torch.models.ssm import SSM, SSMCache
+from repro_torch.sharding.context import current_mesh
 
 _BIG_WINDOW = 1 << 30
 MODES = ("train", "prefill")
@@ -258,16 +263,11 @@ class LM(nn.Module):
                     else _module_list(part))
 
 
-def _normal(gen, shape, dtype):
-    """normal(0.02), as ``jax.nn.initializers.normal(0.02)``."""
-    return (torch.randn(shape, generator=gen, device=gen.device) * 0.02).to(
-        dtype)
-
 
 def _init_attn(gen, cfg: ModelConfig, dtype) -> Attention:
     D, hd = cfg.d_model, cfg.resolved_head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
-    w = [_normal(gen, s, dtype) for s in ((D, H * hd), (D, K * hd),
+    w = [normal_init(gen, s, dtype) for s in ((D, H * hd), (D, K * hd),
                                           (D, K * hd), (H * hd, D))]
     b = [None] * 3
     if cfg.qkv_bias:
@@ -283,19 +283,19 @@ def _init_mla(gen, cfg: ModelConfig, dtype) -> MLA:
         return torch.zeros(n, dtype=dtype, device=gen.device)
 
     return MLA(
-        _normal(gen, (D, a.q_lora_rank), dtype), zeros(a.q_lora_rank),
-        _normal(gen, (a.q_lora_rank,
+        normal_init(gen, (D, a.q_lora_rank), dtype), zeros(a.q_lora_rank),
+        normal_init(gen, (a.q_lora_rank,
                       H * (a.nope_head_dim + a.rope_head_dim)), dtype),
-        _normal(gen, (D, a.kv_lora_rank + a.rope_head_dim), dtype),
+        normal_init(gen, (D, a.kv_lora_rank + a.rope_head_dim), dtype),
         zeros(a.kv_lora_rank),
-        _normal(gen, (a.kv_lora_rank,
+        normal_init(gen, (a.kv_lora_rank,
                       H * (a.nope_head_dim + a.v_head_dim)), dtype),
-        _normal(gen, (H * a.v_head_dim, D), dtype))
+        normal_init(gen, (H * a.v_head_dim, D), dtype))
 
 
 def _init_mlp(gen, cfg: ModelConfig, dtype, d_ff=None) -> SwiGLU:
     D, F = cfg.d_model, d_ff or cfg.d_ff
-    return SwiGLU(*(_normal(gen, s, dtype) for s in ((D, F), (D, F),
+    return SwiGLU(*(normal_init(gen, s, dtype) for s in ((D, F), (D, F),
                                                       (F, D))))
 
 
@@ -373,9 +373,9 @@ def _init_hybrid_arch(gen, cfg: ModelConfig, dtype) -> Dict:
     def lora():
         zeros = [torch.zeros((r, n * hd), dtype=dtype, device=gen.device)
                  for n in (H, K, K)]
-        return LoRA(_normal(gen, (D, r), dtype), zeros[0],
-                    _normal(gen, (D, r), dtype), zeros[1],
-                    _normal(gen, (D, r), dtype), zeros[2])
+        return LoRA(normal_init(gen, (D, r), dtype), zeros[0],
+                    normal_init(gen, (D, r), dtype), zeros[1],
+                    normal_init(gen, (D, r), dtype), zeros[2])
 
     return {"mamba_blocks": [[_init_mamba_block(gen, cfg, dtype)
                               for _ in range(inner)]
@@ -396,9 +396,9 @@ def _init_audio_arch(gen, cfg: ModelConfig, dtype) -> Dict:
                   torch.zeros(D, dtype=dtype, device=dev))
 
     def gmlp():
-        return GeluMLP(_normal(gen, (D, F), dtype),
+        return GeluMLP(normal_init(gen, (D, F), dtype),
                        torch.zeros(F, dtype=dtype, device=dev),
-                       _normal(gen, (F, D), dtype),
+                       normal_init(gen, (F, D), dtype),
                        torch.zeros(D, dtype=dtype, device=dev))
 
     return {"enc_blocks": [EncBlock(ln(), _init_attn(gen, cfg, dtype), ln(),
@@ -422,13 +422,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     them (its numbers differ: ``jax.random`` is another generator).
     ``"cuda"`` raises when no card is visible."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    return _init_tree(cfg, torch.Generator(device=dev).manual_seed(seed))
+
+
+def abstract_params(cfg: ModelConfig) -> LM:
+    """``init_params``' tree as ``device="meta"`` tensors: the same
+    modules, names, shapes and dtypes, built by the same code with
+    ``MetaDraws`` in place of the generator, and no storage (the
+    dry-run's params: deepseek-v2-236b alone is 471 GB of bf16)."""
+    return _init_tree(cfg, MetaDraws())
+
+
+def _init_tree(cfg: ModelConfig, gen) -> LM:
+    """The params of ``cfg`` drawn from ``gen`` (a ``torch.Generator`` or
+    ``MetaDraws``) on its device."""
+    dev = gen.device
     dtype = torch_dtype(cfg)
-    embed = _normal(gen, (cfg.vocab_size, cfg.d_model), dtype)
+    embed = normal_init(gen, (cfg.vocab_size, cfg.d_model), dtype)
     lm_head = (None if cfg.tie_embeddings else
-               _normal(gen, (cfg.d_model, cfg.vocab_size), dtype))
+               normal_init(gen, (cfg.d_model, cfg.vocab_size), dtype))
     projector = (None if cfg.frontend is None else
-                 _normal(gen, (cfg.frontend_dim, cfg.d_model), dtype))
+                 normal_init(gen, (cfg.frontend_dim, cfg.d_model), dtype))
     if cfg.family == "moe":
         parts = _init_moe_arch(gen, cfg, dtype)
     elif cfg.family == "ssm":
@@ -746,7 +760,9 @@ def _gqa_decode(x, p: Attention, cfg: ModelConfig, pos, theta, window, kc,
                 vc, lora: Optional[LoRA] = None):
     """One-token GQA decode; writes (kc, vc) in place at per-sequence
     ``pos`` (an int or a (B,) tensor: continuous-batching slots may
-    differ)."""
+    differ).  Under ``tuning.on("cp_decode")``, with a mesh in
+    ``sharding_context``, B == 1 and S % data == 0, the attention is
+    ``cp_decode_attention``."""
     q, k, v = _qkv(x, p, cfg, lora)
     B = x.shape[0]
     pos_vec = torch.as_tensor(pos, device=x.device).long().broadcast_to(
@@ -756,7 +772,15 @@ def _gqa_decode(x, p: Attention, cfg: ModelConfig, pos, theta, window, kc,
         k = rope(k, pos_vec[:, None], theta)
     kc = _update_cache(kc, k, pos_vec)
     vc = _update_cache(vc, v, pos_vec)
-    o = decode_attention(q, kc, vc, cache_len=pos_vec + 1, window=window)
+    mesh = current_mesh()
+    if (tuning.on("cp_decode") and mesh is not None and B == 1
+            and kc.shape[1] % mesh.shape["data"] == 0):
+        # the sequence-sharded cache: exchange softmax partials, not it
+        o = cp_decode_attention(q, kc, vc, cache_len=pos_vec + 1,
+                                mesh=mesh, window=window)
+    else:
+        o = decode_attention(q, kc, vc, cache_len=pos_vec + 1,
+                             window=window)
     return o.reshape(B, 1, -1) @ p.wo, kc, vc
 
 
@@ -1196,7 +1220,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
     seq, rope); ssm {"ssm": SSMCache}; hybrid {"k", "v"}: (n_super,
     batch, seq, K, hd), {"mamba", "tail": SSMCache}; audio {"k", "v"}
     and {"cross_k", "cross_v"} with ``enc_len`` rows (default the
-    config's ``n_frontend_tokens``)."""
+    config's ``n_frontend_tokens``).  ``device="meta"`` gives the tree
+    without storage (``abstract_cache``)."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
     cache = {n: torch.zeros(shape, dtype=dtype, device=dev)
@@ -1204,6 +1229,13 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int,
                                            enc_len).items()}
     cache.update(_ssm_caches(cfg, batch, dtype, dev))
     return cache
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq: int,
+                   enc_len: Optional[int] = None):
+    """``init_cache``'s tree as ``device="meta"`` tensors: shapes and
+    dtypes, no storage (the dry-run's caches)."""
+    return init_cache(cfg, batch, seq, enc_len, device="meta")
 
 
 def decode_step(cfg: ModelConfig, params: LM, cache: Dict, batch: Dict, *,

@@ -32,6 +32,10 @@ def prefill_step(cfg: ModelConfig, params, batch: Dict[str, Any], *,
     return transformer.unembed(cfg, params, hidden[:, -1:]), cache
 
 
-def serve_step(cfg: ModelConfig, params, cache, batch: Dict[str, Any]):
-    """batch = {"token": (B, 1) int, "pos": an int or (B,) ints}."""
-    return transformer.decode_step(cfg, params, cache, batch)
+def serve_step(cfg: ModelConfig, params, cache, batch: Dict[str, Any], *,
+               attn_backend: str = "cuda"):
+    """batch = {"token": (B, 1) int, "pos": an int or (B,) ints}.
+    ``attn_backend``: audio's cross-attention route (the other families'
+    decode attention is plain PyTorch)."""
+    return transformer.decode_step(cfg, params, cache, batch,
+                                   attn_backend=attn_backend)

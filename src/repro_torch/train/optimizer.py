@@ -64,6 +64,16 @@ def init_opt_state(params, cfg: AdamWConfig) -> OptState:
                     zeros())
 
 
+def abstract_opt_state(abstract_params, cfg: AdamWConfig) -> OptState:
+    """``init_opt_state`` over ``transformer.abstract_params``' meta
+    tree: the moments' shapes and dtypes, no storage (the dry-run's)."""
+    named = _named(abstract_params)
+    if not all(p.is_meta for p in named.values()):
+        raise ValueError("abstract_opt_state takes meta params "
+                         "(transformer.abstract_params)")
+    return init_opt_state(named, cfg)
+
+
 def lr_schedule(step, cfg: AdamWConfig):
     """Linear warm-up to ``cfg.lr``, then a cosine to 0 at
     ``total_steps``; f32, 0-d."""

@@ -26,6 +26,15 @@ check (``kernels.spmm.check_tiling``), and a launch that fails during
 the search raises: on the card a skipped candidate would hide a failing
 launch.  ``REPRO_TUNING=autotune`` forces a search even where the table
 has the key.
+
+The switches of the JAX package's ``repro.tuning`` live here too:
+``REPRO_TUNING`` is a comma-separated list of flags, read on every call
+(``flags()``, ``on(name)``).  Besides ``autotune`` they are the mesh
+paths' switches: ``serve_tp`` (weights not sharded over ``data``),
+``gqa_cache_seq`` and ``mla_cache_seq`` (the cache's sequence over
+``model``) in ``sharding.specs``, ``moe_ep`` (``models.moe``'s
+expert-parallel MoE) and ``cp_decode`` (``models.attention``'s
+sequence-parallel decode attention).
 """
 from __future__ import annotations
 
@@ -33,7 +42,7 @@ import json
 import os
 import statistics
 from pathlib import Path
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Set
 
 DEFAULT_TABLE_PATH = (Path(__file__).resolve().parents[2]
                       / "configs" / "tuned_blocks_torch.json")
@@ -48,10 +57,19 @@ KERNEL_GRIDS: Dict[str, Dict[str, tuple]] = {
 }
 
 
+def flags() -> Set[str]:
+    """The flags of ``REPRO_TUNING`` (comma-separated), as the JAX
+    package reads them."""
+    return set(filter(None, os.environ.get("REPRO_TUNING", "").split(",")))
+
+
+def on(name: str) -> bool:
+    return name in flags()
+
+
 def autotune_forced() -> bool:
-    """REPRO_TUNING=autotune (one of its comma-separated flags, as in the
-    JAX package) invalidates persisted winners."""
-    return "autotune" in os.environ.get("REPRO_TUNING", "").split(",")
+    """REPRO_TUNING=autotune invalidates persisted winners."""
+    return on("autotune")
 
 
 def shape_bucket(n: int) -> int:

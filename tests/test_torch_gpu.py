@@ -1434,3 +1434,74 @@ def test_train_step_cuda_matches_ref_on_the_card(cuda, dtype):
                                       batch)
     assert int(opt.step) == 1 and bool(torch.isfinite(metrics["loss"]))
     assert not torch.equal(before, params.blocks[0].attn.wk)
+
+
+# ----------------------------------------------------------------------
+# the dry-run's predictions and the mesh paths on one card
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_dryrun_argument_bytes_match_the_card(cuda, kind):
+    """The dry-run's per-chip argument bytes on the card mesh against
+    the bytes the same arguments request of the card's caching
+    allocator, within 1% + 2 MiB (its blocks round a request up)."""
+    import dataclasses
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import optimizer
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              dtype="bfloat16")
+    shape = InputShape("t", 256, 4, kind)
+    rec = dryrun.dry_run(cfg, shape, "card")
+    torch.cuda.synchronize()
+    def requested():
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    base = requested()
+    params = init_params(cfg, 0, device=cuda)
+    batch = {n: torch.zeros((4, 256), dtype=torch.int32, device=cuda)
+             for n in (("tokens", "labels") if kind == "train"
+                       else ("tokens",))}
+    opt = (optimizer.init_opt_state(params, optimizer.AdamWConfig())
+           if kind == "train" else None)
+    grown = requested() - base
+    want = rec["memory_analysis"]["argument_size_in_bytes"]
+    assert abs(grown - want) <= 0.01 * want + 2 * 2**20, (grown, want)
+    del params, batch, opt
+
+
+def test_moe_ep_on_a_one_card_mesh(cuda, monkeypatch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe
+    from repro_torch.sharding.context import sharding_context
+    cfg = get_config("deepseek-v2-236b").reduced()
+    cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=64.0))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.init_moe_params(gen, cfg, torch.float32)
+    x = torch.randn((4, 8, cfg.d_model), generator=gen, device=cuda) * 0.5
+    want, want_aux = moe.moe_block(x, p, cfg)
+    monkeypatch.setenv("REPRO_TUNING", "moe_ep")
+    with sharding_context(make_host_mesh(1, 4, device=cuda)):
+        got, aux = moe.moe_block(x, p, cfg)
+    _close(got, want, 1e-4, 0)
+    _close(aux, want_aux, 1e-6, 0)
+
+
+@pytest.mark.parametrize("window", [None, 7])
+def test_cp_decode_on_a_one_card_mesh(cuda, window):
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import attention
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, kc, vc = (torch.randn(s, generator=gen, device=cuda)
+                 for s in ((1, 1, 4, 16), (1, 64, 2, 16), (1, 64, 2, 16)))
+    want = attention.decode_attention(q, kc, vc, cache_len=49, window=window)
+    got = attention.cp_decode_attention(
+        q, kc, vc, cache_len=49, window=window,
+        mesh=make_host_mesh(8, 1, device=cuda))
+    _close(got, want, 2e-5, 0)

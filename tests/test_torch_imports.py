@@ -161,3 +161,38 @@ def test_span_names_missing_from_the_port_are_items_5_and_8():
                  "health.alert", "qos.grant", "qos.preempt", "ops."):
         assert name in ours, name
     assert not ours - theirs, ours - theirs
+
+
+ITEM_17_NAMES = {   # the dry-run, the roofline, the rules and mesh paths
+    "repro_torch.sharding.specs": ("param_specs", "cache_specs",
+                                   "batch_specs", "per_chip_bytes",
+                                   "logical_axes", "shard_if_divisible"),
+    "repro_torch.sharding.context": ("sharding_context", "current_mesh"),
+    "repro_torch.roofline.analysis": ("roofline_terms", "model_flops"),
+    "repro_torch.roofline.report": ("build_rows", "markdown", "main"),
+    "repro_torch.launch.inputs": ("input_specs", "step_arguments"),
+    "repro_torch.launch.dryrun": ("dry_run", "run_combo", "main"),
+    "repro_torch.launch.mesh": ("make_production_mesh", "check_one_device"),
+    "repro_torch.models.transformer": ("abstract_params", "abstract_cache"),
+    "repro_torch.train.optimizer": ("abstract_opt_state",),
+    "repro_torch.tuning": ("flags", "on"),
+    "repro_torch.models.moe": ("_moe_block_ep", "route"),
+    "repro_torch.models.attention": ("cp_decode_attention",),
+}
+
+
+def test_dryrun_roofline_and_sharding_twins_import_without_jax_or_repro():
+    """The modules and names of the dry-run slice, under the refusing
+    import hook of the probe above."""
+    code = PROBE.split("import repro_torch\n")[0] + (
+        "import importlib\n"
+        f"for mod, attrs in {ITEM_17_NAMES!r}.items():\n"
+        "    m = importlib.import_module(mod)\n"
+        "    assert all(callable(getattr(m, a)) for a in attrs), mod\n"
+        "print('ok')\n")
+    env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "ok"

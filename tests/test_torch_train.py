@@ -36,6 +36,7 @@ import repro_torch.configs as tconfigs  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
+from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.models import transformer as ttf  # noqa: E402
 from repro_torch.train import checkpoint as tckpt  # noqa: E402
 from repro_torch.train import data as tdata  # noqa: E402
@@ -481,9 +482,11 @@ def test_launcher_refuses_what_jax_refuses(tmp_path, capsys):
         tlaunch.run("llava-next-34b", steps=1, device="cpu")
     with pytest.raises(SystemExit):
         tlaunch.run("whisper-base", steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
-        tlaunch.run("smollm-360m", steps=1, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
+    two_cards = Mesh(2, 1, [torch.device("cuda", 0),
+                            torch.device("cuda", 1)])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 19"):
+        tlaunch.run("smollm-360m", steps=1, mesh=two_cards, device="cpu")
+    with pytest.raises(NotImplementedError, match="256 devices.*item 19"):
         tlaunch.main(["--production-mesh", "--device", "cpu"])
     path = tmp_path / "run.npz"
     params, losses = tlaunch.run("smollm-360m", steps=2, batch=2, seq=16,

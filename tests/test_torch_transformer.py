@@ -235,18 +235,22 @@ def test_init_params_draws_the_moe_shapes_from_a_seed(arch):
 @pytest.mark.parametrize("arch,item", [("llava-next-34b", 15)])
 def test_other_families_name_the_roadmap_item(arch, item):
     """The last family (item 15: vlm) is ported: its params and cache
-    build.  What is left of Queue 1 (item 17, the mesh) names its item
-    where the training launcher refuses a mesh."""
+    build.  What is left of Queue 1 (item 19, placement across cards)
+    names its item where the training launcher refuses a mesh over two
+    cards."""
     from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import Mesh
     cfg = tconfigs.get_config(arch).reduced()
     params = ttf.init_params(cfg, 0, device="cpu")
     assert tuple(params.projector.shape) == (cfg.frontend_dim, cfg.d_model)
     cache = ttf.init_cache(cfg, 1, 8, device="cpu")
     assert tuple(cache["k"].shape) == (cfg.n_layers, 1, 8, cfg.n_kv_heads,
                                        cfg.resolved_head_dim)
+    two_cards = Mesh(1, 2, [torch.device("cuda", 0),
+                            torch.device("cuda", 1)])
     with pytest.raises(NotImplementedError,
-                       match=f"Queue 1 item {item + 2}\\)"):
-        launch_train.run(arch, mesh=object(), device="cpu")
+                       match=f"Queue 1 item {item + 4}$"):
+        launch_train.run(arch, mesh=two_cards, device="cpu")
 
 
 def test_init_params_draws_the_jax_shapes_from_a_seed():
