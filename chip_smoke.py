@@ -232,7 +232,34 @@ the run with a non-zero exit code:
    hd 256) over S = 524,288 cached positions in f32, one layer:
    ``cp_decode_attention`` on an 8 x 1 mesh against
    ``decode_attention``, plain and with gemma3's window of 1,024
-   (within 2e-5), each timed beside the plain decode.
+   (within 2e-5), each timed beside the plain decode.  Both run on
+   inputs placed by the sharding rules: on four cards their shards
+   are on distinct cards.
+12. mesh: placement across cards (``sharding.placement``), the same
+   code on any number of cards; on one card every shard shares it (a
+   line says so: the cross-card checks need four).  (A) zamba2-7b at
+   full width, B = 1, bf16 (f32 at S = 8,192), cp_decode on a 4 x 1
+   mesh: params placed by ``param_specs``, the cache by ``cache_specs``
+   drawn block by block on each card from generators seeded by the
+   block, filled up to S - 4, then 3 decode steps; cut to 12 layers (2
+   super-blocks): f32 logits and written cache entries within 2e-5 of
+   no mesh, bf16 at S = 524,288 its max error printed (as [ssm] prints
+   zamba2's bf16); each shard's placed bytes ``per_chip_bytes``.  (B)
+   deepseek-v2 cut to 3 layers, bf16 prefill 2 x 2048 under moe_ep on a
+   1 x 4 mesh: bitwise the same mesh on plain params; against no mesh
+   the max error and the tokens routed otherwise, printed ([moe]'s bf16
+   rule); the bytes copied are the tokens out and the partials back,
+   none of the experts.  (C) smollm-360m, ``launch.train.run(mesh=
+   make_host_mesh(4, 1))``: an f32 step at 8 x 128 within LOSS_TOL /
+   GRAD_TOL of no mesh and the same AdamW, then 5 bf16 steps at 8 x
+   2048 (s a step, tokens/s, peak per card, flash launches per card).  With four or more cards: zamba2-7b's 81 layers
+   over 524,288 positions (each card's requested bytes
+   ``per_chip_bytes``, ms a step, tokens/s), and the cut model, (B)
+   and (C) on distinct cards bitwise the one-card mesh; copy bytes and
+   wall times (every card synchronized).
+
+``python3 chip_smoke.py --phase mesh`` builds the kernels and runs the
+mesh phase alone (the four-card call).
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Needs the repo's
@@ -240,8 +267,10 @@ the last line is ``{"ok": true, "device": {...}}``.  Needs the repo's
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -275,6 +304,13 @@ DRYRUN_ARCH = "smollm-360m"      # [dryrun]: the [train] and [llm] shapes
 DRYRUN_ARG_TOL = (0.01, 2 << 20)  # rel, bytes: the argument-bytes check
 EP_B, EP_S, EP_MESH = 2, 256, (1, 4)   # [dryrun] moe_ep, deepseek-v2 f32
 CP_ARCH, CP_S, CP_MESH = "gemma3-4b", 524_288, (8, 1)  # long_500k decode
+MESH_ARCH, MESH_S, MESH_CUT = "zamba2-7b", 524_288, 12  # [mesh] (A)
+MESH_F32_S, MESH_STEPS = 8192, 3   # (A) in f32; decode steps from S - 4
+MESH_TRAIN_F32 = (8, 128)        # (C): the f32 step, B x S
+MESH_TRAIN_STEPS = 5             # (C): bf16 steps at TRAIN_B x TRAIN_S
+MESH_BF16_REL = 5e-2             # (A), (B) bf16 vs no mesh: ||a-b|| / ||b||
+MESH_FLIP_SHARE = 1 / 32         # (B): most tokens routed otherwise a layer
+LOSS_TOL = (1e-5, 1e-4)          # atol, rtol: tests/test_torch_train.py's
 MOE_MODELS = (("deepseek-v2-236b", 3, ("float32", "bfloat16")),
               ("llama4-maverick-400b-a17b", 2, ("bfloat16",)))
 WIDE_FANOUT = 64                 # benchmarks/bench_accuracy.py's fanout
@@ -2538,19 +2574,20 @@ def llm_phase(torch, kops, launches, card):
 # ----------------------------------------------------------------------
 
 def _moe_inputs(transformer, fn):
-    """Run ``fn`` with ``transformer.moe_block`` recording each MoE
-    layer's (input, params); returns (fn's result, the records)."""
-    seen, inner = [], transformer.moe_block
+    """Run ``fn`` with ``transformer.moe_block_stats`` (the forward's MoE
+    layers) recording each MoE layer's (input, params); returns (fn's
+    result, the records)."""
+    seen, inner = [], transformer.moe_block_stats
 
     def recording(x, p, cfg):
         seen.append((x, p))
         return inner(x, p, cfg)
 
-    transformer.moe_block = recording
+    transformer.moe_block_stats = recording
     try:
         return fn(), seen
     finally:
-        transformer.moe_block = inner
+        transformer.moe_block_stats = inner
 
 
 def _moe_block_ms(torch, moe, x, p, cfg):
@@ -3470,14 +3507,16 @@ def dryrun_cell(torch, kops, launches, kind, B, S, card):
 
 
 def moe_ep_check(torch, card):
-    """moe_block under moe_ep on an EP_MESH one-card mesh against the
-    baseline: deepseek-v2's full-width MoE block in f32."""
-    import os
-
+    """moe_block under moe_ep on an EP_MESH mesh against the baseline:
+    deepseek-v2's full-width MoE block in f32, its router and experts
+    placed by the sharding rules (their shards on distinct cards where
+    there are four)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe
+    from repro_torch.sharding import placement
     from repro_torch.sharding.context import sharding_context
+    from repro_torch.sharding.specs import _param_rule
     cfg = get_config(MLA_ARCH)
     cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
         cfg.moe, capacity_factor=64.0))
@@ -3487,17 +3526,16 @@ def moe_ep_check(torch, card):
                     device=DEVICE) * 0.5
     want, want_aux = moe.moe_block(x, p, cfg)
     mesh = make_host_mesh(*EP_MESH, device=DEVICE)
-    old = os.environ.get("REPRO_TUNING")
-    os.environ["REPRO_TUNING"] = "moe_ep"
-    try:
-        with sharding_context(mesh):
-            got, aux = moe.moe_block(x, p, cfg)
-            ep_ms = time_ms(torch, lambda: moe.moe_block(x, p, cfg), reps=5)
-    finally:
-        if old is None:
-            del os.environ["REPRO_TUNING"]
-        else:
-            os.environ["REPRO_TUNING"] = old
+    placed = placement.place_module(p, {
+        n: _param_rule(mesh, ("blocks", "moe", n), tuple(t.shape),
+                       ("data",), ("model",))
+        for n, t in p.named_parameters()}, mesh)
+    routed = ("router", "w_gate", "w_up", "w_down")
+    placed = placement.materialize(placed, fn=lambda n, t: t if n in routed
+                                   else placement.gather(t))
+    with _tuning("moe_ep"), sharding_context(mesh):
+        got, aux = moe.moe_block(x, placed, cfg)
+        ep_ms = _wall_ms(torch, lambda: moe.moe_block(x, placed, cfg), 5)
     base_ms = time_ms(torch, lambda: moe.moe_block(x, p, cfg), reps=5)
     err = assert_close(torch, got, want, 1e-4, 0, "moe_ep vs moe_block")
     aux_err = abs(float(aux) - float(want_aux))
@@ -3507,10 +3545,12 @@ def moe_ep_check(torch, card):
     log(f"[dryrun] moe_ep {MLA_ARCH} MoE block f32 ({m.n_experts} experts "
         f"of {m.d_ff_expert}, top-{m.top_k}, capacity "
         f"{moe._capacity(EP_B * EP_S, m.n_experts, m.top_k, 64.0)}) on "
-        f"{EP_B}x{EP_S} tokens, {EP_MESH[0]} x {EP_MESH[1]} mesh on {card}:"
+        f"{EP_B}x{EP_S} tokens, {EP_MESH[0]} x {EP_MESH[1]} mesh of "
+        f"placed experts ({_where(mesh)}) on {card}:"
         f" max err {err:.3e} against moe_block (atol 1e-4), aux "
-        f"{aux_err:.1e}; {ep_ms:.3f} ms against {base_ms:.3f} ms")
-    del p, x, want, got
+        f"{aux_err:.1e}; {ep_ms:.3f} ms (wall, every card synchronized) "
+        f"against {base_ms:.3f} ms")
+    del p, placed, x, want, got
     torch.cuda.empty_cache()
 
 
@@ -3520,6 +3560,7 @@ def cp_decode_check(torch, card):
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import attention
+    from repro_torch.sharding import placement
     cfg = get_config(CP_ARCH)
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -3528,23 +3569,27 @@ def cp_decode_check(torch, card):
               for _ in range(2))
     clen = CP_S - 3
     mesh = make_host_mesh(*CP_MESH, device=DEVICE)
+    pk, pv = (placement.place(c, (None, "data", None, None), mesh)
+              for c in (kc, vc))
     parts = []
     for window in (None, cfg.sliding_window):
         kw = dict(cache_len=clen, window=window)
         want = attention.decode_attention(q, kc, vc, **kw)
-        got = attention.cp_decode_attention(q, kc, vc, mesh=mesh, **kw)
+        got = attention.cp_decode_attention(q, pk, pv, mesh=mesh, **kw)
         err = assert_close(torch, got, want, 2e-5, 0,
                            f"cp_decode window {window}")
-        cp_ms = time_ms(torch, lambda: attention.cp_decode_attention(
-            q, kc, vc, mesh=mesh, **kw), reps=5)
+        cp_ms = _wall_ms(torch, lambda: attention.cp_decode_attention(
+            q, pk, pv, mesh=mesh, **kw), 5)
         plain_ms = time_ms(torch, lambda: attention.decode_attention(
             q, kc, vc, **kw), reps=5)
         parts.append(f"window {window}: max err {err:.3e}, {cp_ms:.3f} ms "
                      f"against {plain_ms:.3f} ms")
     log(f"[dryrun] cp_decode {CP_ARCH} heads ({H} over {K}, hd {hd}) over "
         f"S={CP_S} f32, cache_len {clen}, {CP_MESH[0]} x {CP_MESH[1]} "
-        f"mesh on {card} (atol 2e-5): " + "; ".join(parts))
-    del q, kc, vc
+        f"mesh of a placed cache ({_where(mesh)}) on {card} (atol 2e-5; "
+        "cp_decode ms by wall clock, every card synchronized): "
+        + "; ".join(parts))
+    del q, kc, vc, pk, pv
     torch.cuda.empty_cache()
 
 
@@ -3559,7 +3604,706 @@ def dryrun_phase(torch, kops, launches, card):
     return n_tc
 
 
+# ----------------------------------------------------------------------
+# phase 12: placement across cards
+# ----------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _tuning(value):
+    """REPRO_TUNING set to ``value`` inside, restored after."""
+    old = os.environ.get("REPRO_TUNING")
+    os.environ["REPRO_TUNING"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["REPRO_TUNING"]
+        else:
+            os.environ["REPRO_TUNING"] = old
+
+
+def _home(torch):
+    """Card 0 (the meshes' home), or DEVICE itself where it is the CPU."""
+    return torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(
+        DEVICE)
+
+
+def _cards(torch):
+    return [torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())]
+
+
+def _sync_all(torch):
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _wall_ms(torch, fn, reps):
+    """Median wall time of ``fn`` in ms, every card synchronized before
+    and after each call (``time_ms`` times one card's stream only)."""
+    fn()
+    out = []
+    for _ in range(reps):
+        _sync_all(torch)
+        t0 = time.perf_counter()
+        fn()
+        _sync_all(torch)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _trace_split(torch, fn, devices, name):
+    """One call of ``fn`` under ``torch.profiler`` (CUDA activity only;
+    the trace goes to build/mesh_trace_<name>.json): the host's issue ms
+    (until ``fn`` returned), the wall ms (every card synchronized after),
+    each card's busy ms (the union of its kernels', copies' and sets'
+    intervals), the ms that two or more cards were busy at once, and the
+    stream waits and copies between cards that the host issued."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+    _sync_all(torch)
+    with profile(activities=[ProfilerActivity.CUDA if DEVICE == "cuda"
+                             else ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        issue = (time.perf_counter() - t0) * 1e3
+        _sync_all(torch)
+        wall = (time.perf_counter() - t0) * 1e3
+    path = ROOT / "build" / f"mesh_trace_{name}.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    spans = {}
+    waits = ptop = 0
+    for e in json.loads(path.read_text()).get("traceEvents", []):
+        cat, args = e.get("cat", ""), e.get("args") or {}
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e:
+            dev = args.get("device", e.get("pid"))
+            spans.setdefault(dev, []).append((float(e["ts"]),
+                                              float(e["ts"]) + e["dur"]))
+            ptop += "PtoP" in e.get("name", "")
+        elif e.get("name") == "cudaStreamWaitEvent":
+            waits += 1
+    busy, edges = {}, []
+    for dev, iv in spans.items():
+        iv.sort()
+        merged = [list(iv[0])]
+        for a, b in iv[1:]:
+            if a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        busy[dev] = sum(b - a for a, b in merged) / 1e3
+        edges += [(a, 1) for a, _ in merged] + [(b, -1) for _, b in merged]
+    both, live, last = 0.0, 0, None
+    for t, d in sorted(edges):
+        if live >= 2:
+            both += t - last
+        live, last = live + d, t
+    return {"issue_ms": issue, "wall_ms": wall,
+            "busy_ms": {str(k): round(v, 3) for k, v in sorted(
+                busy.items(), key=lambda kv: str(kv[0]))},
+            "two_or_more_busy_ms": round(both / 1e3, 3),
+            "stream_waits": waits, "copies_between_cards": ptop,
+            "trace": str(path.relative_to(ROOT))}
+
+
+def _where(mesh):
+    devs = mesh.distinct_devices()
+    return (f"all {mesh.size} shards on {devs[0]}" if len(devs) == 1 else
+            f"{mesh.size} shards on {len(devs)} cards")
+
+
+def _requested_on(torch, dev):
+    return torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+
+
+def _sent(mesh, before):
+    """{kind: bytes} copied between the mesh's shards since ``before``."""
+    return {k: v - before.get(k, 0) for k, v in mesh.sent.items()
+            if v != before.get(k, 0)}
+
+
+def _zamba2_cache(torch, cfg, S, mesh):
+    """zamba2's B = 1 cache placed by ``cache_specs`` (k and v's sequence
+    over ``data``, the SSM conv and state replicated), each block drawn
+    on its card from a generator seeded by its block (replicas alike):
+    k and v normal up to S - 4 and zero after, conv and state normal."""
+    from repro_torch.configs import InputShape
+    from repro_torch.models import transformer
+    from repro_torch.models.ssm import SSMCache
+    from repro_torch.sharding import placement
+    from repro_torch.sharding.specs import cache_specs
+    abstract = transformer.abstract_cache(cfg, 1, S)
+    specs = cache_specs(cfg, abstract, mesh, InputShape("long", S, 1,
+                                                        "decode"))
+    fill = S - 4
+
+    def leaf(j, name, a, spec):
+        ranges = placement.block_ranges(a.shape, spec, mesh)
+        uniq = sorted(set(ranges))
+
+        def make(i, shape, dev):
+            gen = torch.Generator(device=dev).manual_seed(
+                1000 * j + uniq.index(ranges[i]))
+            t = torch.randn(shape, generator=gen, device=dev,
+                            dtype=a.dtype)
+            if name in ("k", "v"):          # (n_super, B, S, K, hd)
+                t[:, :, max(fill - ranges[i][2][0], 0):] = 0
+            return t
+        return placement.place_blocks(a.shape, a.dtype, spec, mesh, make)
+
+    out = {}
+    for j, (name, a) in enumerate(abstract.items()):
+        if isinstance(a, SSMCache):
+            out[name] = SSMCache(*(leaf(10 * j + f, name, t, sp) for f, (
+                t, sp) in enumerate(zip(a, specs[name]))))
+        else:
+            out[name] = leaf(j, name, a, specs[name])
+    return out, abstract, specs
+
+
+def _written(torch, cache, S):
+    """{name: CPU tensor}: the k and v entries at S - 4 ... S - 2 (in the
+    last data shard's block of a placed cache) and the SSM states (the
+    home's replica)."""
+    from repro_torch.sharding.placement import Placed
+    out = {}
+    for n in ("k", "v"):
+        c = cache[n]
+        c = c.blocks[-1] if isinstance(c, Placed) else c
+        out[n] = c[:, :, c.shape[2] - 4:c.shape[2] - 1].float().cpu()
+    for grp in ("mamba", "tail"):
+        for f in ("conv", "state"):
+            t = getattr(cache[grp], f)
+            t = t.blocks[0] if isinstance(t, Placed) else t
+            out[f"{grp}.{f}"] = t.float().cpu()
+    return out
+
+
+def _decode_run(torch, cfg, params, cache, S, mesh):
+    """MESH_STEPS decode steps from pos S - 4 under cp_decode (with
+    ``mesh`` in the sharding context, or none): (logits (steps, V) on the
+    CPU, ms a step by wall clock, every card synchronized)."""
+    import numpy as np
+
+    from repro_torch.models import transformer
+    from repro_torch.sharding.context import sharding_context
+    home = mesh.home if mesh is not None else _home(torch)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, MESH_STEPS)
+    logits, times = [], []
+    with _tuning("cp_decode"), (sharding_context(mesh) if mesh is not None
+                                else contextlib.nullcontext()):
+        for t in range(MESH_STEPS):
+            _sync_all(torch)
+            t0 = time.perf_counter()
+            lg, _ = transformer.decode_step(
+                cfg, params, cache, {"token": torch.tensor(
+                    [[int(toks[t])]], device=home), "pos": S - 4 + t})
+            _sync_all(torch)
+            times.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg[:, 0].float().cpu())
+    return torch.cat(logits), times
+
+
+def _rel_err(torch, a, b):
+    """||a - b|| / ||b|| over the whole tensor, in f64."""
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp(min=1e-300))
+
+
+def _hold_rel(torch, got, want, bound, what):
+    """Each (name, tensor) of ``got`` finite and within ``bound`` of
+    ``want``'s in relative norm.  Returns {name: relative error}."""
+    out = {}
+    for n, a in got.items():
+        check(bool(torch.isfinite(a).all()), f"{what}: {n} not finite")
+        if a.numel():
+            out[n] = _rel_err(torch, a, want[n])
+            check(out[n] <= bound, f"{what}: {n} relative error "
+                  f"{out[n]:.3e} > {bound}")
+    return out
+
+
+def _untouched_elsewhere(torch, cache, plain, S):
+    """Every k and v entry of the placed ``cache`` outside the written
+    positions S - 4 ... S - 2 bitwise the no-mesh ``plain`` cache's (both
+    hold the same seeded fill): a write into a wrong place shows."""
+    lo, hi = S - 4, S - 4 + MESH_STEPS
+    for n in ("k", "v"):
+        for blk, rng in zip(cache[n].blocks, cache[n].ranges):
+            s0, s1 = rng[2]
+            a, b = (min(max(x - s0, 0), s1 - s0) for x in (lo, hi))
+            pl = plain[n][:, :, s0:s1]
+            check(torch.equal(blk[:, :, :a], pl[:, :, :a])
+                  and torch.equal(blk[:, :, b:], pl[:, :, b:]),
+                  f"[mesh] zamba2: {n} entries of the block at {s0} differ "
+                  "from no mesh outside the written positions")
+
+
+def _hold_all(torch, got, want, atol, rtol, what):
+    """Each (name, tensor) of ``got`` within (atol, rtol) of ``want``'s;
+    bitwise where atol is None.  Returns the max error."""
+    err = 0.0
+    for n, a in got.items():
+        b = want[n]
+        if atol is None:
+            if not torch.equal(a, b):
+                check(False, f"{what}: {n} not bitwise (max err "
+                      f"{max_err(torch, a, b):.3e})")
+        elif a.numel():
+            err = max(err, assert_close(torch, a, b, atol, rtol,
+                                        f"{what}: {n}"))
+    return err
+
+
+def mesh_decode(torch, cards, card):
+    """(A): zamba2-7b under cp_decode on a 4 x 1 mesh, cut to MESH_CUT
+    layers (f32 at MESH_F32_S, bf16 at MESH_S) with every shard on card
+    0, against no mesh; with four cards, the bf16 cut on distinct cards
+    bitwise the one-card mesh, then all the layers."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer
+    from repro_torch.sharding import placement
+    from repro_torch.sharding.specs import param_specs, per_chip_bytes
+    home = _home(torch)
+    one = Mesh(4, 1, [home] * 4)
+    cut = dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_CUT)
+    for dtype, S in (("float32", MESH_F32_S), ("bfloat16", MESH_S)):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(cut, dtype=dtype)
+        params = transformer.init_params(cfg, 0, device=home)
+        pspecs = param_specs(cfg, params, one)
+        pp = placement.place_module(params, pspecs, one)
+        cache, abstract, cspecs = _zamba2_cache(torch, cfg, S, one)
+        want_b = (per_chip_bytes(params, pspecs, one)
+                  + per_chip_bytes(abstract, cspecs, one))
+        check(placement.shard_bytes((pp, cache)) == [want_b] * 4,
+              f"[mesh] zamba2 {dtype}: shard bytes "
+              f"{placement.shard_bytes((pp, cache))}, per_chip_bytes "
+              f"{want_b}")
+        plain = placement.gather_tree(cache, home)
+        before = dict(one.sent)
+        lg, ms = _decode_run(torch, cfg, pp, cache, S, one)
+        sent = _sent(one, before)
+        got = dict(_written(torch, cache, S), logits=lg)
+        lw, ms_plain = _decode_run(torch, cfg, params, plain, S, None)
+        want = dict(_written(torch, plain, S), logits=lw)
+        _untouched_elsewhere(torch, cache, plain, S)
+        del plain
+        what = f"[mesh] zamba2 {dtype} S={S} 4 x 1 vs no mesh"
+        if dtype == "float32":
+            err = _hold_all(torch, got, want, 2e-5, 0, what)
+            held = "(atol 2e-5)"
+        else:   # the softmax splits over 4 blocks: bf16 rounds otherwise
+            rel = _hold_rel(torch, got, want, MESH_BF16_REL, what)
+            err = max(max_err(torch, a, want[n]) for n, a in got.items()
+                      if a.numel())
+            held = (f"(bf16: relative error {max(rel.values()):.3e} at "
+                    f"most, bound {MESH_BF16_REL}: "
+                    + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
+                    + ")")
+        log(f"[mesh] (A) {MESH_ARCH} {dtype} cut to {MESH_CUT} layers, "
+            f"B=1, S={S}, cp_decode, 4 x 1 ({_where(one)}): each shard "
+            f"{want_b} B = per_chip_bytes (params + cache); {MESH_STEPS} "
+            f"steps from pos {S - 4}: logits and written cache entries "
+            f"within {err:.3e} of no mesh {held}; the other cache entries "
+            "bitwise no mesh's; "
+            f"ms a step {', '.join(f'{t:.1f}' for t in ms)} (no mesh "
+            f"{', '.join(f'{t:.1f}' for t in ms_plain)}); bytes between "
+            f"shards over the steps {sent} ({time.perf_counter() - t0:.1f}"
+            " s)")
+        if dtype == "bfloat16" and len(cards) >= 4:
+            across = Mesh(4, 1, cards[:4])
+            pp4 = placement.place_module(params, param_specs(
+                cfg, params, across), across)
+            cache4, _, _ = _zamba2_cache(torch, cfg, S, across)
+            before = dict(across.sent)
+            lg4, ms4 = _decode_run(torch, cfg, pp4, cache4, S, across)
+            sent4 = _sent(across, before)
+            _hold_all(torch, dict(_written(torch, cache4, S), logits=lg4),
+                      got, None, None, "[mesh] zamba2 cut on four cards "
+                      "vs one card")
+            check(sent4 == sent, f"[mesh] zamba2 cut: bytes {sent4} on four"
+                  f" cards, {sent} on one")
+            log(f"[mesh] (A) {MESH_ARCH} bf16 cut to {MESH_CUT} layers, "
+                f"S={S}, 4 x 1 on {len(across.distinct_devices())} cards: "
+                "logits and written entries bitwise the one-card mesh, the "
+                f"same bytes between shards; ms a step "
+                f"{', '.join(f'{t:.1f}' for t in ms4)}")
+            del pp4, cache4
+        del params, pp, cache
+        torch.cuda.empty_cache()
+    if len(cards) >= 4:
+        mesh_decode_full(torch, cards, card)
+
+
+def mesh_decode_full(torch, cards, card):
+    """(A) at full depth on four cards: all the layers over MESH_S
+    positions, each card's requested bytes against ``per_chip_bytes``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer
+    from repro_torch.sharding import placement
+    from repro_torch.sharding.specs import param_specs, per_chip_bytes
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MESH_ARCH), dtype="bfloat16")
+    mesh = Mesh(4, 1, cards[:4])
+    _sync_all(torch)
+    torch.cuda.empty_cache()
+    base = [_requested_on(torch, d) for d in mesh.devices]
+    params = transformer.init_params(cfg, 0, device=mesh.home)
+    pspecs = param_specs(cfg, params, mesh)
+    pp = placement.place_module(params, pspecs, mesh)
+    del params
+    cache, abstract, cspecs = _zamba2_cache(torch, cfg, MESH_S, mesh)
+    _sync_all(torch)
+    held = [_requested_on(torch, d) - b for d, b in zip(mesh.devices, base)]
+    want_p = per_chip_bytes(transformer.abstract_params(cfg), pspecs, mesh)
+    want_c = per_chip_bytes(abstract, cspecs, mesh)
+    check(held == [want_p + want_c] * 4, f"[mesh] zamba2-7b full: each "
+          f"card holds {held} B, per_chip_bytes {want_p + want_c}")
+    setup_s = time.perf_counter() - t0
+    for d in mesh.devices:
+        torch.cuda.reset_peak_memory_stats(d)
+    before = dict(mesh.sent)
+    lg, ms = _decode_run(torch, cfg, pp, cache, MESH_S, mesh)
+    sent = _sent(mesh, before)
+    check(bool(torch.isfinite(lg).all()) and tuple(lg.shape) == (
+        MESH_STEPS, cfg.vocab_size), f"[mesh] zamba2-7b full: logits "
+          f"{tuple(lg.shape)}")
+    peaks = [torch.cuda.max_memory_allocated(d) / 2 ** 30
+             for d in mesh.devices]
+    step = statistics.median(ms[1:])
+    from repro_torch.sharding.context import sharding_context
+    tok = torch.tensor([[7]], device=mesh.home)
+    with _tuning("cp_decode"), sharding_context(mesh):
+        split = _trace_split(torch, lambda: transformer.decode_step(
+            cfg, pp, cache, {"token": tok, "pos": MESH_S - 1}), mesh.devices,
+            "decode")
+    log(f"[mesh] (A) {MESH_ARCH} bf16 all {cfg.n_layers} layers, B=1, "
+        f"S={MESH_S}, cp_decode, 4 x 1 on 4 cards: each card's allocator "
+        f"holds {held[0]} B requested = per_chip_bytes {want_p} (params) "
+        f"+ {want_c} (cache); placed in {setup_s:.1f} s; {MESH_STEPS} "
+        f"steps {', '.join(f'{t:.1f}' for t in ms)} ms (wall, every card "
+        f"synchronized; {step:.1f} ms a step after the first, "
+        f"{1e3 / step:.2f} tokens/s); peak "
+        f"{', '.join(f'{p:.2f}' for p in peaks)} GiB per card; bytes "
+        f"between shards over the steps {sent}")
+    log(f"[mesh] (A) {MESH_ARCH} one more step at pos {MESH_S - 1}, traced "
+        f"(torch.profiler): {json.dumps(split)}")
+    del pp, cache
+    torch.cuda.empty_cache()
+
+
+def _moe_prefill(torch, kops, cfg, params, tokens, mesh):
+    """deepseek-v2's bf16 prefill through "cuda" (under moe_ep in
+    ``mesh``'s sharding context, or none): ({name: CPU tensor}, the MoE
+    layers' (x, router) inputs, wall ms, flash launches)."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.step import prefill_step
+    from repro_torch.sharding import placement
+    from repro_torch.sharding.context import sharding_context
+    kops.reset_launch_counts()
+    with (_tuning("moe_ep") if mesh is not None
+          else contextlib.nullcontext()), (
+            sharding_context(mesh) if mesh is not None
+            else contextlib.nullcontext()):
+        _sync_all(torch)
+        t0 = time.perf_counter()
+        (lg, cache), seen = _moe_inputs(transformer, lambda: prefill_step(
+            cfg, params, {"tokens": tokens}, attn_backend="cuda"))
+        _sync_all(torch)
+        ms = (time.perf_counter() - t0) * 1e3
+    n = kops.launch_counts()["flash_attention"]
+    out = {"logits": lg.float().cpu()}
+    out.update({k: v.float().cpu() for k, v in cache.items()})
+    routes = [(x, placement.gather(p.router, x.device)) for x, p in seen]
+    return out, routes, ms, n
+
+
+def mesh_moe(torch, kops, launches, cards, card):
+    """(B): deepseek-v2 cut to 3 layers, bf16 prefill under moe_ep on
+    placed params, 1 x 4, against the same mesh on plain params
+    (bitwise) and no mesh; with four cards, on distinct cards bitwise
+    the one-card mesh."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import moe, transformer
+    from repro_torch.sharding import placement
+    from repro_torch.sharding.specs import param_specs
+    t0 = time.perf_counter()
+    arch, n_layers, _ = MOE_MODELS[0]
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              dtype="bfloat16")
+    home = _home(torch)
+    params = transformer.init_params(cfg, 0, device=home)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MOE_B, MOE_S)), device=home)
+    want, wroutes, ms_plain, n_plain = _moe_prefill(torch, kops, cfg,
+                                                    params, tokens, None)
+    one = Mesh(1, 4, [home] * 4)
+    views, _, ms_views, n_views = _moe_prefill(torch, kops, cfg, params,
+                                               tokens, one)
+    pp = placement.place_module(params, param_specs(cfg, params, one), one)
+    before = dict(one.sent)
+    got, routes, ms, n = _moe_prefill(torch, kops, cfg, pp, tokens, one)
+    sent = _sent(one, before)
+    launches["flash_attention"] += n + n_plain + n_views
+    check(n == n_plain == n_views == n_layers, f"[mesh] {arch}: flash "
+          f"launches {n} placed, {n_plain} without a mesh, {n_views} on "
+          f"plain params; expected {n_layers}")
+    _hold_all(torch, got, views, None, None,
+              f"[mesh] {arch} placed 1 x 4 vs the same mesh on plain "
+              "params")
+    m, T, D = cfg.moe, MOE_B * MOE_S, cfg.d_model
+    C = moe._capacity(T, m.n_experts, m.top_k, m.capacity_factor)
+    # bf16 against no mesh: the partials' sum rounds in another order
+    # than the baseline's combine, so a few near-tied tokens route
+    # otherwise in the later MoE layers; the first one's inputs are the
+    # same bits, so its routes are the same.  moe_ep_check holds the
+    # placed path to moe_block in f32
+    flips = []
+    for (x, r), (xw, rw) in zip(routes, wroutes):
+        a, b = (moe.route(t.reshape(T, -1), rt, m.n_experts, m.top_k, C)
+                for t, rt in ((x, r), (xw, rw)))
+        flips.append(int((~(a.expert.sort(dim=1).values
+                            == b.expert.sort(dim=1).values).all(dim=1))
+                         .sum()))
+    check(flips[0] == 0 and max(flips) <= T * MESH_FLIP_SHARE,
+          f"[mesh] {arch}: tokens routed otherwise by MoE layer {flips}; "
+          f"at most {T * MESH_FLIP_SHARE:.0f} a layer, none in the first")
+    rel = _hold_rel(torch, got, want, MESH_BF16_REL,
+                    f"[mesh] {arch} 1 x 4 vs no mesh")
+    errs = {k: max_err(torch, a, want[k]) for k, a in got.items()}
+    n_moe = n_layers - m.first_dense_layers
+    want_sent = {"tokens": n_moe * 3 * T * D * 2,
+                 "partials": n_moe * 3 * T * D * 2}
+    check({k: v for k, v in sent.items() if k != "params"} == want_sent,
+          f"[mesh] {arch}: bytes between shards {sent}; expected the "
+          f"tokens and partials {want_sent} beside the params gathered")
+    log(f"[mesh] (B) {arch} {n_layers} layers bf16 prefill {MOE_B}x{MOE_S}"
+        f" under moe_ep on placed params, 1 x 4 ({_where(one)}; "
+        f"{m.n_experts // 4} experts a shard, C={C}): bitwise the same "
+        f"mesh on plain params; against no mesh max err "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f", relative error (bound {MESH_BF16_REL}) "
+        + ", ".join(f"{k} {e:.3e}" for k, e in rel.items())
+        + ", tokens routed otherwise by MoE layer "
+        + ", ".join(f"{f} of {T}" for f in flips)
+        + f" (at most {T * MESH_FLIP_SHARE:.0f}, none in the first)"
+        + f"; {n} flash launches; bytes between shards {sent} "
+        "(no \"experts\": the experts' blocks never leave their shard); "
+        f"{ms:.1f} ms (wall; the same mesh on plain params {ms_views:.1f} "
+        f"ms, no mesh {ms_plain:.1f} ms, each the first call)")
+    del views, pp
+    if len(cards) >= 4:
+        across = Mesh(1, 4, cards[:4])
+        pp4 = placement.place_module(params, param_specs(cfg, params,
+                                                         across), across)
+        del params
+        before = dict(across.sent)
+        got4, _, ms4, n4 = _moe_prefill(torch, kops, cfg, pp4, tokens,
+                                        across)
+        sent4 = _sent(across, before)
+        launches["flash_attention"] += n4
+        _hold_all(torch, got4, got, None, None,
+                  f"[mesh] {arch} 1 x 4 on four cards vs one card")
+        check(sent4 == sent, f"[mesh] {arch}: bytes {sent4} on four cards,"
+              f" {sent} on one")
+        counted = []        # each timed call's own flash launches
+        again = _wall_ms(torch, lambda: counted.append(_moe_prefill(
+            torch, kops, cfg, pp4, tokens, across)[3]), 3)
+        check(counted == [n_layers] * len(counted), f"[mesh] {arch} on four"
+              f" cards: flash launches a timed call {counted}, expected "
+              f"{n_layers}")
+        launches["flash_attention"] += sum(counted)
+        log(f"[mesh] (B) {arch} 1 x 4 on {len(across.distinct_devices())} "
+            f"cards: logits and cache bitwise the one-card mesh, the same "
+            f"bytes; {ms4:.1f} ms first, {again:.1f} ms warm (wall, every "
+            "card synchronized)")
+        del pp4
+    else:
+        del params
+    torch.cuda.empty_cache()
+    log(f"[mesh] (B) took {time.perf_counter() - t0:.1f} s")
+
+
+def mesh_train(torch, kops, launches, cards, card):
+    """(C): smollm-360m data parallel on a placed 4 x 1 mesh: one f32
+    step against no mesh, then ``launch.train.run(mesh=)`` in bf16; with
+    four cards, on distinct cards and on one, bitwise."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.sharding import placement
+    from repro_torch.sharding.context import sharding_context
+    from repro_torch.sharding.specs import param_specs
+    from repro_torch.train import optimizer, step
+    t0 = time.perf_counter()
+    home = _home(torch)
+    mesh = make_host_mesh(4, 1, device=DEVICE)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32")
+    params = transformer.init_params(cfg, 0, device=home)
+    params.requires_grad_(True)
+    B, S = MESH_TRAIN_F32
+    gen = torch.Generator(device=home).manual_seed(0)
+    batch = {n: torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                              device=home) for n in ("tokens", "labels")}
+    (_, (ce, _)), grads = step.loss_and_grads(cfg, params, batch,
+                                              attn_backend="cuda")
+    specs = param_specs(cfg, params, mesh)
+    pp = placement.place_module(params, specs, mesh)
+    with sharding_context(mesh):
+        (_, (pce, _)), pgrads = step.placed_loss_and_grads(
+            cfg, pp, batch, attn_backend="cuda")
+    loss_err = assert_close(torch, pce, ce, *LOSS_TOL,
+                            "[mesh] (C) f32 loss vs no mesh")
+    gerr = max(assert_close(torch, placement.gather(pgrads[n]), g,
+                            *TRAIN_GRAD_TOL, f"[mesh] (C) f32 grad {n}")
+               for n, g in grads.items())
+    # the same AdamW on those gradients
+    opt_cfg = optimizer.AdamWConfig()
+    want = transformer.init_params(cfg, 0, device=home)
+    optimizer.adamw_update(want, {n: placement.gather(g)
+                                  for n, g in pgrads.items()},
+                           optimizer.init_opt_state(want, opt_cfg), opt_cfg,
+                           step.decay_mask(cfg, want))
+    popt = placement.place_tree(optimizer.init_opt_state(params, opt_cfg),
+                                optimizer.OptState((), specs, specs), mesh)
+    with sharding_context(mesh):
+        pp, popt, _ = step.train_step(cfg, opt_cfg, pp, popt, batch,
+                                      attn_backend="cuda")
+    # the change each param took against AdamW's on those gradients, at a
+    # tolerance well under the first step's update (lr 3e-6, about that
+    # much an element): a skipped or mangled update fails
+    lr1 = float(optimizer.lr_schedule(1, opt_cfg))
+    perr, top = 0.0, 0.0
+    with torch.no_grad():
+        for (n, a), (_, b), (_, p0) in zip(
+                placement.gather_tree(pp).named_parameters(),
+                want.named_parameters(), params.named_parameters()):
+            perr = max(perr, assert_close(
+                torch, a - p0, b - p0, 1e-8, 5e-2,
+                f"[mesh] (C) f32 AdamW change of {n}"))
+            top = max(top, float((b - p0).abs().max()))
+    check(top >= 0.5 * lr1, f"[mesh] (C) AdamW moved no param by lr "
+          f"{lr1:.1e}: {top:.3e}")
+    del params, grads, pgrads, pp, popt, want
+    torch.cuda.empty_cache()
+    log(f"[mesh] (C) {TRAIN_ARCH} f32 step {B}x{S} data parallel on 4 x 1 "
+        f"({_where(mesh)}): loss within {loss_err:.3e} of no mesh (atol "
+        f"{LOSS_TOL[0]}, rtol {LOSS_TOL[1]}), every gradient within "
+        f"{gerr:.3e} (atol {TRAIN_GRAD_TOL[0]}, rtol {TRAIN_GRAD_TOL[1]}), "
+        f"each param's change in the step within {perr:.3e} of AdamW's "
+        f"on those gradients (atol 1e-8, rtol 5e-2 of a change up to "
+        f"{top:.3e}; the global norm sums its blocks in another order)")
+    L = get_config(TRAIN_ARCH).n_layers
+    runs = []
+    meshes = [mesh]
+    if len(mesh.distinct_devices()) > 1:
+        meshes.append(Mesh(4, 1, [home] * 4))
+    for m in meshes:
+        times = []
+        timed_step = launch_train.train_step
+
+        traced = []         # on four cards, the last step is traced
+
+        def timed(*a, **kw):
+            if len(cards) >= 4 and len(times) == MESH_TRAIN_STEPS - 1:
+                out = []
+                traced.append(_trace_split(
+                    torch, lambda: out.append(timed_step(*a, **kw)),
+                    m.distinct_devices(), f"train_{len(m.distinct_devices())}"
+                    "cards"))
+                return out[0]
+            t1 = time.perf_counter()
+            out = timed_step(*a, **kw)
+            _sync_all(torch)
+            times.append(time.perf_counter() - t1)
+            return out
+
+        for d in m.distinct_devices():
+            torch.cuda.reset_peak_memory_stats(d)
+        kops.reset_launch_counts()
+        launch_train.train_step = timed
+        try:
+            params, losses = launch_train.run(
+                TRAIN_ARCH, steps=MESH_TRAIN_STEPS, batch=TRAIN_B,
+                seq=TRAIN_S, reduced=False, lr=3e-4, log_every=100, seed=0,
+                mesh=m, device=home)
+        finally:
+            launch_train.train_step = timed_step
+        by_dev = dict(kops.flash_attention.launches_by_device)
+        n = kops.launch_counts()["flash_attention"]
+        launches["flash_attention"] += n
+        want_dev = {}
+        for d in m.devices:
+            want_dev[d] = want_dev.get(d, 0) + 2 * L * MESH_TRAIN_STEPS
+        check(by_dev == want_dev and kops.flash_attention.launches_tc == n,
+              f"[mesh] (C) {_where(m)}: flash launches by card {by_dev}, "
+              f"expected {want_dev}, all on the tensor cores")
+        check(len(losses) == MESH_TRAIN_STEPS and all(np.isfinite(losses)),
+              f"[mesh] (C) {_where(m)}: losses {losses}")
+        runs.append((losses, {k: v.float().cpu() for k, v in
+                              placement.gather_tree(params)
+                              .named_parameters()}))
+        s_step = statistics.median(times[1:])
+        peaks = [torch.cuda.max_memory_allocated(d) / 2 ** 30
+                 for d in m.distinct_devices()]
+        log(f"[mesh] (C) launch.train.run {TRAIN_ARCH} bf16 full width, "
+            f"mesh 4 x 1 ({_where(m)}) on {card}: {MESH_TRAIN_STEPS} steps "
+            f"of {TRAIN_B}x{TRAIN_S}, {s_step:.3f} s a step (median of "
+            f"steps 2-{len(times)}, wall with every card "
+            f"synchronized; first {times[0]:.2f} s), "
+            f"{TRAIN_B * TRAIN_S / s_step:.0f} tokens/s; peak "
+            f"{', '.join(f'{p:.2f}' for p in peaks)} GiB per card; flash "
+            f"launches per card "
+            f"{ {str(d): v for d, v in by_dev.items()} } ({2 * L} a step "
+            f"a data shard, all on the tensor cores); losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}")
+        if traced:
+            log(f"[mesh] (C) {_where(m)}: step {MESH_TRAIN_STEPS} traced "
+                f"(torch.profiler): {json.dumps(traced[0])}")
+        del params
+        torch.cuda.empty_cache()
+    if len(runs) == 2:
+        (la, fa), (lb, fb) = runs
+        check(la == lb and all(torch.equal(fa[k], fb[k]) for k in fa),
+              "[mesh] (C) four cards vs one card: losses or params differ")
+        log("[mesh] (C) on four cards: the losses and the params after "
+            f"{MESH_TRAIN_STEPS} steps bitwise the one-card mesh")
+    log(f"[mesh] (C) took {time.perf_counter() - t0:.1f} s")
+
+
+def mesh_phase(torch, kops, launches, card):
+    """Placement across cards: (A), (B) and (C)."""
+    cards = _cards(torch)
+    if len(cards) < 4:
+        log(f"[mesh] {len(cards)} card(s): every shard of each mesh shares "
+            "cuda:0 (the same placement, exchange and update code); the "
+            "cross-card checks (zamba2-7b at all its layers, bitwise "
+            "against the one-card mesh, bytes per card) need four cards")
+    t0 = time.perf_counter()
+    mesh_decode(torch, cards, card)
+    log(f"[mesh] (A) took {time.perf_counter() - t0:.1f} s")
+    mesh_moe(torch, kops, launches, cards, card)
+    mesh_train(torch, kops, launches, cards, card)
+
+
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", choices=("all", "mesh"), default="all",
+                    help="mesh: build the kernels and run [mesh] alone")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3623,6 +4367,17 @@ def main() -> int:
     check(n_hgmma > 0, "flash_attention_sm90: no HGMMA in its SASS")
     log(f"[build] flash_attention_sm90: {n_hgmma} HGMMA instructions in "
         "its SASS (cuobjdump -sass)")
+    if args.phase == "mesh":
+        launches = {name: 0 for name in kops.KERNELS}
+        t0 = time.perf_counter()
+        mesh_phase(torch, kops, launches, smi)
+        log(f"[mesh] phase took {time.perf_counter() - t0:.1f} s; "
+            f"launches {launches}; {time.perf_counter() - t_start:.1f} s "
+            "in all")
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     t0 = time.perf_counter()
     src_e, dst_e, n = make_dataset("ogbn-papers100M", seed=0,
@@ -3684,6 +4439,12 @@ def main() -> int:
     t0 = time.perf_counter()
     n_tc += dryrun_phase(torch, kops, launches, smi)
     log(f"[dryrun] phase took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    n_flash = launches["flash_attention"]
+    mesh_phase(torch, kops, launches, smi)
+    n_tc += launches["flash_attention"] - n_flash   # all bf16
+    log(f"[mesh] phase took {time.perf_counter() - t0:.1f} s")
     for name, v in launches.items():
         check(v > 0, f"{name}: never launched on the main path")
         rows[name]["launches"] = v

@@ -170,15 +170,20 @@ class Exchange:
     ``send`` the messages, ``mark()`` after a stage and ``wait(mark)``
     before its consumer (each compute stream waits for its copy stream).
     Every message is packed on its sender's copy stream and copied into
-    the receiver's buffer there; on the CPU everything runs in order."""
+    the receiver's buffer there; on the CPU everything runs in order.
+    ``devices`` (default: every device of the mesh) are the devices whose
+    streams the exchange orders: the senders and receivers of its
+    messages, so that the others' queues are left alone."""
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, devices=None):
         self.mesh = mesh
         self.bytes = 0
+        self.devices = (mesh.distinct_devices() if devices is None
+                        else list(dict.fromkeys(devices)))
 
     def begin(self) -> None:
         if self.mesh.is_cuda:
-            for dev in self.mesh.distinct_devices():
+            for dev in self.devices:
                 ev = torch.cuda.Event()
                 ev.record(torch.cuda.current_stream(dev))
                 self.mesh.copy_stream(dev).wait_event(ev)
@@ -200,7 +205,7 @@ class Exchange:
         if not self.mesh.is_cuda:
             return {}
         marks = {}
-        for dev in self.mesh.distinct_devices():
+        for dev in self.devices:
             ev = torch.cuda.Event()
             ev.record(self.mesh.copy_stream(dev))
             marks[dev] = ev

@@ -37,7 +37,8 @@ that breaks this (``tma_strides``) and never re-routes it.  On CPU
 tensors the wrappers return the plain version,
 ``ref.gqa_attention_ref`` (the Pallas signature on a one-head view).
 ``flash_attention.launches`` counts kernel launches through either
-signature and either kernel; ``flash_attention.launches_tc`` counts the
+signature and either kernel (``launches_by_device``: per card);
+``flash_attention.launches_tc`` counts the
 tensor-core kernel's alone.
 
 Training: the TPU kernel has no backward (no ``custom_vjp``); the JAX
@@ -52,6 +53,7 @@ on, so no kernel result reaches autograd without that backward.
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import NamedTuple, Optional
 
@@ -214,6 +216,7 @@ def _launch(q, k, v, *, q_offset: int, causal: bool,
     build.check(err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.launches_tc += int(tc)
+    flash_attention.launches_by_device[q.device] += 1
     return out
 
 
@@ -296,6 +299,7 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 128,
 
 flash_attention.launches = 0
 flash_attention.launches_tc = 0
+flash_attention.launches_by_device = collections.Counter()
 
 
 def flash_attention_gqa(q, k, v, *, q_offset: int = 0, causal: bool = True,

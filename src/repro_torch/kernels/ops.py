@@ -50,5 +50,6 @@ def reset_launch_counts() -> None:
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
     flash_attention.launches_tc = 0
+    flash_attention.launches_by_device.clear()
     gat_attention.launches_wide = 0
     sddmm.launches_wide = 0

@@ -19,23 +19,28 @@ and the dry-run take either kind.  ``repro.sharding.compat`` has no
 counterpart: it only bridges JAX versions, and its ``make_mesh`` is this
 module's ``make_host_mesh`` and ``make_production_mesh``.
 
-The mesh paths of the transformer (``models.moe._moe_block_ep``,
-``models.attention.cp_decode_attention``) and ``launch.train.run(mesh=)``
-run on a mesh whose shards share one device, where placement is the
-identity; ``check_one_device`` refuses a mesh over several cards, and an
-abstract mesh outside a trace on the meta device.  Placing params and
-caches across cards is ROADMAP.md Queue 1 item 19.
+Shard (0, 0)'s device is the mesh's *home*: it holds the embedding
+output, the logits and the work of the model's paths that is not split
+over the mesh.  ``sharding.placement`` places params, optimizer state and
+caches on a mesh by the sharding rules, one block a shard on the shard's
+own device; the transformer's mesh paths (``models.moe._moe_block_ep``,
+``models.attention.cp_decode_attention``), its decode and prefill on
+placed params and ``launch.train.run(mesh=)`` then run across the cards,
+and every copy between shards goes through ``core.primitives.Exchange``,
+its bytes counted in ``Mesh.sent`` by kind.  The same code runs with every
+shard on one card.  ``check_mesh`` refuses an abstract mesh outside a
+trace on the meta device (the production meshes need 256 or 512
+devices), and unplaced tensors that are not on the mesh's home.
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import Dict, List, Tuple
 
 import torch
 
 AXES = ("data", "model")
-ITEM_19 = ("placing shards on more than one device is ROADMAP.md Queue 1 "
-           "item 19")
 
 
 class Mesh:
@@ -51,6 +56,8 @@ class Mesh:
         self.shape = {"data": P, "model": M}
         self.devices = [torch.device(d) for d in devices]
         self._copy_streams: Dict[torch.device, object] = {}
+        # bytes copied between shards, by kind ("params", "tokens", ...)
+        self.sent: collections.Counter = collections.Counter()
 
     @property
     def size(self) -> int:
@@ -62,6 +69,18 @@ class Mesh:
 
     def device(self, p: int, m: int) -> torch.device:
         return self.devices[p * self.M + m]
+
+    @property
+    def home(self) -> torch.device:
+        """Shard (0, 0)'s device."""
+        return self.devices[0]
+
+    def row(self, p: int) -> "Mesh":
+        """Data shard p's 1 x M shards, sharing this mesh's copy streams
+        and byte counts."""
+        sub = Mesh(1, self.M, self.devices[p * self.M:(p + 1) * self.M])
+        sub._copy_streams, sub.sent = self._copy_streams, self.sent
+        return sub
 
     def distinct_devices(self) -> List[torch.device]:
         return list(dict.fromkeys(self.devices))
@@ -125,23 +144,21 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     return AbstractMesh({"data": 16, "model": 16})
 
 
-def check_one_device(mesh, device) -> None:
-    """Raise unless every shard of ``mesh`` is ``device``: the mesh paths
-    then run with placement the identity.  An ``AbstractMesh`` passes only
-    for a trace on the meta device (the dry-run); a mesh over several
-    cards, or one abstract mesh outside a trace, raises
-    ``NotImplementedError`` (item 19)."""
+def check_mesh(mesh, device) -> None:
+    """Raise unless unplaced tensors on ``device`` may run on ``mesh``: a
+    ``Mesh`` whose home is ``device``, or an ``AbstractMesh`` in a trace
+    on the meta device (the dry-run).  An abstract mesh outside such a
+    trace raises ``NotImplementedError``: it names devices the port does
+    not have."""
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if mesh.devices is None:
         if device.type != "meta":
             raise NotImplementedError(
                 f"{mesh!r} needs {mesh.size} devices and holds none: it "
-                f"runs only as a trace on the meta device; {ITEM_19}")
+                "runs only as a trace on the meta device")
         return
-    devs = mesh.distinct_devices()
-    if len(devs) > 1:
-        raise NotImplementedError(
-            f"{mesh!r} spans {len(devs)} devices; {ITEM_19}")
-    if devs[0] != device:
-        raise ValueError(f"{mesh!r} holds {devs[0]}, the tensors are on "
-                         f"{device}")
+    if mesh.home != device:
+        raise ValueError(f"{mesh!r} has its home on {mesh.home}, the "
+                         f"tensors are on {device}")

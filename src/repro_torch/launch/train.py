@@ -9,13 +9,17 @@ the JAX launcher logs.
 Without ``cfg=`` the architecture runs ``reduced()`` unless
 ``reduced=False`` (``--full``), as in JAX; pass ``cfg=`` for a config of
 one's own (``examples/torch_train_lm.py``).  The vlm and audio families
-are refused, as JAX refuses them.  ``mesh=`` (a ``launch.mesh.Mesh``
-whose shards share the run's device) runs the steps inside
-``sharding_context(mesh)``, as JAX's launcher does: placement is the
-identity there, so the losses equal a run without one.  A mesh over
-several cards, and ``--production-mesh`` (16 x 16: 256 devices), raise
-``NotImplementedError``: placing params across cards is ROADMAP.md
-Queue 1 item 19.
+are refused, as JAX refuses them.
+
+``mesh=`` (a ``launch.mesh.Mesh``, e.g. ``make_host_mesh(4, 1)``: its
+shards round-robin over the visible cards, or ``device="cpu"``) places
+the params and the AdamW state by ``sharding.param_specs`` and each batch
+by ``batch_specs`` (``jax.device_put`` with ``NamedSharding``s, as the
+JAX launcher does) and runs the steps inside ``sharding_context(mesh)``:
+each step is data parallel over the mesh's ``data`` shards
+(``train.step._placed_train_step``).  ``device=`` must be the mesh's
+home.  ``--production-mesh`` (16 x 16: 256 devices) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,12 +31,14 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.ops import resolve_device
-from repro_torch.launch.mesh import check_one_device, make_production_mesh
+from repro_torch.launch.mesh import check_mesh, make_production_mesh
 from repro_torch.models import transformer
 from repro_torch.sharding.context import sharding_context
+from repro_torch.sharding.placement import place_module, place_tree
+from repro_torch.sharding.specs import batch_specs, param_specs
 from repro_torch.train.checkpoint import save_checkpoint
 from repro_torch.train.data import DataConfig, make_pipeline
-from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+from repro_torch.train.optimizer import AdamWConfig, OptState, init_opt_state
 from repro_torch.train.step import train_step
 
 
@@ -44,10 +50,10 @@ def run(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     Returns (params, the per-step CE losses).  ``device`` "cuda" (the
     default) raises without a card; ``attn_backend`` is the attention's
     route ("cuda": the flash kernel in the forward); ``mesh``: a mesh
-    whose shards share ``device``."""
+    whose home is ``device``."""
     dev = resolve_device(device)
     if mesh is not None:
-        check_one_device(mesh, dev)
+        check_mesh(mesh, dev)
     if cfg is None:
         cfg = get_config(arch)
         if reduced:
@@ -59,6 +65,10 @@ def run(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     params = transformer.init_params(cfg, seed, device=dev)
     params.requires_grad_(True)
     opt_state = init_opt_state(params, opt_cfg)
+    if mesh is not None:
+        specs = param_specs(cfg, params, mesh)
+        params = place_module(params, specs, mesh)
+        opt_state = place_tree(opt_state, OptState((), specs, specs), mesh)
     data = make_pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                     batch_size=batch, seed=seed))
     losses = []
@@ -69,6 +79,9 @@ def run(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
             host = next(data)
             batch_dev = {k: torch.as_tensor(v, device=dev)
                          for k, v in host.items()}
+            if mesh is not None:
+                batch_dev = place_tree(batch_dev, batch_specs(
+                    cfg, batch_dev, mesh, None), mesh, kind="batch")
             params, opt_state, metrics = train_step(
                 cfg, opt_cfg, params, opt_state, batch_dev,
                 attn_backend=attn_backend)
@@ -102,7 +115,7 @@ def main(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
     if args.production_mesh:
-        check_one_device(make_production_mesh(), args.device)
+        check_mesh(make_production_mesh(), args.device)
     run(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
         reduced=args.reduced, lr=args.lr, checkpoint_path=args.checkpoint,
         device=args.device)

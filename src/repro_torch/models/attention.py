@@ -24,8 +24,10 @@
 
 - ``cp_decode_attention``: JAX's sequence-parallel decode attention
   (the long_500k path under ``tuning.on("cp_decode")``) over the
-  ``data`` shards of a mesh whose shards share one device; across cards
-  it raises (ROADMAP.md Queue 1 item 19).
+  ``data`` shards of a mesh: on a cache placed by the sharding rules
+  (``sharding.placement``), each shard's scores on its own card against
+  its own sequence block, only the softmax partials crossing; or on a
+  whole cache on the mesh's home, split by views.
 """
 from __future__ import annotations
 
@@ -35,9 +37,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _flash
-from repro_torch.launch.mesh import check_one_device
+from repro_torch.launch.mesh import check_mesh
 from repro_torch.kernels import ref
 from repro_torch.models.layers import rms_norm, rope
+from repro_torch.sharding.placement import Placed, gather_slab, move
 
 BACKENDS = ("cuda", "ref")
 _NEG_INF = -1e30
@@ -92,15 +95,22 @@ def cp_decode_attention(q, k_cache, v_cache, *, cache_len, mesh,
                         scale: Optional[float] = None):
     """``decode_attention`` with the caches' sequence split over the
     mesh's ``data`` shards (S % data == 0), as JAX's ``shard_map`` path
-    computes it.  Shard i takes its slice [i S_loc, (i + 1) S_loc) of
-    each cache as a view, masks by the global positions i S_loc +
-    arange(S_loc), and computes its scores' max; the global max is the
-    max over the shards; each shard then computes p, l and acc in f32,
-    and l and acc are summed in shard order.  Only the (B, K, G) maxima
-    and sums and the (B, K, G, hd) accumulators cross between shards,
-    never the cache.  The mesh's shards share q's device
-    (``launch.mesh.check_one_device``)."""
-    check_one_device(mesh, q.device)
+    computes it.  Shard i holds [i S_loc, (i + 1) S_loc) of each cache,
+    masks by the global positions i S_loc + arange(S_loc), and computes
+    its scores and their max; the global max is the max over the shards;
+    each shard then computes p, l and acc in f32, and l and acc are
+    summed in shard order.
+
+    q is on the mesh's home (shard (0, 0)).  With ``Placed`` caches
+    (``sharding.placement``: their sequence over ``data``) shard i works
+    on its card, ``mesh.device(i, 0)``, against its own block (gathered
+    over ``model`` there if the rules split the head dim over it); q
+    and the cache length go out, the (B, K, G) maxima come home, the
+    global max goes back, and each shard's (B, K, G) sums and (B, K, G,
+    hd) accumulators come home: the "softmax" messages, never the cache.
+    With whole caches on the home, the shards are views of them and
+    nothing is copied; the two give the same bits."""
+    check_mesh(mesh, q.device)
     B, Sq, H, hd = q.shape
     if Sq != 1:
         raise ValueError(f"cp_decode_attention takes one token, got {Sq}")
@@ -110,27 +120,48 @@ def cp_decode_attention(q, k_cache, v_cache, *, cache_len, mesh,
         raise ValueError(f"cp_decode_attention: S={S} does not divide "
                          f"over {P} data shards")
     S_loc = S // P
+    placed = isinstance(k_cache, Placed)
+    if placed != isinstance(v_cache, Placed):
+        raise ValueError("cp_decode_attention: place both caches or none")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     qf = q.reshape(B, K, H // K, hd).float() * scale
     clen = torch.as_tensor(cache_len, device=q.device).broadcast_to(
         (B,))[:, None]
-    local = torch.arange(S_loc, device=q.device)
+
+    def dev(i):
+        return mesh.device(i, 0) if placed else q.device
+
+    def there(t, i):            # home -> shard i
+        return t if not placed or i == 0 else move(mesh, "softmax", t,
+                                                   dev(i))
+
+    def home(t, i):             # shard i -> home
+        return t if not placed or i == 0 else move(mesh, "softmax", t,
+                                                   q.device)
+
+    def block(c, i):
+        if placed:
+            return gather_slab(c, {"data": i}, dev(i), kind="cache")
+        return c[:, i * S_loc:(i + 1) * S_loc]
+
     scores = []
     for i in range(P):
-        kv_pos = i * S_loc + local
-        s = torch.einsum("bkgd,bskd->bkgs", qf,
-                         k_cache[:, i * S_loc:(i + 1) * S_loc].float())
-        msk = kv_pos[None, :] < clen
+        kv_pos = i * S_loc + torch.arange(S_loc, device=dev(i))
+        cl = there(clen, i)
+        s = torch.einsum("bkgd,bskd->bkgs", there(qf, i),
+                         block(k_cache, i).float())
+        msk = kv_pos[None, :] < cl
         if window is not None:
-            msk &= (clen - 1 - kv_pos[None, :]) < window
+            msk &= (cl - 1 - kv_pos[None, :]) < window
         scores.append(torch.where(msk[:, None, None, :], s, _NEG_INF))
-    m = torch.stack([s.amax(dim=-1) for s in scores]).amax(dim=0)
+    m = torch.stack([home(s.amax(dim=-1), i)
+                     for i, s in enumerate(scores)]).amax(dim=0)
     l = acc = None
     for i, s in enumerate(scores):
-        p = torch.exp(s - m[..., None])
-        l_i = p.sum(dim=-1)
-        acc_i = torch.einsum("bkgs,bskd->bkgd", p, v_cache[
-            :, i * S_loc:(i + 1) * S_loc].float())
+        p = torch.exp(s - there(m, i)[..., None])
+        l_i = home(p.sum(dim=-1), i)
+        acc_i = home(torch.einsum("bkgs,bskd->bkgd", p,
+                                  block(v_cache, i).float()), i)
         l = l_i if l is None else l + l_i
         acc = acc_i if acc is None else acc + acc_i
     out = acc / torch.clamp(l, min=1e-30)[..., None]

@@ -19,14 +19,17 @@ What decides whether the two packages agree, and how the port keeps it:
   depend on the run.
 
   moe_block(x, p, cfg)        -> (out (B, S, D), Switch aux loss)
+  moe_block_stats(x, p, cfg)  -> the same and the loss's statistics
   route / dispatch / moe_ffn / combine: its steps, for timing
   init_moe_params(gen, cfg, dtype)
 
 Under ``tuning.on("moe_ep")`` and a mesh in ``sharding.context``,
 ``moe_block`` runs the expert-parallel ``_moe_block_ep`` (JAX's
 ``shard_map`` path): each model shard dispatches to its own experts and
-the partial outputs are summed.  It runs on a mesh whose shards share
-one device; across cards it raises (ROADMAP.md Queue 1 item 19).
+the partial outputs are summed.  With experts placed by the sharding
+rules (``sharding.placement``) every model shard works on its own card
+and only tokens and partial outputs cross; with plain expert tensors on
+the mesh's home the shards are views of them.
 """
 from __future__ import annotations
 
@@ -38,10 +41,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import tuning
-from repro_torch.launch.mesh import check_one_device
+from repro_torch.launch.mesh import check_mesh
 from repro_torch.models.layers import normal_init
 from repro_torch.sharding.context import current_mesh
+from repro_torch.sharding.placement import Placed, gather, gather_slab, move
 from repro_torch.sharding.specs import logical_axes, shard_if_divisible
+
+
+def is_routed_expert(name: str) -> bool:
+    """Whether a parameter name (``...moe.w_gate``) is a routed expert
+    weight, which ``_moe_block_ep`` runs where its blocks lie."""
+    return name.split(".")[-2:] in (["moe", "w_gate"], ["moe", "w_up"],
+                                    ["moe", "w_down"])
 
 
 def _capacity(n_tokens: int, n_experts: int, top_k: int,
@@ -187,9 +198,19 @@ def moe_block(x, p: MoE, cfg):
 
     With REPRO_TUNING=moe_ep and a mesh in ``sharding_context``, the
     dispatch runs expert-parallel (``_moe_block_ep``)."""
+    out, aux, _ = moe_block_stats(x, p, cfg)
+    return out, aux
+
+
+def moe_block_stats(x, p: MoE, cfg):
+    """``moe_block``, with the Switch loss's statistics beside it: (out,
+    aux_loss, (the router's probs summed over the tokens (E,), the top-1
+    counts (E,), the token count)), from which a data-parallel step
+    builds the whole batch's aux loss; None for the statistics under
+    moe_ep, whose aux loss is each data shard's, averaged."""
     mesh = current_mesh()
     if tuning.on("moe_ep") and mesh is not None:
-        return _moe_block_ep(x, p, cfg, mesh)
+        return (*_moe_block_ep(x, p, cfg, mesh), None)
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
@@ -198,29 +219,40 @@ def moe_block(x, p: MoE, cfg):
     flat = x.reshape(T, D)
     r = route(flat, p.router, E, K, C)
     me = r.probs.mean(dim=0)
-    ce = F.one_hot(r.expert[:, 0], E).float().mean(dim=0)
+    top1 = F.one_hot(r.expert[:, 0], E).float()
+    ce = top1.mean(dim=0)
     aux = E * torch.sum(me * ce)
     out = combine(moe_ffn(dispatch(flat, r, E, C), p.w_gate, p.w_up,
                           p.w_down), r)
     if m.n_shared_experts:
         out = out + shared_ffn(flat, p)
-    return out.reshape(B, S, D), aux
+    return out.reshape(B, S, D), aux, (r.probs.sum(dim=0), top1.sum(dim=0),
+                                       T)
 
 
 def _moe_block_ep(x, p: MoE, cfg, mesh):
-    """Expert-parallel MoE, JAX's ``shard_map`` path, on a mesh whose
-    shards share x's device (``launch.mesh.check_one_device``).
+    """Expert-parallel MoE, JAX's ``shard_map`` path; x on the mesh's
+    home.
 
     The tokens split over the data-parallel shards (when B divides over
-    them) and are replicated over ``model``; model shard m dispatches
-    every local token to its experts [m E/M, (m + 1) E/M) only, at the
-    capacity of the local tokens over all E experts, with views of its
-    experts' weights.  The shards' partial outputs (zero where a token
-    was not routed there) are summed in shard order in the activation
-    dtype, where JAX psums them over ``model``.  The aux loss is each
-    data shard's Switch loss, averaged over them (JAX's pmean); the
-    shared experts are added after."""
-    check_one_device(mesh, x.device)
+    them; else data shard 0 takes them all, as every data shard would
+    compute the same) and are replicated over ``model``; model shard m
+    dispatches every local token to its experts [m E/M, (m + 1) E/M)
+    only, at the capacity of the local tokens over all E experts.  The
+    shards' partial outputs (zero where a token was not routed there)
+    are summed in shard order in the activation dtype, where JAX psums
+    them over ``model``.  The aux loss is each data shard's Switch loss,
+    averaged over them (JAX's pmean); the shared experts are added after,
+    on the home.
+
+    With ``Placed`` experts, shard (p, m) runs on ``mesh.device(p, m)``:
+    data shard p's tokens go out to it ("tokens"), it routes with the
+    router gathered there ("params") and runs its experts' block where it
+    lies (gathered over ``data`` only if the rules split their FSDP dim:
+    "experts"), and the (T_loc, D) partials come back to ``device(p,
+    0)`` ("partials"), their sum and the aux loss to the home.  With plain
+    expert tensors the shards are views of them on x's device."""
+    check_mesh(mesh, x.device)
     m = cfg.moe
     B, S, D = x.shape
     E, K = m.n_experts, m.top_k
@@ -228,27 +260,62 @@ def _moe_block_ep(x, p: MoE, cfg, mesh):
     if E % M:
         raise ValueError(f"moe_ep: {E} experts do not divide over {M} "
                          "model shards")
+    placed = isinstance(p.w_gate, Placed)
     E_loc = E // M
     dp = logical_axes(mesh)["dp"]
     b_ax = shard_if_divisible(mesh, B, dp)
     B_loc = B if b_ax is None else B // math.prod(mesh.shape[a] for a in dp)
     T_loc = B_loc * S
     C = _capacity(T_loc, E, K, m.capacity_factor)
+
+    def to(t, pi, mi, kind):        # shard (pi, mi)'s copy of a home value
+        if not placed or (pi, mi) == (0, 0):
+            return t
+        return move(mesh, kind, t, mesh.device(pi, mi))
+
+    def back(t, pi, mi, kind):      # -> shard (pi, 0); home for mi < 0
+        if not placed or mi == 0 or (mi < 0 and pi == 0):
+            return t
+        return move(mesh, kind, t, mesh.device(pi, 0) if mi > 0 else x.device)
+
     outs, auxes = [], []
-    for xd in x.split(B_loc):                   # the data shards' tokens
+    for pi, xd in enumerate(x.split(B_loc)):    # the data shards' tokens
         flat = xd.reshape(T_loc, D)
-        out = None
-        for lo in range(0, E, E_loc):           # the model shards, in order
-            r = route(flat, p.router, E_loc, K, C, expert_offset=lo)
-            w = [t[lo:lo + E_loc] for t in (p.w_gate, p.w_up, p.w_down)]
-            part = combine(moe_ffn(dispatch(flat, r, E_loc, C), *w), r)
+        out = aux = None
+        for mi in range(M):                     # the model shards, in order
+            lo = mi * E_loc
+            xin = to(flat, pi, mi, "tokens")
+            if placed:
+                dev = xin.device
+                router = (gather(p.router, dev) if isinstance(p.router, Placed)
+                          else to(p.router, pi, mi, "params"))
+                w = [expert_block(t, mi, E_loc, dev)
+                     for t in (p.w_gate, p.w_up, p.w_down)]
+            else:
+                router = p.router
+                w = [t[lo:lo + E_loc] for t in (p.w_gate, p.w_up, p.w_down)]
+            r = route(xin, router, E_loc, K, C, expert_offset=lo)
+            part = back(combine(moe_ffn(dispatch(xin, r, E_loc, C), *w), r),
+                        pi, mi, "partials")
             out = part if out is None else out + part
-        outs.append(out)
-        # every model shard routes alike: its aux loss is the same
-        ce = F.one_hot(r.expert[:, 0], E).float().mean(dim=0)
-        auxes.append(E * torch.sum(r.probs.mean(dim=0) * ce))
+            if mi == 0:     # every model shard routes alike: one aux loss
+                ce = F.one_hot(r.expert[:, 0], E).float().mean(dim=0)
+                aux = E * torch.sum(r.probs.mean(dim=0) * ce)
+        outs.append(back(out, pi, -1, "partials"))
+        auxes.append(back(aux, pi, -1, "partials"))
     out = torch.cat(outs).reshape(B, S, D)
     aux = auxes[0] if b_ax is None else torch.stack(auxes).mean()
     if m.n_shared_experts:
         out = out + shared_ffn(x.reshape(B * S, D), p).reshape(B, S, D)
     return out, aux
+
+
+def expert_block(t: Placed, mi: int, E_loc: int, dev):
+    """Model shard mi's E_loc experts, with every other dim whole, on
+    ``dev`` (its card): the shard's own block when the rules split the
+    experts over ``model`` alone; gathered over ``data`` there when they
+    also split the FSDP dim."""
+    slab = gather_slab(t, {"model": mi}, dev, "experts")
+    start = min(r[0][0] for i, r in enumerate(t.ranges)
+                if i % t.mesh.M == mi)
+    return slab[mi * E_loc - start:(mi + 1) * E_loc - start]

@@ -51,6 +51,20 @@ and the decode step add ``attn_backend`` (see
 Parameters are made with ``requires_grad=False``: inference builds no
 graph.  The trainer (``train.step``) turns them on with
 ``requires_grad_(True)``.
+
+``forward`` and ``decode_step`` also take params placed on a mesh by the
+sharding rules (``sharding.placement.place_module``) and caches placed by
+``place_tree``: the unstacked parameters (embeddings, final norm, head,
+zamba2's shared block) are gathered to the mesh's home once a call and
+each layer of a stack just before it runs, then dropped (FSDP-style),
+except the experts under ``moe_ep``, which stay on their cards
+(``models.moe._moe_block_ep``).  The compute that the mesh paths do not
+split runs on the home.  A decode step writes each new cache entry into
+the block that owns its position; a replicated cache leaf (zamba2's SSM
+states) is updated on the home and copied out to its replicas.  Under
+``cp_decode`` the attention reads each sequence block on its own card
+(``models.attention.cp_decode_attention``); otherwise a placed layer
+cache is gathered to the home for the attention.
 """
 from __future__ import annotations
 
@@ -73,9 +87,13 @@ from repro_torch.models.layers import (MetaDraws, apply_rope, embed_tokens,
                                        gelu_mlp, layer_norm, normal_init,
                                        rms_norm, rope, rope_angles,
                                        sinusoidal_positions, swiglu_mlp)
-from repro_torch.models.moe import MoE, init_moe_params, moe_block
+from repro_torch.models.moe import (MoE, init_moe_params, is_routed_expert,
+                                    moe_block, moe_block_stats)
 from repro_torch.models.ssm import SSM, SSMCache
-from repro_torch.sharding.context import current_mesh
+from repro_torch.sharding.context import current_mesh, sharding_context
+from repro_torch.sharding.placement import (Placed, gather, has_placed,
+                                            materialize, scatter,
+                                            write_rows)
 
 _BIG_WINDOW = 1 << 30
 MODES = ("train", "prefill")
@@ -742,13 +760,47 @@ def _gqa_full(x, p: Attention, cfg: ModelConfig, rot, window,
     return o.reshape(B, S, -1) @ p.wo, k, v
 
 
+def _use(p):
+    """Layer params ``p`` ready to run: a placed layer gathered to the
+    mesh's home, but for the experts under ``moe_ep`` with a mesh, which
+    ``moe_block`` runs where they lie; a plain one as it is."""
+    if not has_placed(p):
+        return p
+    ep = tuning.on("moe_ep") and current_mesh() is not None
+    return materialize(p, fn=lambda n, x: x if ep and is_routed_expert(n)
+                       else gather(x))
+
+
+def _top(params):
+    """Placed params with every parameter outside the layer stacks
+    (``ModuleList``s) gathered to the home; plain params as they are."""
+    if not has_placed(params):
+        return params
+    stacks = {k for k, c in params._modules.items()
+              if isinstance(c, nn.ModuleList)}
+    return materialize(params, fn=lambda n, x: x if n.split(".")[0]
+                       in stacks else gather(x))
+
+
+def _host_pos(pos, B: int, S: int) -> List[int]:
+    """Each row's position as a host int, clamped into [0, S - 1] (a
+    tensor ``pos`` is read back: one sync)."""
+    vals = [pos] * B if isinstance(pos, int) else torch.as_tensor(
+        pos).broadcast_to((B,)).tolist()
+    return [min(max(int(v), 0), S - 1) for v in vals]
+
+
 def _update_cache(cache, new, pos):
     """Write ``new`` (B, 1, ...) into ``cache`` (B, S, ...) at each
     sequence's ``pos`` (an int or a (B,) tensor), in place, and return
     the cache.  The start is clamped into [0, S - 1], as
     ``lax.dynamic_update_slice`` clamps it: a pos >= S rewrites the last
-    entry (torch indexing would raise instead)."""
+    entry (torch indexing would raise instead), in the last block of a
+    placed cache."""
     B, S = cache.shape[:2]
+    if isinstance(cache, Placed):
+        write_rows(cache, new, _host_pos(pos, B, S))
+        return cache
     pos = torch.as_tensor(pos, device=cache.device).long()
     pos = pos.broadcast_to((B,)).clamp(0, S - 1)
     cache[torch.arange(B, device=cache.device), pos] = new[:, 0].to(
@@ -770,8 +822,8 @@ def _gqa_decode(x, p: Attention, cfg: ModelConfig, pos, theta, window, kc,
     if theta is not None:
         q = rope(q, pos_vec[:, None], theta)
         k = rope(k, pos_vec[:, None], theta)
-    kc = _update_cache(kc, k, pos_vec)
-    vc = _update_cache(vc, v, pos_vec)
+    kc = _update_cache(kc, k, pos)
+    vc = _update_cache(vc, v, pos)
     mesh = current_mesh()
     if (tuning.on("cp_decode") and mesh is not None and B == 1
             and kc.shape[1] % mesh.shape["data"] == 0):
@@ -779,8 +831,9 @@ def _gqa_decode(x, p: Attention, cfg: ModelConfig, pos, theta, window, kc,
         o = cp_decode_attention(q, kc, vc, cache_len=pos_vec + 1,
                                 mesh=mesh, window=window)
     else:
-        o = decode_attention(q, kc, vc, cache_len=pos_vec + 1,
-                             window=window)
+        o = decode_attention(q, gather(kc, kind="cache"),
+                             gather(vc, kind="cache"),
+                             cache_len=pos_vec + 1, window=window)
     return o.reshape(B, 1, -1) @ p.wo, kc, vc
 
 
@@ -824,14 +877,23 @@ def _body(remat: bool, fn, *args):
     dropped after the forward and recomputed in the backward, as
     ``jax.checkpoint`` does with the JAX package's scanned bodies."""
     if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
+        # the recompute runs in the backward, on the autograd engine's
+        # thread for a card: it takes the forward's mesh along
+        mesh = current_mesh()
+
+        def run(*a):
+            if mesh is None:
+                return fn(*a)
+            with sharding_context(mesh):
+                return fn(*a)
+        return checkpoint(run, *args, use_reentrant=False)
     return fn(*args)
 
 
 def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
             mode: str = "prefill", return_cache: bool = False,
             return_hidden: bool = False, attn_backend: str = "cuda",
-            remat: bool = True):
+            remat: bool = True, switch_stats: bool = False):
     """Returns (logits_or_hidden, aux_loss[, cache]).  batch =
     {"tokens": (B, S) int}; audio also "frames": (B, S_enc,
     frontend_dim), the stub frontend's frame embeddings (taken in the
@@ -842,7 +904,9 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
     cache has ``init_cache``'s keys and shapes (dense and vlm: {"k",
     "v"}: (L, B, S, K, hd); audio's cross_k and cross_v have S_enc
     rows).  aux_loss is the MoE layers' summed Switch loss (f32; 0 for
-    the other families).
+    the other families); with ``switch_stats=True`` it is the pair (that
+    loss, [each MoE layer's statistics]: ``moe_block_stats``'s, a
+    data-parallel step's means over the whole batch).
 
     ``mode``: "prefill" (the port's default: its callers are inference)
     or "train" (the JAX package's default), where ``remat`` runs each
@@ -855,15 +919,21 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
     if mode == "train" and return_cache:
         raise ValueError("forward mode 'train' builds no cache")
     remat = remat and mode == "train"
+    params = _top(params)
     if cfg.family == "audio":
-        return _audio_forward(cfg, params, batch, return_cache=return_cache,
-                              return_hidden=return_hidden,
-                              attn_backend=attn_backend, remat=remat)
+        res = _audio_forward(cfg, params, batch, return_cache=return_cache,
+                             return_hidden=return_hidden,
+                             attn_backend=attn_backend, remat=remat)
+        return (res[0], (res[1], []), *res[2:]) if switch_stats else res
     x, positions = _embed_inputs(cfg, params, batch)
     stack = {"moe": _moe_stack, "ssm": _ssm_stack,
              "hybrid": _hybrid_stack}.get(cfg.family, _dense_stack)
+    stats: list = []
     x, aux, cache = stack(cfg, params, x, positions, return_cache,
-                          attn_backend, remat)
+                          attn_backend, remat,
+                          **({"stats": stats} if stack is _moe_stack else {}))
+    if switch_stats:
+        aux = (aux, stats)
     x = rms_norm(x, params.final_norm, cfg.norm_eps).to(params.embed.dtype)
     out = x if return_hidden else unembed(cfg, params, x)
     if return_cache:
@@ -872,7 +942,8 @@ def forward(cfg: ModelConfig, params: LM, batch: Dict, *,
 
 
 def unembed(cfg: ModelConfig, params: LM, x):
-    head = params.embed.T if cfg.tie_embeddings else params.lm_head
+    head = (gather(params.embed).T if cfg.tie_embeddings
+            else gather(params.lm_head))
     return (x @ head).float()
 
 
@@ -921,6 +992,7 @@ def _dense_stack(cfg: ModelConfig, params: LM, x, positions,
     h = x
     for l, (p, window, theta) in enumerate(zip(params.blocks, windows,
                                                thetas)):
+        p = _use(p)
         h, k, v = _body(remat, _dense_layer, cfg, p, h, rots.get(theta),
                         window, attn_backend, l == len(params.blocks) - 1)
         if return_cache:
@@ -981,24 +1053,25 @@ def _ssm_caches(cfg: ModelConfig, batch: int, dtype, dev) -> Dict:
 def _moe_layer(cfg: ModelConfig, p, h, positions, attn_backend: str,
                last: bool):
     """deepseek-v2's layer: MLA, then its MoE (``MoEBlock``) or SwiGLU
-    MLP (dense-first).  Returns (h, aux, c_kv, k_rope)."""
+    MLP (dense-first).  Returns (h, aux, its statistics (None for a
+    dense layer; ``moe_block_stats``), c_kv, k_rope)."""
     eps = cfg.norm_eps
     a, ckv, krope = mla_prefill(rms_norm(h, p.pre_attn_norm, eps), p.attn,
                                 cfg, positions, backend=attn_backend)
     h = h + a
     hn = rms_norm(h, p.pre_mlp_norm, eps)
-    aux = torch.zeros((), device=h.device)
+    aux, stats = torch.zeros((), device=h.device), None
     if isinstance(p, MoEBlock):
-        mo, aux = moe_block(hn, p.moe, cfg)
+        mo, aux, stats = moe_block_stats(hn, p.moe, cfg)
     else:
         mo = swiglu_mlp(hn, p.mlp.w_gate, p.mlp.w_up, p.mlp.w_down)
-    return _add(h, mo, last), aux, ckv, krope
+    return _add(h, mo, last), aux, stats, ckv, krope
 
 
 def _super_layer(cfg: ModelConfig, p: SuperBlock, h, rot,
                  attn_backend: str, last: bool):
     """llama4's super-block: a dense layer, then attention and the MoE.
-    Returns (h, aux, k1, v1, k2, v2)."""
+    Returns (h, aux, its statistics, k1, v1, k2, v2)."""
     eps = cfg.norm_eps
     d, ma = p.dense, p.moe_attn
     a, k1, v1 = _gqa_full(rms_norm(h, d.pre_attn_norm, eps), d.attn, cfg,
@@ -1009,15 +1082,18 @@ def _super_layer(cfg: ModelConfig, p: SuperBlock, h, rot,
     a, k2, v2 = _gqa_full(rms_norm(h, ma.pre_attn_norm, eps), ma.attn, cfg,
                           rot, _BIG_WINDOW, backend=attn_backend)
     h = h + a
-    mo, aux = moe_block(rms_norm(h, ma.pre_mlp_norm, eps), p.moe, cfg)
-    return _add(h, mo, last), aux, k1, v1, k2, v2
+    mo, aux, stats = moe_block_stats(rms_norm(h, ma.pre_mlp_norm, eps),
+                                     p.moe, cfg)
+    return _add(h, mo, last), aux, stats, k1, v1, k2, v2
 
 
 def _moe_stack(cfg: ModelConfig, params: LM, x, positions,
-               return_cache: bool, attn_backend: str, remat: bool):
+               return_cache: bool, attn_backend: str, remat: bool,
+               stats: Optional[list] = None):
     """Both MoE layouts (``_moe_stack`` of the JAX package): deepseek-v2's
     MLA layers, dense-first then MoE, and llama4's (dense, MoE)
-    super-blocks.  Returns (h, summed aux loss f32, cache)."""
+    super-blocks.  Returns (h, summed aux loss f32, cache); each MoE
+    layer's Switch statistics are appended to ``stats`` where given."""
     B, S = x.shape[:2]
     cache = None
     if return_cache:
@@ -1030,20 +1106,25 @@ def _moe_stack(cfg: ModelConfig, params: LM, x, positions,
         for pre, stack in (("first_", params.first_blocks),
                            ("", params.blocks)):
             for l, p in enumerate(stack):
-                h, a_l, ckv, krope = _body(remat, _moe_layer, cfg, p, h,
-                                           positions, attn_backend,
-                                           p is final)
+                last = p is final
+                h, a_l, s_l, ckv, krope = _body(
+                    remat, _moe_layer, cfg, _use(p), h, positions,
+                    attn_backend, last)
                 aux = aux + a_l
+                if stats is not None and s_l is not None:
+                    stats.append(s_l)
                 if return_cache:
                     cache[pre + "c_kv"][l] = ckv
                     cache[pre + "k_rope"][l] = krope
         return h, aux, cache
     rot = rope_angles(positions, cfg.rope_theta, cfg.resolved_head_dim)
     for i, p in enumerate(params.super_blocks):
-        h, a_l, k1, v1, k2, v2 = _body(
-            remat, _super_layer, cfg, p, h, rot, attn_backend,
+        h, a_l, s_l, k1, v1, k2, v2 = _body(
+            remat, _super_layer, cfg, _use(p), h, rot, attn_backend,
             i == len(params.super_blocks) - 1)
         aux = aux + a_l
+        if stats is not None and s_l is not None:
+            stats.append(s_l)
         if return_cache:
             cache["k"][i, 0], cache["k"][i, 1] = k1, k2
             cache["v"][i, 0], cache["v"][i, 1] = v1, v2
@@ -1067,7 +1148,7 @@ def _mamba_layers(cfg: ModelConfig, blocks, h, caches: Optional[SSMCache],
     checkpoint); writes layer l's final conv inputs and state into
     ``caches`` (an ``SSMCache`` stacked over these layers) when given."""
     for l, p in enumerate(blocks):
-        h, c = _body(remat, _mamba_layer, cfg, p, h,
+        h, c = _body(remat, _mamba_layer, cfg, _use(p), h,
                      last and l == len(blocks) - 1, caches is not None)
         if caches is not None:
             caches.conv[l] = c.conv
@@ -1123,7 +1204,7 @@ def _hybrid_stack(cfg: ModelConfig, params: LM, x, positions,
     for i in range(n_super):
         h, k, v = _body(
             remat, _hybrid_super, cfg, params.mamba_blocks[i],
-            params.shared_attn, params.lora[i], h, rot, attn_backend,
+            params.shared_attn, _use(params.lora[i]), h, rot, attn_backend,
             i == n_super - 1 and not len(params.tail_blocks),
             None if cache is None else SSMCache(cache["mamba"].conv[i],
                                                 cache["mamba"].state[i]))
@@ -1153,7 +1234,9 @@ def encode_audio(cfg: ModelConfig, params: LM, frames,
     x = frames.to(params.projector.dtype) @ params.projector
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(x.dtype)[None]
+    params = _top(params)
     for p in params.enc_blocks:
+        p = _use(p)
         a, _, _ = _gqa_full(_ln(x, p.ln1), p.attn, cfg, None, _BIG_WINDOW,
                             causal=False, backend=attn_backend)
         x = x + a
@@ -1195,7 +1278,7 @@ def _audio_forward(cfg: ModelConfig, params: LM, batch: Dict, *,
                  for n, shape in _cache_shapes(cfg, B, S,
                                                enc_out.shape[1]).items()}
     for l, p in enumerate(params.dec_blocks):
-        x, k, v, ck, cv = _body(remat, _dec_layer, cfg, p, x, enc_out,
+        x, k, v, ck, cv = _body(remat, _dec_layer, cfg, _use(p), x, enc_out,
                                 attn_backend,
                                 l == len(params.dec_blocks) - 1)
         if return_cache:
@@ -1248,18 +1331,24 @@ def decode_step(cfg: ModelConfig, params: LM, cache: Dict, batch: Dict, *,
     the same dict.  ``attn_backend`` is audio's cross-attention route
     (the flash kernel, "cuda", or its plain version, "ref"); the other
     families' decode attention is plain PyTorch, as in JAX."""
+    params = _top(params)
     dev = params.embed.device
     token = torch.as_tensor(batch["token"], device=dev)
-    pos = torch.as_tensor(batch["pos"], device=dev)
+    # an int pos stays one on the host: a placed cache's writes need it
+    pos = batch["pos"]
+    if not isinstance(pos, int):
+        pos = torch.as_tensor(pos, device=dev)
     x = embed_tokens(params.embed, token, _embed_scale(cfg))
     if cfg.family == "moe":
-        x = _moe_decode(cfg, params, cache, x, pos)
+        x = _moe_decode(cfg, params, cache, x,
+                        torch.as_tensor(pos, device=dev))
     elif cfg.family == "ssm":
         x = _mamba_decode(cfg, params.blocks, cache["ssm"], x, last=True)
     elif cfg.family == "hybrid":
         x = _hybrid_decode(cfg, params, cache, x, pos)
     elif cfg.family == "audio":
-        x = _audio_decode(cfg, params, cache, x, pos, attn_backend)
+        x = _audio_decode(cfg, params, cache, x,
+                          torch.as_tensor(pos, device=dev), attn_backend)
     else:
         x = _dense_decode(cfg, params, cache, x, pos)
     x = _final_norm_decode(cfg, params, x).to(params.embed.dtype)
@@ -1270,6 +1359,7 @@ def _dense_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos):
     windows, thetas = layer_meta(cfg)
     for l, (p, window, theta) in enumerate(zip(params.blocks, windows,
                                                thetas)):
+        p = _use(p)
         a, _, _ = _gqa_decode(rms_norm(x, p.pre_attn_norm, cfg.norm_eps),
                               p.attn, cfg, pos, theta, window,
                               cache["k"][l], cache["v"][l])
@@ -1292,13 +1382,20 @@ def _mamba_decode(cfg: ModelConfig, blocks, caches: SSMCache, h,
     state written into ``caches`` (stacked over these layers) in place
     (``last``: these layers end the stack).
     The recurrence has no positions: a slot's state advances whatever
-    token it is fed."""
+    token it is fed.  A placed cache is gathered to the home (a
+    replicated one is the home's own block), updated there and written
+    back to every block."""
     for l, p in enumerate(blocks):
-        c = SSMCache(caches.conv[l], caches.state[l])
+        p = _use(p)
+        placed = SSMCache(caches.conv[l], caches.state[l])
+        c = SSMCache(*(gather(t, kind="cache") for t in placed))
         o, new = ssm_mod.mamba2_decode(rms_norm(h, p.pre_norm, cfg.norm_eps),
                                        p.ssm, cfg, c)
         c.conv.copy_(new.conv)
         c.state.copy_(new.state)
+        for t, full in zip(placed, c):
+            if isinstance(t, Placed):
+                scatter(t, full)
         h = _add(h, o, last and l == len(blocks) - 1)
     return h
 
@@ -1317,7 +1414,7 @@ def _hybrid_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos):
         a, _, _ = _gqa_decode(rms_norm(h, shared.pre_attn_norm, eps),
                               shared.attn, cfg, pos, cfg.rope_theta,
                               _BIG_WINDOW, cache["k"][i], cache["v"][i],
-                              lora=params.lora[i])
+                              lora=_use(params.lora[i]))
         h = h + a
         h = _add(h, swiglu_mlp(rms_norm(h, shared.pre_mlp_norm, eps),
                                shared.mlp.w_gate, shared.mlp.w_up,
@@ -1339,6 +1436,7 @@ def _audio_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos,
     table = sinusoidal_positions(cache["k"].shape[2], cfg.d_model, x.device)
     h = x + table[pos_vec][:, None].to(x.dtype)
     for l, p in enumerate(params.dec_blocks):
+        p = _use(p)
         a, _, _ = _gqa_decode(_ln(h, p.ln1), p.self_attn, cfg, pos, None,
                               _BIG_WINDOW, cache["k"][l], cache["v"][l])
         h = h + a
@@ -1364,12 +1462,16 @@ def _moe_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos):
         for pre, stack in (("first_", params.first_blocks),
                            ("", params.blocks)):
             for l, p in enumerate(stack):
+                last = p is final
+                p = _use(p)
                 hn = rms_norm(h, p.pre_attn_norm, eps)
                 ckv, krope = mla_new_cache_entries(hn, p.attn, cfg, pos_vec)
                 ckv_c = _update_cache(cache[pre + "c_kv"][l], ckv, pos_vec)
                 kr_c = _update_cache(cache[pre + "k_rope"][l], krope,
                                      pos_vec)
-                h = h + mla_decode(hn, p.attn, cfg, ckv_c, kr_c,
+                h = h + mla_decode(hn, p.attn, cfg,
+                                   gather(ckv_c, kind="cache"),
+                                   gather(kr_c, kind="cache"),
                                    pos_vec + 1, pos_vec)
                 hn = rms_norm(h, p.pre_mlp_norm, eps)
                 if isinstance(p, MoEBlock):
@@ -1377,9 +1479,10 @@ def _moe_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos):
                 else:
                     mo = swiglu_mlp(hn, p.mlp.w_gate, p.mlp.w_up,
                                     p.mlp.w_down)
-                h = _add(h, mo, p is final)
+                h = _add(h, mo, last)
         return h
     for i, p in enumerate(params.super_blocks):
+        p = _use(p)
         d, ma = p.dense, p.moe_attn
         a, _, _ = _gqa_decode(rms_norm(h, d.pre_attn_norm, eps), d.attn,
                               cfg, pos, cfg.rope_theta, _BIG_WINDOW,

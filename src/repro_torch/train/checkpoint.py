@@ -9,6 +9,11 @@ state's under "opt::" ("opt::.step", "opt::.m::<path>",
 is stored as f32 (npz has no bf16); ``__step__`` and ``__meta__`` (JSON)
 beside them.  Restoring writes into the parameters and moments it is
 given, cast to their dtypes, and returns them.
+
+Params and state placed on a mesh (``sharding.placement``) are gathered
+to the CPU to be saved, so the file is the same whichever mesh wrote it;
+``restore_checkpoint(..., mesh=)`` places what it restores by the
+sharding rules, as JAX's ``sharding=`` does.
 """
 from __future__ import annotations
 
@@ -20,6 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch.models.transformer import jax_layout, params_to_numpy
+from repro_torch.sharding.placement import (gather_tree, has_placed,
+                                            place_module, place_tree)
+from repro_torch.sharding.specs import param_specs
 from repro_torch.train.optimizer import OptState
 
 _SEP = "::"
@@ -36,7 +44,11 @@ def _flatten(tree, pre=()):
 def save_checkpoint(path, params, opt_state: Optional[OptState] = None,
                     step: int = 0, metadata: Optional[dict] = None, *, cfg):
     """``params``: the ``LM`` of ``cfg``; ``opt_state``: its
-    ``OptState``."""
+    ``OptState``; either may be placed."""
+    if has_placed(params):
+        params = gather_tree(params, "cpu")
+        opt_state = (None if opt_state is None
+                     else gather_tree(opt_state, "cpu"))
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     blobs = {f"params{_SEP}{k}": v
@@ -61,16 +73,24 @@ def _fill(z, prefix, cfg, named):
 
 
 def restore_checkpoint(path, params_like, opt_like: Optional[OptState] = None,
-                       *, cfg):
+                       *, cfg, mesh=None):
     """Restore into ``params_like`` (an ``LM`` of ``cfg``) and
     ``opt_like`` (its ``OptState``), in place.  Returns (params, step) or
-    (params, opt_state, step)."""
+    (params, opt_state, step).  With ``mesh``, the restored params and
+    state are then placed on it by ``sharding.param_specs`` (JAX's
+    ``sharding=``)."""
     z = np.load(path, allow_pickle=False)
     step = int(z["__step__"])
     _fill(z, "params", cfg, dict(params_like.named_parameters()))
+    specs = None if mesh is None else param_specs(cfg, params_like, mesh)
+    if opt_like is not None:
+        _fill(z, f"opt{_SEP}.m", cfg, opt_like.m)
+        _fill(z, f"opt{_SEP}.v", cfg, opt_like.v)
+        opt_like.step.fill_(int(z[f"opt{_SEP}.step"]))
+        if mesh is not None:
+            opt_like = place_tree(opt_like, OptState((), specs, specs), mesh)
+    if mesh is not None:
+        params_like = place_module(params_like, specs, mesh)
     if opt_like is None:
         return params_like, step
-    _fill(z, f"opt{_SEP}.m", cfg, opt_like.m)
-    _fill(z, f"opt{_SEP}.v", cfg, opt_like.v)
-    opt_like.step.fill_(int(z[f"opt{_SEP}.step"]))
     return params_like, opt_like, step

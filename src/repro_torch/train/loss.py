@@ -28,6 +28,14 @@ def chunked_softmax_xent(hidden, head, labels, *, chunk: int = 512,
     """hidden: (B, S, D); head: (D, V); labels: (B, S) int.  Returns the
     mean NLL over unmasked positions (f32, 0-d).  A ragged S (vlm's text
     span) is padded to whole chunks with mask 0."""
+    tot, cnt = chunked_nll(hidden, head, labels, chunk=chunk, mask=mask)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def chunked_nll(hidden, head, labels, *, chunk: int = 512, mask=None):
+    """``chunked_softmax_xent``'s parts: (the summed NLL over unmasked
+    positions, their count), f32 0-d each.  A data-parallel step sums
+    both over its shards before it divides (the global masked mean)."""
     B, S, _ = hidden.shape
     chunk = min(chunk, S)
     if mask is None:
@@ -46,4 +54,4 @@ def chunked_softmax_xent(hidden, head, labels, *, chunk: int = 512,
                                labels[:, s:s + chunk], m,
                                use_reentrant=False)
         cnt = cnt + m.sum()
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt

@@ -105,29 +105,36 @@ def adamw_update(params, grads, state: OptState, cfg: AdamWConfig,
         gnorm = global_norm(grads.values())
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
-        dt = _DTYPES[cfg.state_dtype]
         b1c = 1.0 - cfg.b1 ** step.float()
         b2c = 1.0 - cfg.b2 ** step.float()
-        # bf16 state -> bf16 math, with the constants rounded to bf16
-        # first, as JAX's weakly typed Python scalars are
-        mdt = torch.float32 if dt == torch.float32 else torch.bfloat16
-
-        def c(x):
-            return torch.tensor(x, dtype=mdt)
-
         for n, p in named.items():
-            m, v = state.m[n], state.v[n]
-            g = grads[n].to(mdt) * scale.to(mdt)
-            m_new = (c(cfg.b1) * m.to(mdt) + c(1 - cfg.b1) * g).to(mdt)
-            v_new = (c(cfg.b2) * v.to(mdt)
-                     + c(1 - cfg.b2) * torch.square(g)).to(mdt)
-            mhat = m_new / b1c.to(mdt)
-            vhat = v_new.float() / b2c
-            delta = mhat.float() / (torch.sqrt(vhat) + cfg.eps)
-            if decay[n]:     # decoupled weight decay on JAX's matrices
-                delta = delta + cfg.weight_decay * p.float()
-            p.copy_((p.float() - lr * delta).to(p.dtype))
-            m.copy_(m_new)
-            v.copy_(v_new)
+            adamw_leaf(p, grads[n], state.m[n], state.v[n], scale, lr,
+                       b1c, b2c, cfg, decay[n])
     return params, OptState(step, state.m, state.v), {"grad_norm": gnorm,
                                                       "lr": lr}
+
+
+def adamw_leaf(p, g, m, v, scale, lr, b1c, b2c, cfg: AdamWConfig,
+               decay: bool) -> None:
+    """AdamW on one tensor (or one block of it), in place: ``scale`` the
+    clip factor, ``lr`` and the bias corrections ``b1c`` and ``b2c`` 0-d
+    tensors on its device."""
+    mdt = torch.float32 if m.dtype == torch.float32 else torch.bfloat16
+    # bf16 state -> bf16 math, with the constants rounded to bf16 first,
+    # as JAX's weakly typed Python scalars are
+
+    def c(x):
+        return torch.tensor(x, dtype=mdt)
+
+    g = g.to(mdt) * scale.to(mdt)
+    m_new = (c(cfg.b1) * m.to(mdt) + c(1 - cfg.b1) * g).to(mdt)
+    v_new = (c(cfg.b2) * v.to(mdt)
+             + c(1 - cfg.b2) * torch.square(g)).to(mdt)
+    mhat = m_new / b1c.to(mdt)
+    vhat = v_new.float() / b2c
+    delta = mhat.float() / (torch.sqrt(vhat) + cfg.eps)
+    if decay:       # decoupled weight decay on JAX's matrices
+        delta = delta + cfg.weight_decay * p.float()
+    p.copy_((p.float() - lr * delta).to(p.dtype))
+    m.copy_(m_new)
+    v.copy_(v_new)

@@ -1505,3 +1505,212 @@ def test_cp_decode_on_a_one_card_mesh(cuda, window):
         q, kc, vc, cache_len=49, window=window,
         mesh=make_host_mesh(8, 1, device=cuda))
     _close(got, want, 2e-5, 0)
+
+
+# ----------------------------------------------------------------------
+# placement across cards (sharding.placement)
+# ----------------------------------------------------------------------
+
+def _four_cards():
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def _placed_run(path, mesh, monkeypatch):
+    """One placed path on ``mesh`` at a reduced width in f32: "decode"
+    (zamba2, B=1, cp_decode, 3 steps from S - 4), "prefill" (deepseek-v2
+    under moe_ep, 2 x 12) or "train" (smollm-360m, one data-parallel
+    step).  Returns {name: tensor on the CPU}."""
+    import dataclasses
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve.step import prefill_step
+    from repro_torch.sharding import placement, specs
+    from repro_torch.sharding.context import sharding_context
+    from repro_torch.train import optimizer, step
+    arch = {"decode": "zamba2-7b", "prefill": "deepseek-v2-236b",
+            "train": "smollm-360m"}[path]
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    if path == "prefill":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=64.0))
+    home = mesh.home
+    params = transformer.init_params(cfg, 0, device=home)
+    pspecs = specs.param_specs(cfg, params, mesh)
+    out = {}
+    with sharding_context(mesh):
+        if path == "decode":
+            monkeypatch.setenv("REPRO_TUNING", "cp_decode")
+            S = 64
+            cache = transformer.init_cache(cfg, 1, S, device="cpu")
+            gen = torch.Generator().manual_seed(1)
+            for t in (cache["k"], cache["v"], *cache["mamba"],
+                      *cache["tail"]):
+                t.copy_(torch.randn(t.shape, generator=gen))
+            cache["k"][:, :, S - 4:] = 0
+            cache["v"][:, :, S - 4:] = 0
+            cspecs = specs.cache_specs(cfg, cache, mesh,
+                                       InputShape("d", S, 1, "decode"))
+            cache = placement.place_tree(
+                {k: (v.to(home) if isinstance(v, torch.Tensor) else
+                     type(v)(*(t.to(home) for t in v)))
+                 for k, v in cache.items()}, cspecs, mesh)
+            pp = placement.place_module(params, pspecs, mesh)
+            for t in range(3):
+                lg, _ = transformer.decode_step(
+                    cfg, pp, cache, {"token": torch.tensor([[5 + t]]),
+                                     "pos": S - 4 + t})
+                out[f"logits{t}"] = lg.cpu()
+            for k, v in placement.gather_tree(cache, "cpu").items():
+                for f, t in (v._asdict().items() if isinstance(v, tuple)
+                             else [("", v)]):
+                    out[f"{k}.{f}"] = t
+        elif path == "prefill":
+            monkeypatch.setenv("REPRO_TUNING", "moe_ep")
+            tok = torch.from_numpy(np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (2, 12)))
+            pp = placement.place_module(params, pspecs, mesh)
+            lg, cache = prefill_step(cfg, pp, {"tokens": tok},
+                                     attn_backend="ref")
+            out["logits"] = lg.cpu()
+            out.update({k: v.cpu() for k, v in cache.items()})
+        else:
+            opt_cfg = optimizer.AdamWConfig()
+            opt = placement.place_tree(
+                optimizer.init_opt_state(params, opt_cfg),
+                optimizer.OptState((), pspecs, pspecs), mesh)
+            pp = placement.place_module(params, pspecs, mesh)
+            rng = np.random.default_rng(0)
+            batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                      (4, 32)))
+                     for k in ("tokens", "labels")}
+            _, grads = step.placed_loss_and_grads(cfg, pp, batch,
+                                                  attn_backend="cuda")
+            want = transformer.init_params(cfg, 0, device=home)
+            optimizer.adamw_update(
+                want, {n: placement.gather(g) for n, g in grads.items()},
+                optimizer.init_opt_state(want, opt_cfg), opt_cfg,
+                step.decay_mask(cfg, want))
+            pp, opt, m = step.train_step(cfg, opt_cfg, pp, opt, batch,
+                                         attn_backend="cuda")
+            out["loss"] = m["loss"].cpu()
+            for (n, t), (_, w), (_, p0) in zip(
+                    placement.gather_tree(pp, "cpu").named_parameters(),
+                    want.named_parameters(), params.named_parameters()):
+                out[n] = t
+                out[f"change.{n}"] = t - p0.detach().cpu()
+                out[f"adamw.{n}"] = (w - p0).detach().cpu()
+    return out, dict(mesh.sent)
+
+
+PLACED_MESHES = {"decode": (4, 1), "prefill": (1, 4), "train": (4, 1)}
+
+
+@pytest.mark.parametrize("path", ["decode", "prefill", "train"])
+def test_placed_path_on_one_card_matches_no_mesh(cuda, path, monkeypatch):
+    """Each placed path with every shard on one card against the same
+    inputs on a (1, 1) mesh: within 2e-5 (train: the loss within 1e-5,
+    rtol 1e-4, the params after AdamW within 1e-4).  Train: each param's
+    change in the step against ``adamw_update``'s on the gathered
+    gradients, within 5% of the first step's update (lr 3e-6 an
+    element), on both meshes."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train import optimizer
+    P, M = PLACED_MESHES[path]
+    card = torch.device("cuda", 0)
+    got, sent = _placed_run(path, Mesh(P, M, [card] * (P * M)),
+                            monkeypatch)
+    want, _ = _placed_run(path, Mesh(1, 1, [card]), monkeypatch)
+    for n, t in want.items():
+        if n.startswith(("change.", "adamw.")):
+            continue
+        tol = dict(atol=1e-4) if path == "train" and n != "loss" else dict(
+            atol=2e-5, rtol=1e-4)
+        np.testing.assert_allclose(got[n].float().numpy(),
+                                   t.float().numpy(), **tol, err_msg=n)
+    assert sent.get("experts", 0) == 0
+    if path == "train":
+        lr1 = float(optimizer.lr_schedule(1, optimizer.AdamWConfig()))
+        for run in (got, want):
+            moved = 0.0
+            for n in [k for k in run if k.startswith("adamw.")]:
+                ref_change = run[n]
+                np.testing.assert_allclose(
+                    run["change." + n[6:]].numpy(), ref_change.numpy(),
+                    atol=1e-8, rtol=5e-2, err_msg=n)
+                moved = max(moved, float(ref_change.abs().max()))
+            assert moved >= 0.5 * lr1
+
+
+@pytest.mark.parametrize("path", ["decode", "prefill", "train"])
+def test_placed_path_across_cards_is_bitwise_the_one_card_mesh(
+        cuda, path, monkeypatch):
+    """The same mesh with its shards on four distinct cards against every
+    shard on card 0: the same ops on the same blocks, so the same bits,
+    and the same bytes copied between shards."""
+    from repro_torch.launch.mesh import Mesh
+    cards = _four_cards()
+    P, M = PLACED_MESHES[path]
+    got, sent = _placed_run(path, Mesh(P, M, cards), monkeypatch)
+    want, want_sent = _placed_run(path, Mesh(P, M, [cards[0]] * 4),
+                                  monkeypatch)
+    for n, t in want.items():
+        assert torch.equal(got[n], t), n
+    assert sent == want_sent
+
+
+def test_placed_bytes_on_each_card_are_per_chip_bytes(cuda):
+    """smollm-360m's params and f32 AdamW state placed on a 4 x 1 mesh
+    over four cards: each card's allocator holds exactly
+    ``per_chip_bytes`` more than before (requested bytes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.sharding import placement, specs
+    from repro_torch.train import optimizer
+    cards = _four_cards()
+    mesh = make_host_mesh(4, 1)
+    assert mesh.devices == cards
+    cfg = get_config("smollm-360m")
+    params = transformer.init_params(cfg, 0, device="cpu")
+    pspecs = specs.param_specs(cfg, params, mesh)
+    opt = optimizer.init_opt_state(params, optimizer.AdamWConfig())
+    ospecs = optimizer.OptState((), pspecs, pspecs)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    before = [torch.cuda.memory_stats(d)["requested_bytes.all.current"]
+              for d in cards]
+    placed = (placement.place_module(params, pspecs, mesh),
+              placement.place_tree(opt, ospecs, mesh))
+    for d in cards:
+        torch.cuda.synchronize(d)
+    after = [torch.cuda.memory_stats(d)["requested_bytes.all.current"]
+             for d in cards]
+    want = (specs.per_chip_bytes(params, pspecs, mesh)
+            + specs.per_chip_bytes(opt, ospecs, mesh))
+    assert [a - b for a, b in zip(after, before)] == [want] * 4
+    assert placement.shard_bytes(placed) == [want] * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_first_launch_on_the_fourth_card(cuda, dtype):
+    """Both flash kernels' first launch on card 3 (the tensor-core one
+    builds its TMA maps from card 3's addresses): the kernel against its
+    plain version there."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    card = _four_cards()[3]
+    g = torch.Generator(device=card).manual_seed(3)
+    q = torch.randn((2, 256, 15, 64), generator=g, device=card).to(dtype)
+    k, v = (torch.randn((2, 256, 5, 64), generator=g, device=card).to(dtype)
+            for _ in range(2))
+    kops.reset_launch_counts()
+    with torch.no_grad():
+        got = flash_attention_gqa(q, k, v, causal=True)
+    assert kops.launch_counts()["flash_attention"] == 1
+    assert got.device == card
+    want = ref.gqa_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize(card)
+    _close(got, want, *({torch.float32: (2e-5, 3e-2),
+                         torch.bfloat16: (8e-3, 1e-2)}[dtype]))

@@ -172,7 +172,7 @@ ITEM_17_NAMES = {   # the dry-run, the roofline, the rules and mesh paths
     "repro_torch.roofline.report": ("build_rows", "markdown", "main"),
     "repro_torch.launch.inputs": ("input_specs", "step_arguments"),
     "repro_torch.launch.dryrun": ("dry_run", "run_combo", "main"),
-    "repro_torch.launch.mesh": ("make_production_mesh", "check_one_device"),
+    "repro_torch.launch.mesh": ("make_production_mesh", "check_mesh"),
     "repro_torch.models.transformer": ("abstract_params", "abstract_cache"),
     "repro_torch.train.optimizer": ("abstract_opt_state",),
     "repro_torch.tuning": ("flags", "on"),

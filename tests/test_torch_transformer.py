@@ -235,9 +235,9 @@ def test_init_params_draws_the_moe_shapes_from_a_seed(arch):
 @pytest.mark.parametrize("arch,item", [("llava-next-34b", 15)])
 def test_other_families_name_the_roadmap_item(arch, item):
     """The last family (item 15: vlm) is ported: its params and cache
-    build.  What is left of Queue 1 (item 19, placement across cards)
-    names its item where the training launcher refuses a mesh over two
-    cards."""
+    build.  Queue 1's last item (placement across cards) is ported too:
+    the training launcher takes a mesh over two cards, and refuses it
+    only for CPU tensors, which are not on its home."""
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.mesh import Mesh
     cfg = tconfigs.get_config(arch).reduced()
@@ -248,8 +248,8 @@ def test_other_families_name_the_roadmap_item(arch, item):
                                        cfg.resolved_head_dim)
     two_cards = Mesh(1, 2, [torch.device("cuda", 0),
                             torch.device("cuda", 1)])
-    with pytest.raises(NotImplementedError,
-                       match=f"Queue 1 item {item + 4}$"):
+    with pytest.raises(ValueError, match="home on cuda:0, the tensors "
+                                         "are on cpu$"):
         launch_train.run(arch, mesh=two_cards, device="cpu")
 
 
