@@ -219,9 +219,10 @@ the run with a non-zero exit code:
    arguments built on the card, the bytes they request of the caching
    allocator within 1% + 2 MiB of the predicted
    ``argument_size_in_bytes`` (its ``memory_allocated()`` growth, which
-   rounds each block up, printed beside); the predicted temp bytes
-   beside the step's
-   ``max_memory_allocated()``; the real step through "cuda" (2 flash
+   rounds each block up, printed beside); the predicted temp bytes (the
+   trace of the flash kernel's path, its op on the meta device) within
+   max(10%, 256 MiB) of the step's ``max_memory_allocated()`` above the
+   arguments; the real step through "cuda" (2 flash
    launches a layer for the train step, 1 for the prefill, all on the
    tensor cores), timed, with ``mfu`` (the model's 6 N D or 2 N D FLOPs
    over the step's time and the bf16 tensor-core peak) and the share of
@@ -252,14 +253,20 @@ the run with a non-zero exit code:
    none of the experts.  (C) smollm-360m, ``launch.train.run(mesh=
    make_host_mesh(4, 1))``: an f32 step at 8 x 128 within LOSS_TOL /
    GRAD_TOL of no mesh and the same AdamW, then 5 bf16 steps at 8 x
-   2048 (s a step, tokens/s, peak per card, flash launches per card).  With four or more cards: zamba2-7b's 81 layers
+   2048 (s a step, tokens/s, peak per card, flash launches per card).
+   Each path's bytes between shards, by kind and by receiving shard,
+   equal to the byte the dry-run's count of the same step (config,
+   shape and mesh) on a meta mesh (``launch.dryrun.placed_counts``):
+   (A)'s decode steps, (B)'s prefill, each of (C)'s launcher steps.
+   With four or more cards: zamba2-7b's 81 layers
    over 524,288 positions (each card's requested bytes
    ``per_chip_bytes``, ms a step, tokens/s), and the cut model, (B)
    and (C) on distinct cards bitwise the one-card mesh; copy bytes and
    wall times (every card synchronized).
 
 ``python3 chip_smoke.py --phase mesh`` builds the kernels and runs the
-mesh phase alone (the four-card call).
+mesh phase alone (the four-card call); ``--phase dryrun`` runs the
+dryrun phase, then the mesh phase.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Needs the repo's
@@ -302,6 +309,7 @@ VLM_ARCH, VLM_TEXT = "llava-next-34b", 1216    # 2,880 patches + 1,216 text
 VLM_TRAIN_LAYERS, VLM_LAYERS = 2, 8            # depth cuts: train, prefill
 DRYRUN_ARCH = "smollm-360m"      # [dryrun]: the [train] and [llm] shapes
 DRYRUN_ARG_TOL = (0.01, 2 << 20)  # rel, bytes: the argument-bytes check
+DRYRUN_TEMP_TOL = (0.10, 256 << 20)  # rel, bytes: temp vs the step's peak
 EP_B, EP_S, EP_MESH = 2, 256, (1, 4)   # [dryrun] moe_ep, deepseek-v2 f32
 CP_ARCH, CP_S, CP_MESH = "gemma3-4b", 524_288, (8, 1)  # long_500k decode
 MESH_ARCH, MESH_S, MESH_CUT = "zamba2-7b", 524_288, 12  # [mesh] (A)
@@ -3485,6 +3493,12 @@ def dryrun_cell(torch, kops, launches, kind, B, S, card):
           f"{reps + 1} steps; expected {per_step} a step")
     launches["flash_attention"] += n
     peak = torch.cuda.max_memory_allocated() - base
+    temp, above = ma["temp_size_in_bytes"], peak - grown
+    rel, slack = DRYRUN_TEMP_TOL
+    check(abs(temp - above) <= max(rel * above, slack),
+          f"[dryrun] {kind}: temp predicted {temp} B, the step's peak "
+          f"above its arguments {above} B; bound max({rel:.0%}, "
+          f"{slack >> 20} MiB)")
     mfu = rec["model_flops_global"] / (ms / 1e3 * hw("peak_flops_bf16"))
     share = ca["flops_global"] / (ms / 1e3 * hw("peak_flops_bf16"))
     log(f"[dryrun] {DRYRUN_ARCH} bf16 {kind} {B}x{S} on {card}: trace "
@@ -3493,9 +3507,10 @@ def dryrun_cell(torch, kops, launches, kind, B, S, card):
         f"({(requested - want) / want * 100:+.4f}%), its blocks "
         f"(memory_allocated) {grown} B "
         f"({(grown - want) / want * 100:+.3f}%); temp predicted "
-        f"{ma['temp_size_in_bytes'] / 2**30:.2f} GiB (the \"ref\" "
-        f"attention's), step peak above the arguments "
-        f"{(peak - grown) / 2**30:.2f} GiB; step {ms:.1f} ms (CUDA events, "
+        f"{temp / 2**30:.4f} GiB (the flash kernel's path), step peak "
+        f"above the arguments {above / 2**30:.4f} GiB "
+        f"({(temp - above) / max(above, 1) * 100:+.2f}%; bound max({rel:.0%}, "
+        f"{slack >> 20} MiB)); step {ms:.1f} ms (CUDA events, "
         f"median of {reps}), {per_step} flash launches a step; model FLOPs "
         f"{rec['model_flops_global']:.4e}, traced FLOPs "
         f"{ca['flops_global']:.4e} (ratio {rec['model_flops_ratio']:.3f});"
@@ -3724,6 +3739,32 @@ def _sent(mesh, before):
             if v != before.get(k, 0)}
 
 
+def _meta_counts(cfg, shape, mesh, flags, positions=(None,)):
+    """The dry-run's {kind: {receiving shard: bytes}} of the same placed
+    step on a meta mesh of ``mesh``'s axes, under the tuning ``flags``,
+    summed over the decode ``positions`` (one step each)."""
+    from repro_torch.launch import dryrun
+    total: dict = {}
+    with _tuning(flags):
+        for pos in positions:
+            for kind, shards in dryrun.placed_counts(
+                    cfg, shape, dict(mesh.shape), pos).items():
+                d = total.setdefault(kind, {})
+                for i, n in shards.items():
+                    d[i] = d.get(i, 0) + n
+    return total
+
+
+def _hold_counts(got, want, what):
+    """``got`` (a card mesh's ``received``) equal to the byte to the
+    dry-run's meta-mesh count ``want``, by kind and receiving shard."""
+    check(got == want, f"{what}: bytes between shards by kind and "
+          f"receiving shard {got}; the dry-run's meta mesh counts {want}")
+    return (f"equal to the dry-run's meta-mesh count by kind and receiving "
+            f"shard ({sum(sum(v.values()) for v in want.values())} B over "
+            f"{sorted(want)})")
+
+
 def _zamba2_cache(torch, cfg, S, mesh):
     """zamba2's B = 1 cache placed by ``cache_specs`` (k and v's sequence
     over ``data``, the SSM conv and state replicated), each block drawn
@@ -3863,7 +3904,7 @@ def mesh_decode(torch, cards, card):
     layers (f32 at MESH_F32_S, bf16 at MESH_S) with every shard on card
     0, against no mesh; with four cards, the bf16 cut on distinct cards
     bitwise the one-card mesh, then all the layers."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import InputShape, get_config
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer
     from repro_torch.sharding import placement
@@ -3885,9 +3926,14 @@ def mesh_decode(torch, cards, card):
               f"{placement.shard_bytes((pp, cache))}, per_chip_bytes "
               f"{want_b}")
         plain = placement.gather_tree(cache, home)
-        before = dict(one.sent)
+        before, links = dict(one.sent), dict(one.links)
         lg, ms = _decode_run(torch, cfg, pp, cache, S, one)
         sent = _sent(one, before)
+        shape = InputShape("long", S, 1, "decode")
+        want_recv = _meta_counts(cfg, shape, one, "cp_decode",
+                                 range(S - 4, S - 4 + MESH_STEPS))
+        held_recv = _hold_counts(one.received(links), want_recv,
+                                 f"[mesh] (A) zamba2 {dtype} cut")
         got = dict(_written(torch, cache, S), logits=lg)
         lw, ms_plain = _decode_run(torch, cfg, params, plain, S, None)
         want = dict(_written(torch, plain, S), logits=lw)
@@ -3913,16 +3959,18 @@ def mesh_decode(torch, cards, card):
             "bitwise no mesh's; "
             f"ms a step {', '.join(f'{t:.1f}' for t in ms)} (no mesh "
             f"{', '.join(f'{t:.1f}' for t in ms_plain)}); bytes between "
-            f"shards over the steps {sent} ({time.perf_counter() - t0:.1f}"
-            " s)")
+            f"shards over the steps {sent}, {held_recv} "
+            f"({time.perf_counter() - t0:.1f} s)")
         if dtype == "bfloat16" and len(cards) >= 4:
             across = Mesh(4, 1, cards[:4])
             pp4 = placement.place_module(params, param_specs(
                 cfg, params, across), across)
             cache4, _, _ = _zamba2_cache(torch, cfg, S, across)
-            before = dict(across.sent)
+            before, links = dict(across.sent), dict(across.links)
             lg4, ms4 = _decode_run(torch, cfg, pp4, cache4, S, across)
             sent4 = _sent(across, before)
+            _hold_counts(across.received(links), want_recv,
+                         "[mesh] (A) zamba2 cut on four cards")
             _hold_all(torch, dict(_written(torch, cache4, S), logits=lg4),
                       got, None, None, "[mesh] zamba2 cut on four cards "
                       "vs one card")
@@ -3931,7 +3979,8 @@ def mesh_decode(torch, cards, card):
             log(f"[mesh] (A) {MESH_ARCH} bf16 cut to {MESH_CUT} layers, "
                 f"S={S}, 4 x 1 on {len(across.distinct_devices())} cards: "
                 "logits and written entries bitwise the one-card mesh, the "
-                f"same bytes between shards; ms a step "
+                "same bytes between shards, by kind and receiving shard the "
+                f"dry-run's meta-mesh count; ms a step "
                 f"{', '.join(f'{t:.1f}' for t in ms4)}")
             del pp4, cache4
         del params, pp, cache
@@ -3943,7 +3992,7 @@ def mesh_decode(torch, cards, card):
 def mesh_decode_full(torch, cards, card):
     """(A) at full depth on four cards: all the layers over MESH_S
     positions, each card's requested bytes against ``per_chip_bytes``."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import InputShape, get_config
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import transformer
     from repro_torch.sharding import placement
@@ -3968,9 +4017,14 @@ def mesh_decode_full(torch, cards, card):
     setup_s = time.perf_counter() - t0
     for d in mesh.devices:
         torch.cuda.reset_peak_memory_stats(d)
-    before = dict(mesh.sent)
+    before, links = dict(mesh.sent), dict(mesh.links)
     lg, ms = _decode_run(torch, cfg, pp, cache, MESH_S, mesh)
     sent = _sent(mesh, before)
+    held_recv = _hold_counts(
+        mesh.received(links), _meta_counts(
+            cfg, InputShape("long", MESH_S, 1, "decode"), mesh, "cp_decode",
+            range(MESH_S - 4, MESH_S - 4 + MESH_STEPS)),
+        "[mesh] (A) zamba2-7b full on four cards")
     check(bool(torch.isfinite(lg).all()) and tuple(lg.shape) == (
         MESH_STEPS, cfg.vocab_size), f"[mesh] zamba2-7b full: logits "
           f"{tuple(lg.shape)}")
@@ -3991,7 +4045,7 @@ def mesh_decode_full(torch, cards, card):
         f"synchronized; {step:.1f} ms a step after the first, "
         f"{1e3 / step:.2f} tokens/s); peak "
         f"{', '.join(f'{p:.2f}' for p in peaks)} GiB per card; bytes "
-        f"between shards over the steps {sent}")
+        f"between shards over the steps {sent}, {held_recv}")
     log(f"[mesh] (A) {MESH_ARCH} one more step at pos {MESH_S - 1}, traced "
         f"(torch.profiler): {json.dumps(split)}")
     del pp, cache
@@ -4001,7 +4055,8 @@ def mesh_decode_full(torch, cards, card):
 def _moe_prefill(torch, kops, cfg, params, tokens, mesh):
     """deepseek-v2's bf16 prefill through "cuda" (under moe_ep in
     ``mesh``'s sharding context, or none): ({name: CPU tensor}, the MoE
-    layers' (x, router) inputs, wall ms, flash launches)."""
+    layers' (x, router) inputs, wall ms, flash launches, the prefill's
+    bytes between shards by kind and receiving shard)."""
     from repro_torch.models import transformer
     from repro_torch.serve.step import prefill_step
     from repro_torch.sharding import placement
@@ -4012,16 +4067,18 @@ def _moe_prefill(torch, kops, cfg, params, tokens, mesh):
             sharding_context(mesh) if mesh is not None
             else contextlib.nullcontext()):
         _sync_all(torch)
+        links = dict(mesh.links) if mesh is not None else None
         t0 = time.perf_counter()
         (lg, cache), seen = _moe_inputs(transformer, lambda: prefill_step(
             cfg, params, {"tokens": tokens}, attn_backend="cuda"))
         _sync_all(torch)
         ms = (time.perf_counter() - t0) * 1e3
+    recv = mesh.received(links) if mesh is not None else None
     n = kops.launch_counts()["flash_attention"]
     out = {"logits": lg.float().cpu()}
     out.update({k: v.float().cpu() for k, v in cache.items()})
     routes = [(x, placement.gather(p.router, x.device)) for x, p in seen]
-    return out, routes, ms, n
+    return out, routes, ms, n, recv
 
 
 def mesh_moe(torch, kops, launches, cards, card):
@@ -4031,7 +4088,7 @@ def mesh_moe(torch, kops, launches, cards, card):
     the one-card mesh."""
     import numpy as np
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import InputShape, get_config
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import moe, transformer
     from repro_torch.sharding import placement
@@ -4044,15 +4101,19 @@ def mesh_moe(torch, kops, launches, cards, card):
     params = transformer.init_params(cfg, 0, device=home)
     tokens = torch.as_tensor(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (MOE_B, MOE_S)), device=home)
-    want, wroutes, ms_plain, n_plain = _moe_prefill(torch, kops, cfg,
-                                                    params, tokens, None)
+    want, wroutes, ms_plain, n_plain, _ = _moe_prefill(
+        torch, kops, cfg, params, tokens, None)
     one = Mesh(1, 4, [home] * 4)
-    views, _, ms_views, n_views = _moe_prefill(torch, kops, cfg, params,
-                                               tokens, one)
+    views, _, ms_views, n_views, _ = _moe_prefill(torch, kops, cfg, params,
+                                                  tokens, one)
     pp = placement.place_module(params, param_specs(cfg, params, one), one)
     before = dict(one.sent)
-    got, routes, ms, n = _moe_prefill(torch, kops, cfg, pp, tokens, one)
+    got, routes, ms, n, recv = _moe_prefill(torch, kops, cfg, pp, tokens,
+                                            one)
     sent = _sent(one, before)
+    want_recv = _meta_counts(cfg, InputShape("moe", MOE_S, MOE_B, "prefill"),
+                             one, "moe_ep")
+    held_recv = _hold_counts(recv, want_recv, f"[mesh] (B) {arch}")
     launches["flash_attention"] += n + n_plain + n_views
     check(n == n_plain == n_views == n_layers, f"[mesh] {arch}: flash "
           f"launches {n} placed, {n_plain} without a mesh, {n_views} on "
@@ -4097,7 +4158,8 @@ def mesh_moe(torch, kops, launches, cards, card):
         + ", ".join(f"{f} of {T}" for f in flips)
         + f" (at most {T * MESH_FLIP_SHARE:.0f}, none in the first)"
         + f"; {n} flash launches; bytes between shards {sent} "
-        "(no \"experts\": the experts' blocks never leave their shard); "
+        "(no \"experts\": the experts' blocks never leave their shard), "
+        f"the prefill's {held_recv}; "
         f"{ms:.1f} ms (wall; the same mesh on plain params {ms_views:.1f} "
         f"ms, no mesh {ms_plain:.1f} ms, each the first call)")
     del views, pp
@@ -4107,9 +4169,10 @@ def mesh_moe(torch, kops, launches, cards, card):
                                                          across), across)
         del params
         before = dict(across.sent)
-        got4, _, ms4, n4 = _moe_prefill(torch, kops, cfg, pp4, tokens,
-                                        across)
+        got4, _, ms4, n4, recv4 = _moe_prefill(torch, kops, cfg, pp4,
+                                               tokens, across)
         sent4 = _sent(across, before)
+        _hold_counts(recv4, want_recv, f"[mesh] (B) {arch} on four cards")
         launches["flash_attention"] += n4
         _hold_all(torch, got4, got, None, None,
                   f"[mesh] {arch} 1 x 4 on four cards vs one card")
@@ -4139,7 +4202,7 @@ def mesh_train(torch, kops, launches, cards, card):
     four cards, on distinct cards and on one, bitwise."""
     import numpy as np
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import InputShape, get_config
     from repro_torch.launch import train as launch_train
     from repro_torch.launch.mesh import Mesh, make_host_mesh
     from repro_torch.models import transformer
@@ -4210,24 +4273,30 @@ def mesh_train(torch, kops, launches, cards, card):
     meshes = [mesh]
     if len(mesh.distinct_devices()) > 1:
         meshes.append(Mesh(4, 1, [home] * 4))
+    want_recv = _meta_counts(get_config(TRAIN_ARCH), InputShape(
+        "train", TRAIN_S, TRAIN_B, "train"), mesh, "")
     for m in meshes:
         times = []
         timed_step = launch_train.train_step
 
         traced = []         # on four cards, the last step is traced
+        recvs = []          # each step's bytes between shards
 
         def timed(*a, **kw):
+            links = dict(m.links)
             if len(cards) >= 4 and len(times) == MESH_TRAIN_STEPS - 1:
                 out = []
                 traced.append(_trace_split(
                     torch, lambda: out.append(timed_step(*a, **kw)),
                     m.distinct_devices(), f"train_{len(m.distinct_devices())}"
                     "cards"))
+                recvs.append(m.received(links))
                 return out[0]
             t1 = time.perf_counter()
             out = timed_step(*a, **kw)
             _sync_all(torch)
             times.append(time.perf_counter() - t1)
+            recvs.append(m.received(links))
             return out
 
         for d in m.distinct_devices():
@@ -4252,6 +4321,11 @@ def mesh_train(torch, kops, launches, cards, card):
               f"expected {want_dev}, all on the tensor cores")
         check(len(losses) == MESH_TRAIN_STEPS and all(np.isfinite(losses)),
               f"[mesh] (C) {_where(m)}: losses {losses}")
+        check(len(recvs) == MESH_TRAIN_STEPS, f"[mesh] (C) {_where(m)}: "
+              f"{len(recvs)} steps counted")
+        for i, recv in enumerate(recvs):
+            held_recv = _hold_counts(recv, want_recv, f"[mesh] (C) "
+                                     f"{_where(m)} step {i + 1}")
         runs.append((losses, {k: v.float().cpu() for k, v in
                               placement.gather_tree(params)
                               .named_parameters()}))
@@ -4268,7 +4342,8 @@ def mesh_train(torch, kops, launches, cards, card):
             f"launches per card "
             f"{ {str(d): v for d, v in by_dev.items()} } ({2 * L} a step "
             f"a data shard, all on the tensor cores); losses "
-            f"{', '.join(f'{x:.4f}' for x in losses)}")
+            f"{', '.join(f'{x:.4f}' for x in losses)}; each step's bytes "
+            f"between shards {held_recv}")
         if traced:
             log(f"[mesh] (C) {_where(m)}: step {MESH_TRAIN_STEPS} traced "
                 f"(torch.profiler): {json.dumps(traced[0])}")
@@ -4301,8 +4376,10 @@ def mesh_phase(torch, kops, launches, card):
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "mesh"), default="all",
-                    help="mesh: build the kernels and run [mesh] alone")
+    ap.add_argument("--phase", choices=("all", "mesh", "dryrun"),
+                    default="all",
+                    help="mesh: build the kernels and run [mesh] alone; "
+                         "dryrun: [dryrun], then [mesh]")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4367,8 +4444,13 @@ def main() -> int:
     check(n_hgmma > 0, "flash_attention_sm90: no HGMMA in its SASS")
     log(f"[build] flash_attention_sm90: {n_hgmma} HGMMA instructions in "
         "its SASS (cuobjdump -sass)")
-    if args.phase == "mesh":
+    if args.phase != "all":
         launches = {name: 0 for name in kops.KERNELS}
+        if args.phase == "dryrun":
+            t0 = time.perf_counter()
+            dryrun_phase(torch, kops, launches, smi)
+            log(f"[dryrun] phase took {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
         mesh_phase(torch, kops, launches, smi)
         log(f"[mesh] phase took {time.perf_counter() - t0:.1f} s; "

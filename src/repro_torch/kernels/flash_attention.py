@@ -36,6 +36,12 @@ outer stride a multiple of 8 elements: the wrapper raises on a bf16 view
 that breaks this (``tma_strides``) and never re-routes it.  On CPU
 tensors the wrappers return the plain version,
 ``ref.gqa_attention_ref`` (the Pallas signature on a one-head view).
+On meta tensors (the dry-run's trace, ``launch.dryrun``) they call
+``torch.ops.repro_torch.flash_attention``: one op that allocates the
+kernel's output and nothing else, seen as a single call by a
+``TorchDispatchMode``, whose FLOPs (registered with
+``FlopCounterMode``) are the (query, key) pairs the mask keeps times
+2 hd + 2 vd.  Any other device raises.
 ``flash_attention.launches`` counts kernel launches through either
 signature and either kernel (``launches_by_device``: per card);
 ``flash_attention.launches_tc`` counts the
@@ -49,7 +55,10 @@ signatures go through ``FlashAttentionFn``: its forward is the kernel
 (the plain version on the CPU), and its backward recomputes the plain
 version in chunks of ``BACKWARD_ROWS`` query rows and differentiates
 that.  ``_launch`` raises on a tensor that requires grad with grad mode
-on, so no kernel result reaches autograd without that backward.
+on, so no kernel result reaches autograd without that backward.  The
+forward saves q, k and v and no log-sum-exp, so the meta op allocates
+``out`` alone under autograd too; a traced train step's backward is
+that plain recompute, traced as it runs.
 """
 from __future__ import annotations
 
@@ -57,7 +66,9 @@ import collections
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.spmm import FLOAT_CODES
@@ -220,6 +231,53 @@ def _launch(q, k, v, *, q_offset: int, causal: bool,
     return out
 
 
+def kept_pairs(Sq: int, Skv: int, q_offset: int, causal: bool,
+               window: Optional[int]) -> int:
+    """The (query, key) pairs the mask keeps for one (batch, head): query
+    i at position q_offset + i reads key j when j <= its position
+    (causal) and its position - j < window."""
+    qp = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(qp, Skv - 1) if causal else np.full(Sq, Skv - 1)
+    lo = (np.maximum(qp - window + 1, 0) if window is not None
+          else np.zeros(Sq, np.int64))
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _shape_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              q_offset: int, causal: bool, window: Optional[int],
+              scale: float) -> torch.Tensor:
+    """The kernel as one op on the meta device (``register_fake`` below);
+    a tensor with storage never reaches it."""
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+@_shape_op.register_fake
+def _(q, k, v, q_offset, causal, window, scale):
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: q is {q.dtype} but {name} is "
+                            f"{t.dtype}")
+    if q.dtype not in FLOAT_CODES:
+        raise TypeError(f"flash_attention: q must be one of "
+                        f"{tuple(FLOAT_CODES)}, got {q.dtype}")
+    if q.shape[-1] > MAX_HEAD_DIM or k.shape[1] == 0:
+        raise ValueError(f"flash_attention: head dim {q.shape[-1]}, "
+                         f"{k.shape[1]} keys")
+    B, Sq, H, _ = q.shape
+    return q.new_empty((B, Sq, H, v.shape[-1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, q_offset, causal, window, scale, *,
+           out_shape=None, **kwargs) -> int:
+    """The kernel's FLOPs: B H kept pairs x (2 hd for the scores + 2 vd
+    for the weighted sum)."""
+    B, Sq, H, hd = q_shape
+    return (B * H * kept_pairs(Sq, k_shape[1], q_offset, causal, window)
+            * (2 * hd + 2 * v_shape[-1]))
+
+
 def _needs_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
@@ -227,11 +285,15 @@ def _needs_grad(*ts) -> bool:
 def _forward(q, k, v, q_offset: int, causal: bool, window: Optional[int],
              scale: float):
     """(B, S, heads, hd) views: the kernel for CUDA tensors, the plain
-    version for CPU ones."""
+    version for CPU ones, the shape-only op for meta ones."""
     if q.device.type == "cpu":
         return ref.gqa_attention_ref(q, k, v, q_offset=q_offset,
                                      causal=causal, window=window,
                                      scale=scale)
+    if q.device.type == "meta":
+        return _shape_op(q, k, v, int(q_offset), bool(causal),
+                         None if window is None else int(window),
+                         float(scale))
     return _launch(q, k, v, q_offset=q_offset, causal=causal, window=window,
                    scale=scale)
 

@@ -6,8 +6,10 @@ allocated.
 kind; ``step_arguments(cfg, shape, mesh, opt_cfg)`` returns (step_fn,
 abstract args, their specs, the outputs' specs, the donated argument
 indices), as JAX's returns them for ``jit().lower()``.  The step runs
-the attention's plain version (``attn_backend="ref"``): the kernels'
-wrappers raise on a meta tensor.
+the attention on the flash kernel's path (``attn_backend="cuda"``): on
+a meta tensor the kernel's wrapper is one shape-only op with the
+kernel's FLOPs (``kernels.flash_attention``), as JAX's step runs its
+chunked ``flash_attention_jnp`` and never holds the (S, S) scores.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from repro_torch.train.optimizer import (AdamWConfig, OptState,
                                          abstract_opt_state)
 from repro_torch.train.step import train_step
 
-ATTN_BACKEND = "ref"
+ATTN_BACKEND = "cuda"
 _METRIC_KEYS = ("grad_norm", "lr", "loss", "aux_loss", "total_loss")
 
 

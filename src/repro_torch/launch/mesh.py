@@ -15,7 +15,12 @@ A mesh has the JAX mesh's two attributes that the sharding rules
 "model")``, and ``shape``, {axis: size}.  ``make_production_mesh`` gives
 the JAX package's two production meshes, 16 x 16 and 2 x 16 x 16, as
 an ``AbstractMesh``: those two attributes and no devices, so the rules
-and the dry-run take either kind.  ``repro.sharding.compat`` has no
+take either kind.  ``make_meta_mesh`` turns one into a ``Mesh`` whose
+every shard is the meta device, with the production mesh's axis names
+and sizes (``("pod", "data", "model")`` too: P is then the product of
+the axes before ``model``, shard (p, m) the flat index p M + m): the
+placement and the placed steps run on it without storage, and the
+dry-run counts their messages there.  ``repro.sharding.compat`` has no
 counterpart: it only bridges JAX versions, and its ``make_mesh`` is this
 module's ``make_host_mesh`` and ``make_production_mesh``.
 
@@ -27,7 +32,8 @@ own device; the transformer's mesh paths (``models.moe._moe_block_ep``,
 ``models.attention.cp_decode_attention``), its decode and prefill on
 placed params and ``launch.train.run(mesh=)`` then run across the cards,
 and every copy between shards goes through ``core.primitives.Exchange``,
-its bytes counted in ``Mesh.sent`` by kind.  The same code runs with every
+its bytes counted in ``Mesh.sent`` by kind and in ``Mesh.links`` by
+kind, sending and receiving shard.  The same code runs with every
 shard on one card.  ``check_mesh`` refuses an abstract mesh outside a
 trace on the meta device (the production meshes need 256 or 512
 devices), and unplaced tensors that are not on the mesh's home.
@@ -35,8 +41,9 @@ devices), and unplaced tensors that are not on the mesh's home.
 from __future__ import annotations
 
 import collections
+import functools
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -44,20 +51,32 @@ AXES = ("data", "model")
 
 
 class Mesh:
-    """P x M shards; shard (p, m) lives on ``devices[p * M + m]``."""
+    """P x M shards; shard (p, m) lives on ``devices[p * M + m]``.
+    ``axes`` ({axis: size}, ``model`` last and of size M, the others'
+    product P) names the axes; by default ``{"data": P, "model": M}``."""
 
-    axis_names: Tuple[str, ...] = AXES
-
-    def __init__(self, P: int, M: int, devices: List[torch.device]):
+    def __init__(self, P: int, M: int, devices: List[torch.device],
+                 axes: Optional[Dict[str, int]] = None):
         if P < 1 or M < 1 or len(devices) != P * M:
             raise ValueError(f"a {P} x {M} mesh needs {P * M} devices, "
                              f"got {len(devices)}")
+        axes = dict(axes or zip(AXES, (P, M)))
+        if (list(axes)[-1] != "model" or axes["model"] != M
+                or math.prod(axes.values()) != P * M):
+            raise ValueError(f"axes {axes} do not make a {P} x {M} mesh "
+                             "with 'model' last")
         self.P, self.M = P, M
-        self.shape = {"data": P, "model": M}
+        self.axis_names: Tuple[str, ...] = tuple(axes)
+        self.shape = axes
         self.devices = [torch.device(d) for d in devices]
         self._copy_streams: Dict[torch.device, object] = {}
         # bytes copied between shards, by kind ("params", "tokens", ...)
         self.sent: collections.Counter = collections.Counter()
+        # the same bytes by (kind, sending shard, receiving shard), and
+        # the rounds of messages (one ``Exchange`` each) by kind
+        self.links: collections.Counter = collections.Counter()
+        self.rounds: collections.Counter = collections.Counter()
+        self.base = 0       # shard 0's index in the mesh a row is of
 
     @property
     def size(self) -> int:
@@ -66,6 +85,35 @@ class Mesh:
     @property
     def is_cuda(self) -> bool:
         return self.devices[0].type == "cuda"
+
+    @property
+    def is_meta(self) -> bool:
+        return self.devices[0].type == "meta"
+
+    def count(self, kind: str, frm: Optional[int], to: Optional[int],
+              nbytes: int) -> None:
+        """Add one message's bytes to ``links`` (shards in this mesh's
+        order; a row's are counted in its parent's)."""
+        self.links[(kind, None if frm is None else self.base + frm,
+                    None if to is None else self.base + to)] += nbytes
+
+    def received(self, before=None) -> Dict[str, Dict[int, int]]:
+        """{kind: {receiving shard: bytes}} of ``links`` (since the
+        ``links`` snapshot ``before``); host memory is left out."""
+        out: Dict[str, Dict[int, int]] = {}
+        for (kind, frm, to), n in self.links.items():
+            n -= (before or {}).get((kind, frm, to), 0)
+            if n and to is not None:
+                d = out.setdefault(kind, {})
+                d[to] = d.get(to, 0) + n
+        return out
+
+    @functools.cached_property
+    def shard_coords(self) -> List[Dict[str, int]]:
+        """``sharding.placement.mesh_coords`` of every shard, in shard
+        order."""
+        from repro_torch.sharding.placement import mesh_coords
+        return [mesh_coords(self, i) for i in range(self.size)]
 
     def device(self, p: int, m: int) -> torch.device:
         return self.devices[p * self.M + m]
@@ -80,6 +128,8 @@ class Mesh:
         and byte counts."""
         sub = Mesh(1, self.M, self.devices[p * self.M:(p + 1) * self.M])
         sub._copy_streams, sub.sent = self._copy_streams, self.sent
+        sub.links, sub.rounds = self.links, self.rounds
+        sub.base = self.base + p * self.M
         return sub
 
     def distinct_devices(self) -> List[torch.device]:
@@ -95,8 +145,8 @@ class Mesh:
         return s
 
     def __repr__(self) -> str:
-        return (f"Mesh({self.P} x {self.M} on "
-                f"{', '.join(str(d) for d in self.distinct_devices())})")
+        return (f"Mesh({' x '.join(str(n) for n in self.shape.values())} "
+                f"on {', '.join(str(d) for d in self.distinct_devices())})")
 
 
 def make_host_mesh(n_data: int = 1, n_model: int = 1,
@@ -144,9 +194,22 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
     return AbstractMesh({"data": 16, "model": 16})
 
 
+def make_meta_mesh(mesh) -> Mesh:
+    """A ``Mesh`` with ``mesh``'s axis names and sizes (an
+    ``AbstractMesh``, a ``Mesh`` or a {axis: size} dict; ``model``
+    last) whose every shard is the meta device: placement and the
+    placed steps run there without storage, and ``links`` counts their
+    messages (the dry-run on the production meshes)."""
+    shape = dict(getattr(mesh, "shape", mesh))
+    M = shape["model"]
+    n = math.prod(shape.values())
+    return Mesh(n // M, M, [torch.device("meta")] * n, axes=shape)
+
+
 def check_mesh(mesh, device) -> None:
     """Raise unless unplaced tensors on ``device`` may run on ``mesh``: a
-    ``Mesh`` whose home is ``device``, or an ``AbstractMesh`` in a trace
+    ``Mesh`` whose home is ``device`` (the meta device for a
+    ``make_meta_mesh`` mesh), or an ``AbstractMesh`` in a trace
     on the meta device (the dry-run).  An abstract mesh outside such a
     trace raises ``NotImplementedError``: it names devices the port does
     not have."""

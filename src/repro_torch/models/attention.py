@@ -131,17 +131,17 @@ def cp_decode_attention(q, k_cache, v_cache, *, cache_len, mesh,
     def dev(i):
         return mesh.device(i, 0) if placed else q.device
 
-    def there(t, i):            # home -> shard i
+    def there(t, i):            # home -> data shard i's (i, 0)
         return t if not placed or i == 0 else move(mesh, "softmax", t,
-                                                   dev(i))
+                                                   i * mesh.M, 0)
 
-    def home(t, i):             # shard i -> home
-        return t if not placed or i == 0 else move(mesh, "softmax", t,
-                                                   q.device)
+    def home(t, i):             # data shard i's (i, 0) -> home
+        return t if not placed or i == 0 else move(mesh, "softmax", t, 0,
+                                                   i * mesh.M)
 
     def block(c, i):
         if placed:
-            return gather_slab(c, {"data": i}, dev(i), kind="cache")
+            return gather_slab(c, {"data": i}, i * mesh.M, kind="cache")
         return c[:, i * S_loc:(i + 1) * S_loc]
 
     scores = []

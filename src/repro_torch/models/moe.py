@@ -271,12 +271,13 @@ def _moe_block_ep(x, p: MoE, cfg, mesh):
     def to(t, pi, mi, kind):        # shard (pi, mi)'s copy of a home value
         if not placed or (pi, mi) == (0, 0):
             return t
-        return move(mesh, kind, t, mesh.device(pi, mi))
+        return move(mesh, kind, t, pi * M + mi, 0)
 
     def back(t, pi, mi, kind):      # -> shard (pi, 0); home for mi < 0
         if not placed or mi == 0 or (mi < 0 and pi == 0):
             return t
-        return move(mesh, kind, t, mesh.device(pi, 0) if mi > 0 else x.device)
+        return (move(mesh, kind, t, pi * M, pi * M + mi) if mi > 0
+                else move(mesh, kind, t, 0, pi * M))
 
     outs, auxes = [], []
     for pi, xd in enumerate(x.split(B_loc)):    # the data shards' tokens
@@ -286,10 +287,11 @@ def _moe_block_ep(x, p: MoE, cfg, mesh):
             lo = mi * E_loc
             xin = to(flat, pi, mi, "tokens")
             if placed:
-                dev = xin.device
-                router = (gather(p.router, dev) if isinstance(p.router, Placed)
+                shard = pi * M + mi
+                router = (gather(p.router, shard)
+                          if isinstance(p.router, Placed)
                           else to(p.router, pi, mi, "params"))
-                w = [expert_block(t, mi, E_loc, dev)
+                w = [expert_block(t, mi, E_loc, shard)
                      for t in (p.w_gate, p.w_up, p.w_down)]
             else:
                 router = p.router
@@ -310,12 +312,13 @@ def _moe_block_ep(x, p: MoE, cfg, mesh):
     return out, aux
 
 
-def expert_block(t: Placed, mi: int, E_loc: int, dev):
+def expert_block(t: Placed, mi: int, E_loc: int, shard: int):
     """Model shard mi's E_loc experts, with every other dim whole, on
-    ``dev`` (its card): the shard's own block when the rules split the
-    experts over ``model`` alone; gathered over ``data`` there when they
-    also split the FSDP dim."""
-    slab = gather_slab(t, {"model": mi}, dev, "experts")
+    ``shard`` (one of ``t``'s mesh's shards at model index mi): the
+    shard's own block when the rules split the experts over ``model``
+    alone; gathered over ``data`` there when they also split the FSDP
+    dim."""
+    slab = gather_slab(t, {"model": mi}, shard, "experts")
     start = min(r[0][0] for i, r in enumerate(t.ranges)
                 if i % t.mesh.M == mi)
     return slab[mi * E_loc - start:(mi + 1) * E_loc - start]

@@ -1340,15 +1340,13 @@ def decode_step(cfg: ModelConfig, params: LM, cache: Dict, batch: Dict, *,
         pos = torch.as_tensor(pos, device=dev)
     x = embed_tokens(params.embed, token, _embed_scale(cfg))
     if cfg.family == "moe":
-        x = _moe_decode(cfg, params, cache, x,
-                        torch.as_tensor(pos, device=dev))
+        x = _moe_decode(cfg, params, cache, x, pos)
     elif cfg.family == "ssm":
         x = _mamba_decode(cfg, params.blocks, cache["ssm"], x, last=True)
     elif cfg.family == "hybrid":
         x = _hybrid_decode(cfg, params, cache, x, pos)
     elif cfg.family == "audio":
-        x = _audio_decode(cfg, params, cache, x,
-                          torch.as_tensor(pos, device=dev), attn_backend)
+        x = _audio_decode(cfg, params, cache, x, pos, attn_backend)
     else:
         x = _dense_decode(cfg, params, cache, x, pos)
     x = _final_norm_decode(cfg, params, x).to(params.embed.dtype)
@@ -1432,7 +1430,8 @@ def _audio_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos,
     encoder (k, v) (non-causal, through ``attn_backend``) and the MLP.
     The cross caches are read, never written."""
     B = x.shape[0]
-    pos_vec = pos.long().broadcast_to((B,))
+    pos_vec = torch.as_tensor(pos, device=x.device).long().broadcast_to(
+        (B,))
     table = sinusoidal_positions(cache["k"].shape[2], cfg.d_model, x.device)
     h = x + table[pos_vec][:, None].to(x.dtype)
     for l, p in enumerate(params.dec_blocks):
@@ -1441,7 +1440,8 @@ def _audio_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos,
                               _BIG_WINDOW, cache["k"][l], cache["v"][l])
         h = h + a
         h = h + _cross_attn(_ln(h, p.ln2), p.cross_attn, cfg,
-                            cache["cross_k"][l], cache["cross_v"][l],
+                            gather(cache["cross_k"][l], kind="cache"),
+                            gather(cache["cross_v"][l], kind="cache"),
                             attn_backend)
         h = _add(h, _gelu(_ln(h, p.ln3), p.mlp),
                  l == len(params.dec_blocks) - 1)
@@ -1457,7 +1457,8 @@ def _moe_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos):
     h = x
     if _moe_layout(cfg) == "first_dense":
         B = x.shape[0]
-        pos_vec = pos.long().broadcast_to((B,))
+        pos_vec = torch.as_tensor(pos, device=x.device).long().broadcast_to(
+            (B,))
         final = [*params.first_blocks, *params.blocks][-1]
         for pre, stack in (("first_", params.first_blocks),
                            ("", params.blocks)):
@@ -1466,9 +1467,8 @@ def _moe_decode(cfg: ModelConfig, params: LM, cache: Dict, x, pos):
                 p = _use(p)
                 hn = rms_norm(h, p.pre_attn_norm, eps)
                 ckv, krope = mla_new_cache_entries(hn, p.attn, cfg, pos_vec)
-                ckv_c = _update_cache(cache[pre + "c_kv"][l], ckv, pos_vec)
-                kr_c = _update_cache(cache[pre + "k_rope"][l], krope,
-                                     pos_vec)
+                ckv_c = _update_cache(cache[pre + "c_kv"][l], ckv, pos)
+                kr_c = _update_cache(cache[pre + "k_rope"][l], krope, pos)
                 h = h + mla_decode(hn, p.attn, cfg,
                                    gather(ckv_c, kind="cache"),
                                    gather(kr_c, kind="cache"),

@@ -8,10 +8,12 @@ TPU's:
 
 The FLOPs and bytes come from the dry-run's trace
 (``launch.dryrun``).  JAX parses its collective bytes out of XLA's HLO
-text (``collective_bytes_from_hlo``); the port has no HLO and so no twin
-of it: on the card mesh the collective term is 0 by construction (one
-device, no collective), and on the production meshes it is None, with
-the reason in the record.
+text (``collective_bytes_from_hlo``); the port has no HLO, so it counts
+the messages of its own placed step instead: on the production meshes
+the dry-run runs that step on a meta mesh and gives the bytes the
+busiest receiving shard receives, by JAX's kinds (its ``collectives``
+record); on the card mesh the term is 0 (one device, no collective).
+A None payload (not known) leaves the term None.
 """
 from __future__ import annotations
 

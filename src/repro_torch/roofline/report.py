@@ -8,9 +8,13 @@ JAX multiplies its costs by ``scan_correction`` because XLA's CPU cost
 analysis counts a scanned layer body once.  The port's trace runs every
 layer, so its counts are whole already and the correction is 1: nothing
 is multiplied (``scan_corr`` stays in the rows, at 1).  The collective
-term is 0 on ``card`` and not measured (n/a) on the production meshes
-(``launch.dryrun``).  ``fits`` says whether a chip's arguments and temp
-bytes fit the card's 80 GB of HBM.
+term is 0 on ``card`` and, on the production meshes, the bytes the
+busiest shard receives in the port's placed step over the link's rate
+(``launch.dryrun``'s ``collectives``; ``coll_by_kind`` holds them by
+JAX's kinds).  ``fits`` says whether a chip's arguments and temp bytes
+fit the card's 80 GB of HBM.  ``--coll`` prints, a row an (arch,
+shape), a chip's arguments, temp and collective bytes by kind and the
+dominant term on each mesh named.
 """
 from __future__ import annotations
 
@@ -20,6 +24,9 @@ import pathlib
 from typing import Dict, List, Optional
 
 from repro_torch.roofline.analysis import HW
+
+JAX_KINDS = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all",
+             "collective-permute")
 
 RESULTS = (pathlib.Path(__file__).resolve().parents[3] / "results"
            / "dryrun_torch")
@@ -69,7 +76,9 @@ def build_rows(mesh: str, records: Optional[List[Dict]] = None):
             "useful_ratio": mf / fl if fl else float("nan"),
             "temp_gb": temp / 1e9, "args_gb": args / 1e9,
             "fits": args + temp <= HW["hbm_bytes"],
-            "coll_by_kind": {}, "scan_corr": 1,
+            "coll_by_kind": {k: d["collectives"].get(k, 0)
+                             for k in JAX_KINDS},
+            "coll_gb": (coll or 0) / 1e9, "scan_corr": 1,
         })
     return rows
 
@@ -86,6 +95,31 @@ def markdown(rows) -> str:
             f"{fmt_s(r['collective_s'])} | **{r['dominant']}** | "
             f"{r['useful_ratio']:.2f} | {r['temp_gb']:.1f} GB | "
             f"{r['args_gb']:.2f} GB | {'yes' if r['fits'] else 'no'} |")
+    return "\n".join(out)
+
+
+def markdown_collectives(rows_by_mesh: Dict[str, List[Dict]]) -> str:
+    """A row an (arch, shape): a chip's arguments and temp, the
+    collective bytes a chip by JAX's kinds (GB) and the dominant term,
+    each cell the meshes' values in order, joined by " / " ("-" where a
+    mesh has no record of it)."""
+    meshes = list(rows_by_mesh)
+    keyed = {m: {(r["arch"], r["shape"]): r for r in rows}
+             for m, rows in rows_by_mesh.items()}
+    combos = sorted(set().union(*map(set, keyed.values())))
+    cols = [("args/chip GB", lambda r: f"{r['args_gb']:.2f}"),
+            ("temp/chip GB", lambda r: f"{r['temp_gb']:.2f}")]
+    cols += [(k, lambda r, k=k: f"{r['coll_by_kind'][k] / 1e9:.3f}")
+             for k in JAX_KINDS]
+    cols += [("dominant", lambda r: r["dominant"])]
+    out = [f"| arch | shape ({' / '.join(meshes)}) | "
+           + " | ".join(c for c, _ in cols) + " |",
+           "|---|---|" + "---|" * len(cols)]
+    for combo in combos:
+        rs = [keyed[m].get(combo) for m in meshes]
+        out.append(f"| {combo[0]} | {combo[1]} | " + " | ".join(
+            " / ".join("-" if r is None else f(r) for r in rs)
+            for _, f in cols) + " |")
     return "\n".join(out)
 
 
@@ -120,8 +154,13 @@ def main(argv=None):
                     help="card, single or multi; several joined by commas "
                          "(with --md: one table, a column group a mesh)")
     ap.add_argument("--md", action="store_true")
+    ap.add_argument("--coll", action="store_true",
+                    help="the collective bytes by kind, a row a record")
     args = ap.parse_args(argv)
     meshes = args.mesh.split(",")
+    if args.coll:
+        print(markdown_collectives({m: build_rows(m) for m in meshes}))
+        return
     if len(meshes) > 1:
         if not args.md:
             ap.error("several meshes need --md")

@@ -19,11 +19,13 @@ meshes included.
   place_tree(tree, specs, mesh)         params modules (``place_module``),
                                         dicts and NamedTuples (OptState,
                                         caches, SSMCache) of tensors
-  gather(x, device) / gather_slab(x, fixed, device)
+  gather(x, dest) / gather_slab(x, fixed, dest)
                                         the whole tensor, or the part
                                         that the shards at the mesh
-                                        coordinates ``fixed`` hold
+                                        coordinates ``fixed`` hold, on
+                                        shard (or device) ``dest``
   scatter(x, full)                      write every block from ``full``
+  move(mesh, kind, t, to, frm)          a copy of ``t`` on shard ``to``
   shard_bytes(tree)                     the bytes each shard holds
 
 Every copy between shards goes through ``core.primitives.Exchange`` (its
@@ -33,8 +35,19 @@ senders and receivers are ordered), and its bytes are added to
 gathered to the card that computes with them, "grads" for the gradients'
 reduction, and the kinds the model's mesh paths name for their
 activations ("tokens", "partials", "softmax", "entries", "replicas").
-A gather that one block on the target device already covers returns
-that block itself and copies nothing.
+Each message also names its sending and receiving shard (``frm``,
+``to``: indices in the mesh's shard order, None for host memory), and
+``mesh.links[(kind, frm, to)]`` adds its bytes: the callers know the
+shards, where a device would not tell them apart (every shard of a
+one-card or a meta mesh shares one).  A gather whose receiving shard
+holds a block that covers the part asked for returns that block itself
+and copies nothing.
+
+A message's buffers may be given as ``View``s, made only where the copy
+is made: on a meta mesh (``launch.mesh.make_meta_mesh``, the dry-run's
+production meshes) ``send`` counts each message from its shape and
+copies nothing, so placement and the placed steps run there without
+storage and without one aten op a message.
 
 A placed params module (``place_module``) keeps the module's structure
 and class with a ``Placed`` in each parameter's slot; ``materialize``
@@ -49,13 +62,45 @@ import contextlib
 import contextvars
 import copy
 import math
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, \
-    Tuple
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, \
+    Sequence, Tuple
 
 import torch
 from torch import nn
 
 Range = Tuple[Tuple[int, int], ...]
+
+
+class View(NamedTuple):
+    """``base[index]``, viewed as ``shape`` where given: a message's
+    buffer, made only where its copy is made."""
+    base: torch.Tensor
+    index: tuple
+    shape: Optional[Tuple[int, ...]] = None
+
+
+def _resolve(x) -> torch.Tensor:
+    if not isinstance(x, View):
+        return x
+    t = x.base[x.index]
+    return t if x.shape is None else t.view(x.shape)
+
+
+def _device(x) -> torch.device:
+    return (x.base if isinstance(x, View) else x).device
+
+
+def _msg_bytes(x) -> int:
+    """The bytes of a tensor or a ``View`` (from the shapes alone)."""
+    if not isinstance(x, View):
+        return x.numel() * x.element_size()
+    n = 1
+    for d, dim in enumerate(x.base.shape):
+        if d >= len(x.index):
+            n *= dim
+        elif isinstance(x.index[d], slice):
+            n *= len(range(*x.index[d].indices(dim)))
+    return n * x.base.element_size()
 
 
 def _axes(entry) -> Tuple[str, ...]:
@@ -112,7 +157,7 @@ _PENDING: contextvars.ContextVar = contextvars.ContextVar(
 
 @contextlib.contextmanager
 def batched():
-    """Queue the copies that ``send`` is given inside, and make them at
+    """Queue the messages that ``send`` is given inside, and make them at
     the end through one ``Exchange`` a (mesh, kind): a module's gathers
     become one round of events and waits, not one a tensor.  Nothing
     inside may read a tensor those copies fill."""
@@ -126,46 +171,60 @@ def batched():
     finally:
         _PENDING.reset(token)
     groups: Dict = {}
-    for mesh, kind, pairs in pending:
+    for mesh, kind, msgs in pending:
         groups.setdefault((id(mesh), kind), (mesh, kind, []))[2].extend(
-            pairs)
-    for mesh, kind, pairs in groups.values():
-        send(mesh, kind, pairs)
+            msgs)
+    for mesh, kind, msgs in groups.values():
+        send(mesh, kind, msgs)
 
 
-def send(mesh, kind: str, pairs) -> None:
-    """Copy each (dst, src) pair through one ``Exchange`` (dst a view of
-    the receiver's buffer, src on the sender's device) and count the
-    bytes under ``kind``.  A pair with one end in host memory on a mesh
-    of cards (placing a tensor from the host, gathering one to it) is a
-    plain copy in stream order, not a message between shards."""
+def send(mesh, kind: str, msgs) -> None:
+    """Make each message (dst, src, frm, to) through one ``Exchange`` (dst
+    the receiver's buffer, src on the sender's device, either a tensor
+    or a ``View``; frm and to the sending and receiving shard) and count
+    its bytes under ``kind``: in ``mesh.sent`` and ``mesh.links``.  A
+    message with one end in host memory on a mesh of cards (placing a
+    tensor from the host, gathering one to it) is a plain copy in stream
+    order, not a message between shards.  On a meta mesh the messages
+    are counted and nothing is copied."""
     from repro_torch.core.primitives import Exchange
-    pairs = list(pairs)
+    msgs = list(msgs)
     pending = _PENDING.get()
     if pending is not None:
-        pending.append((mesh, kind, pairs))
+        pending.append((mesh, kind, msgs))
         return
-    host = [(d, s) for d, s in pairs if mesh.is_cuda and "cpu" in (
-        d.device.type, s.device.type)]
-    for dst, src in host:
-        dst.copy_(src)
-    pairs = [(d, s) for d, s in pairs if not (mesh.is_cuda and "cpu" in (
-        d.device.type, s.device.type))]
-    if not pairs:
+    if mesh.is_cuda:
+        for d, s, _, _ in msgs:
+            if "cpu" in (_device(d).type, _device(s).type):
+                _resolve(d).copy_(_resolve(s))
+        msgs = [m for m in msgs if "cpu" not in (_device(m[0]).type,
+                                                _device(m[1]).type)]
+    if not msgs:
         return
+    mesh.rounds[kind] += 1
+    if mesh.is_meta:
+        for dst, _, frm, to in msgs:
+            n = _msg_bytes(dst)
+            mesh.sent[kind] += n
+            mesh.count(kind, frm, to, n)
+        return
+    pairs = [(_resolve(d), _resolve(s)) for d, s, _, _ in msgs]
     ex = Exchange(mesh, [t.device for pair in pairs for t in pair])
     ex.begin()
-    for dst, src in pairs:
+    for (dst, src), (_, _, frm, to) in zip(pairs, msgs):
         ex.send(dst, src)
+        mesh.count(kind, frm, to, dst.numel() * dst.element_size())
     ex.wait(ex.mark())
     mesh.sent[kind] += ex.bytes
 
 
-def move(mesh, kind: str, src: torch.Tensor, device) -> torch.Tensor:
-    """A copy of ``src`` on ``device``, through an ``Exchange`` (a real
-    copy even on the same device: a message between two shards)."""
-    dst = torch.empty(src.shape, dtype=src.dtype, device=device)
-    send(mesh, kind, [(dst, src)])
+def move(mesh, kind: str, src: torch.Tensor, to: int,
+         frm: int) -> torch.Tensor:
+    """A copy of ``src`` (on shard ``frm``) on shard ``to``'s device,
+    through an ``Exchange`` (a real copy even on the same device: a
+    message between two shards)."""
+    dst = torch.empty(src.shape, dtype=src.dtype, device=mesh.devices[to])
+    send(mesh, kind, [(dst, src, frm, to)])
     return dst
 
 
@@ -180,14 +239,17 @@ class Placed:
         self.blocks = blocks
         self.ranges = ranges or block_ranges(self.shape, self.spec, mesh)
 
-    def __getitem__(self, i: int) -> "Placed":
-        """The slice at index ``i`` of a leading dimension that no axis
-        splits (a layer of a stacked cache), as views of the blocks."""
-        if self.spec[0] is not None:
+    def __getitem__(self, i) -> "Placed":
+        """The slice at index ``i`` (an int, or a tuple of them) of
+        leading dimensions that no axis splits (a layer of a stacked
+        cache; llama4's ``[super-block, layer]``), as views of the
+        blocks."""
+        n = len(i) if isinstance(i, tuple) else 1
+        if any(e is not None for e in self.spec[:n]):
             raise ValueError(f"index a split dimension of spec {self.spec}")
-        return Placed(self.mesh, self.spec[1:], self.shape[1:], self.dtype,
+        return Placed(self.mesh, self.spec[n:], self.shape[n:], self.dtype,
                       [b[i] for b in self.blocks],
-                      [r[1:] for r in self.ranges])
+                      [r[n:] for r in self.ranges])
 
     @property
     def ndim(self) -> int:
@@ -225,23 +287,37 @@ def place(t: torch.Tensor, spec, mesh, kind: str = "place") -> Placed:
     blocks = [torch.empty(tuple(b - a for a, b in rng), dtype=t.dtype,
                           device=dev)
               for rng, dev in zip(ranges, mesh.devices)]
-    send(mesh, kind, [(b, t[_slices(rng)])
-                      for b, rng in zip(blocks, ranges)])
+    send(mesh, kind, [(b, View(t, _slices(rng)), None, i)
+                      for i, (b, rng) in enumerate(zip(blocks, ranges))])
     return Placed(mesh, spec, t.shape, t.dtype, blocks, ranges)
 
 
 def _shards_at(x: Placed, fixed: Dict[str, int]) -> List[int]:
+    coords = x.mesh.shard_coords
     return [i for i in range(len(x.blocks))
-            if all(mesh_coords(x.mesh, i)[a] == v for a, v in fixed.items())]
+            if all(coords[i][a] == v for a, v in fixed.items())]
 
 
-def gather_slab(x: Placed, fixed: Dict[str, int], device,
+def _receiver(mesh, dest):
+    """(receiving shard, its device) of ``dest``: a shard index, or a
+    device (its first shard on the mesh; None for one off the mesh, the
+    host)."""
+    if isinstance(dest, int):
+        return dest, mesh.devices[dest]
+    device = torch.device(dest)
+    to = next((i for i, d in enumerate(mesh.devices) if d == device), None)
+    return to, device
+
+
+def gather_slab(x: Placed, fixed: Dict[str, int], dest,
                 kind: str = "params") -> torch.Tensor:
     """The part of ``x`` that the shards at mesh coordinates ``fixed``
-    ({axis: index}) hold, assembled on ``device``: over every other axis
-    it is gathered.  ``fixed={}`` is the whole tensor.  If one block on
-    ``device`` covers it, that block is returned and nothing copied."""
-    device = torch.device(device)
+    ({axis: index}) hold, assembled on ``dest``: a shard index, or a
+    device (received by its first shard on the mesh).  Over every other
+    axis it is gathered.  ``fixed={}`` is the whole tensor.  If the
+    receiving shard holds a block that covers it (off the mesh: a shard
+    on that device), that block is returned and nothing copied."""
+    to, device = _receiver(x.mesh, dest)
     shards = _shards_at(x, fixed)
     uniq: Dict[Range, List[int]] = {}
     for i in shards:
@@ -249,53 +325,64 @@ def gather_slab(x: Placed, fixed: Dict[str, int], device,
     lo = [min(r[d][0] for r in uniq) for d in range(x.ndim)]
     hi = [max(r[d][1] for r in uniq) for d in range(x.ndim)]
     if len(uniq) == 1:
+        if to is not None and to in shards:
+            return x.blocks[to]
         for i in shards:
-            if x.mesh.devices[i] == device:
+            if to is None and x.mesh.devices[i] == device:
                 return x.blocks[i]
     out = torch.empty([b - a for a, b in zip(lo, hi)], dtype=x.dtype,
                       device=device)
-    pairs = []
+    msgs = []
     for rng, idx in uniq.items():
-        near = [i for i in idx if x.mesh.devices[i] == device]
-        src = x.blocks[(near or idx)[0]]     # a replica on ``device`` first
-        pairs.append((out[_slices(rng, lo)], src))
-    send(x.mesh, kind, pairs)
+        # the receiver's own block first, then a replica on its device
+        near = ([i for i in idx if i == to]
+                or [i for i in idx if x.mesh.devices[i] == device])
+        frm = (near or idx)[0]
+        msgs.append((View(out, _slices(rng, lo)), x.blocks[frm], frm, to))
+    send(x.mesh, kind, msgs)
     return out
 
 
-def gather(x, device=None, kind: str = "params") -> torch.Tensor:
-    """The whole tensor on ``device`` (default: the mesh's home); a plain
-    tensor is returned as it is."""
+def gather(x, dest=None, kind: str = "params") -> torch.Tensor:
+    """The whole tensor on ``dest`` (a shard index or a device; default:
+    shard 0, the mesh's home); a plain tensor is returned as it is."""
     if not isinstance(x, Placed):
         return x
-    return gather_slab(x, {}, x.mesh.home if device is None else device,
-                       kind)
+    return gather_slab(x, {}, 0 if dest is None else dest, kind)
 
 
-def scatter(x: Placed, full: torch.Tensor, kind: str = "replicas") -> None:
-    """Write every block of ``x`` from the whole tensor ``full`` (a block
-    that is ``full``'s own storage is left as it is): replicas updated
-    the same way."""
-    pairs = [(b, full[_slices(rng)]) for b, rng in zip(x.blocks, x.ranges)
-             if not (b.data_ptr() == full.data_ptr()
-                     and b.shape == full.shape)]
-    send(x.mesh, kind, pairs)
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` is ``b``'s storage at the same place and shape (a
+    meta tensor has no address: only the object itself)."""
+    return a is b or (a.device.type != "meta" and a.data_ptr() == b.data_ptr()
+                      and a.shape == b.shape)
+
+
+def scatter(x: Placed, full: torch.Tensor, kind: str = "replicas",
+            frm: int = 0) -> None:
+    """Write every block of ``x`` from the whole tensor ``full`` on shard
+    ``frm`` (a block that is ``full``'s own storage is left as it is):
+    replicas updated the same way."""
+    send(x.mesh, kind, [(b, View(full, _slices(rng)), frm, i)
+                        for i, (b, rng) in enumerate(zip(x.blocks, x.ranges))
+                        if not _same(b, full)])
 
 
 def write_rows(x: Placed, new: torch.Tensor, pos: Sequence[int],
-               kind: str = "entries") -> None:
-    """Write ``new`` (B, 1, ...) into a (B, S, ...) placed cache at each
-    row's position ``pos[b]`` (host ints, already clamped into [0, S)):
-    into every block whose ranges hold (b, pos[b]), its slice of the
-    trailing dimensions."""
-    pairs = []
-    for blk, rng in zip(x.blocks, x.ranges):
+               kind: str = "entries", frm: int = 0) -> None:
+    """Write ``new`` (B, 1, ...) on shard ``frm`` into a (B, S, ...)
+    placed cache at each row's position ``pos[b]`` (host ints, already
+    clamped into [0, S)): into every block whose ranges hold (b,
+    pos[b]), its slice of the trailing dimensions, in the cache's
+    dtype."""
+    msgs = []
+    for i, (blk, rng) in enumerate(zip(x.blocks, x.ranges)):
         (b0, b1), (s0, s1), rest = rng[0], rng[1], rng[2:]
         for b in range(b0, b1):
             if s0 <= pos[b] < s1:
-                pairs.append((blk[b - b0, pos[b] - s0],
-                              new[(b, 0) + _slices(rest)].to(x.dtype)))
-    send(x.mesh, kind, pairs)
+                msgs.append((View(blk, (b - b0, pos[b] - s0)),
+                             View(new, (b, 0) + _slices(rest)), frm, i))
+    send(x.mesh, kind, msgs)
 
 
 # ----------------------------------------------------------------------
@@ -360,7 +447,7 @@ def gather_tree(tree, device=None):
         return materialize(tree, device, fn=lambda n, x: gather_tree(
             x, device))
     if isinstance(tree, Placed):
-        out = gather(tree, device, kind="gather")
+        out = gather(tree, 0 if device is None else device, kind="gather")
         return out.clone() if any(out is b for b in tree.blocks) else out
     if isinstance(tree, torch.Tensor):
         return tree if device is None else tree.to(device)

@@ -25,7 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 from repro_torch.models.moe import expert_block, is_routed_expert
 from repro_torch.sharding.context import sharding_context
-from repro_torch.sharding.placement import (Placed, _slices, gather,
+from repro_torch.sharding.placement import (Placed, View, _slices, gather,
                                             gather_slab, has_placed,
                                             materialize, move, scatter,
                                             send)
@@ -128,14 +128,15 @@ def _shard_rows(batch, mesh, p: int):
     """Data shard p's batch rows on ``mesh.device(p, 0)``: its block of a
     batch placed by ``batch_specs``, or its rows of a plain one on the
     home."""
-    dev, P = mesh.device(p, 0), mesh.P
+    P, shard = mesh.P, p * mesh.M
     out = {}
     for k, v in batch.items():
         if isinstance(v, Placed):
             if v.spec[0] is None and P > 1:
                 raise ValueError(f"batch {k!r}: {v.shape[0]} rows do not "
                                  f"split over {P} data shards")
-            out[k] = gather_slab(v, {"data": p, "model": 0}, dev, "batch")
+            out[k] = gather_slab(v, mesh.shard_coords[shard], shard,
+                                 "batch")
             continue
         v = torch.as_tensor(v, device=mesh.home)
         if v.shape[0] % P:
@@ -143,7 +144,7 @@ def _shard_rows(batch, mesh, p: int):
                              f"over {P} data shards")
         n = v.shape[0] // P
         rows = v[p * n:(p + 1) * n]
-        out[k] = rows if p == 0 else move(mesh, "batch", rows, dev)
+        out[k] = rows if p == 0 else move(mesh, "batch", rows, shard, 0)
     return out
 
 
@@ -152,21 +153,21 @@ def _working_copy(params, mesh, p: int, ep: bool):
     as a fresh leaf, but for the experts under ``moe_ep``, which become
     M leaves, model shard m's experts on ``device(p, m)`` (a ``Placed``
     over the row ``mesh.row(p)``).  Returns (the module, {name: [(leaf,
-    its origin in the global tensor)]})."""
-    dev, row = mesh.device(p, 0), mesh.row(p)
+    its origin in the global tensor, its shard)]})."""
+    row = mesh.row(p)
     leaves: Dict[str, list] = {}
 
     def fn(n, x):
         if ep and is_routed_expert(n):
             e_loc = x.shape[0] // mesh.M
-            blocks = [_leaf(expert_block(x, m, e_loc, mesh.device(p, m)))
+            blocks = [_leaf(expert_block(x, m, e_loc, p * mesh.M + m))
                       for m in range(mesh.M)]
-            leaves[n] = [(b, (m * e_loc,) + (0,) * (x.ndim - 1))
-                         for m, b in enumerate(blocks)]
+            leaves[n] = [(b, (m * e_loc,) + (0,) * (x.ndim - 1),
+                          p * mesh.M + m) for m, b in enumerate(blocks)]
             return Placed(row, ("model",) + (None,) * (x.ndim - 1), x.shape,
                           x.dtype, blocks)
-        t = _leaf(gather(x, dev))
-        leaves[n] = [(t, (0,) * x.ndim)]
+        t = _leaf(gather(x, p * mesh.M))
+        leaves[n] = [(t, (0,) * x.ndim, p * mesh.M)]
         return t
 
     return materialize(params, fn=fn), leaves
@@ -180,39 +181,54 @@ def _intersect(a, b):
 
 
 def _reduce_grads(named, grads, mesh):
-    """Each block's gradient on its card: the pieces of every data
-    shard's gradients that cover it, copied there ("grads") and summed in
+    """Each block's gradient on its card: the piece of every data shard's
+    gradients that covers it (the whole parameter, or under ``moe_ep``
+    its model shard's experts), copied there ("grads") and summed in
     shard order.  Replicas of a block each get the same sum, the same
-    way.  Returns {name: [gradient of block i]}."""
-    plan, pairs = [], []
+    way.  Returns {name: [gradient of block i]}.
+
+    Shard i receives its blocks' pieces into one flat buffer a dtype, a
+    row a data shard and its blocks side by side, so the sums are P - 1
+    adds of whole rows: elementwise the same adds in the same order."""
+    P = len(grads)
+    flat: Dict[tuple, list] = {}        # (shard, dtype) -> [(n, block)]
     for n, x in named.items():
         for i, (rng, blk) in enumerate(zip(x.ranges, x.blocks)):
             pieces = []
             for shard in grads:
-                for g, origin in shard[n]:
+                for g, origin, frm in shard[n]:
                     grng = tuple((o, o + d) for o, d in zip(origin, g.shape))
                     inter = _intersect(rng, grng)
-                    if inter is None:
-                        continue
-                    buf = torch.empty([b - a for a, b in inter],
-                                      dtype=g.dtype, device=blk.device)
-                    pairs.append((buf, g[_slices(inter, origin)]))
-                    pieces.append((inter == rng, _slices(inter, [
-                        a for a, _ in rng]), buf))
-            plan.append((n, i, pieces))
-    send(mesh, "grads", pairs)
+                    if inter is not None:
+                        pieces.append((inter, g, origin, frm))
+            if len(pieces) != P or any(p[0] != rng for p in pieces):
+                raise ValueError(f"{n}: block {i} is not one whole piece "
+                                 "of each data shard's gradient")
+            flat.setdefault((i, blk.dtype), []).append((n, blk, pieces))
+    msgs, bufs = [], []
+    for (i, dtype), entries in flat.items():
+        size = sum(blk.numel() for _, blk, _ in entries)
+        buf = torch.empty((P, size), dtype=dtype,
+                          device=entries[0][1].device)
+        off = 0
+        for n, blk, pieces in entries:
+            k = blk.numel()
+            for p, (inter, g, origin, frm) in enumerate(pieces):
+                msgs.append((View(buf, (p, slice(off, off + k)), blk.shape),
+                             View(g, _slices(inter, origin)), frm, i))
+            off += k
+        bufs.append((i, buf, entries))
+    send(mesh, "grads", msgs)
     out: Dict[str, list] = {n: [None] * len(x.blocks)
                             for n, x in named.items()}
-    for n, i, pieces in plan:
-        if all(whole for whole, _, _ in pieces):
-            acc = pieces[0][2]
-            for _, _, buf in pieces[1:]:
-                acc = acc + buf
-        else:
-            acc = torch.zeros_like(named[n].blocks[i])
-            for _, sl, buf in pieces:
-                acc[sl] = acc[sl] + buf
-        out[n][i] = acc
+    for i, buf, entries in bufs:
+        acc = buf[0]
+        for p in range(1, P):
+            acc = acc + buf[p]
+        off = 0
+        for n, blk, _ in entries:
+            out[n][i] = acc[off:off + blk.numel()].view(blk.shape)
+            off += blk.numel()
     return out
 
 
@@ -223,7 +239,7 @@ def _global_aux(cfg: ModelConfig, stats, mesh):
     value on the home, each shard's part of it): shard p's part is E
     sum(its probs summed / T ce) over the layers, whose gradient is the
     shard's share of the whole loss's (ce holds no gradient)."""
-    E, home = cfg.moe.n_experts, mesh.home
+    E = cfg.moe.n_experts
     parts = [0] * len(stats)
     aux = 0
     for layer in zip(*stats):
@@ -232,14 +248,14 @@ def _global_aux(cfg: ModelConfig, stats, mesh):
         for p, (ps, cs, _) in enumerate(layer):
             ps, cs = ps.detach(), cs
             if p:
-                ps, cs = (move(mesh, "aux", x, home) for x in (ps, cs))
+                ps, cs = (move(mesh, "aux", x, 0, p * mesh.M)
+                          for x in (ps, cs))
             probs = ps if probs is None else probs + ps
             counts = cs if counts is None else counts + cs
         ce = counts / T
         aux = aux + E * torch.sum(probs / T * ce)
         for p, (ps, _, _) in enumerate(layer):
-            ce_p = ce if p == 0 else move(mesh, "aux", ce,
-                                          mesh.device(p, 0))
+            ce_p = ce if p == 0 else move(mesh, "aux", ce, p * mesh.M, 0)
             parts[p] = parts[p] + E * torch.sum(ps / T * ce_p)
     return aux, parts
 
@@ -267,11 +283,11 @@ def placed_loss_and_grads(cfg: ModelConfig, params, batch, *,
     dropped before it returns."""
     named = dict(params.named_parameters())
     mesh = next(iter(named.values())).mesh
-    P, home = mesh.P, mesh.home
+    P = mesh.P
     ep = tuning.on("moe_ep")
 
     def to_home(t, p):
-        return t if p == 0 else move(mesh, "loss", t, home)
+        return t if p == 0 else move(mesh, "loss", t, 0, p * mesh.M)
 
     # every shard's params gathered before any compute is queued: a copy
     # out of a card waits for what its compute stream holds, so a gather
@@ -299,13 +315,13 @@ def placed_loss_and_grads(cfg: ModelConfig, params, batch, *,
         parts = [a / P for *_, a in shards]
     grads = []
     for p, (leaves, t, _, _) in enumerate(shards):
-        c = cnt if p == 0 else move(mesh, "loss", cnt, mesh.device(p, 0))
+        c = cnt if p == 0 else move(mesh, "loss", cnt, p * mesh.M, 0)
         loss = t / torch.clamp(c, min=1.0) + AUX_LOSS_WEIGHT * parts[p]
-        flat = [leaf for n in leaves for leaf, _ in leaves[n]]
+        flat = [leaf for n in leaves for leaf, _, _ in leaves[n]]
         with sharding_context(mesh.row(p)), torch.enable_grad():
             gs = iter(torch.autograd.grad(loss, flat, allow_unused=True))
-        grads.append({n: [(torch.zeros_like(leaf) if g is None else g, o)
-                          for (leaf, o), g in zip(ls, gs)]
+        grads.append({n: [(torch.zeros_like(leaf) if g is None else g, o,
+                           frm) for (leaf, o, frm), g in zip(ls, gs)]
                       for n, ls in leaves.items()})
     del shards
     red = _reduce_grads(named, grads, mesh)
@@ -315,17 +331,42 @@ def placed_loss_and_grads(cfg: ModelConfig, params, batch, *,
         for n, x in named.items()}
 
 
+def _adamw_blocks(ps, gs, ms, vs, consts, opt_cfg: AdamWConfig,
+                  decay: bool) -> None:
+    """``adamw_leaf`` on every block of one parameter (``consts[i]``
+    shard i's), the blocks that share a device at once: their flat
+    concatenation, written back after (every shard of a one-card or a
+    meta mesh).  Every op of the update is elementwise, so each element
+    gets the bits it gets alone."""
+    by_dev: Dict[torch.device, list] = {}
+    for i, p in enumerate(ps):
+        by_dev.setdefault(p.device, []).append(i)
+    for idx in by_dev.values():
+        if len(idx) == 1:
+            i = idx[0]
+            adamw_leaf(ps[i], gs[i], ms[i], vs[i], *consts[i], opt_cfg,
+                       decay)
+            continue
+        p, g, m, v = (torch.cat([t[i].reshape(-1) for i in idx])
+                      for t in (ps, gs, ms, vs))
+        adamw_leaf(p, g, m, v, *consts[idx[0]], opt_cfg, decay)
+        sizes = [ps[i].numel() for i in idx]
+        for ts, flat in ((ps, p), (ms, m), (vs, v)):
+            for i, part in zip(idx, flat.split(sizes)):
+                ts[i].copy_(part.view(ts[i].shape))
+
+
 def _placed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, params,
                        opt_state: OptState, batch, attn_backend: str):
     """``train_step`` with params and AdamW state placed on a mesh:
     ``placed_loss_and_grads``, then the global norm over each distinct
     block once, and AdamW on every block of the params, m and v on its
-    card (replicas alike), the step counter's replicas alike."""
+    card (replicas alike; ``_adamw_blocks``), the step counter's
+    replicas alike."""
     (total, (ce, aux)), grads = placed_loss_and_grads(
         cfg, params, batch, attn_backend=attn_backend)
     named = dict(params.named_parameters())
     mesh = next(iter(named.values())).mesh
-    home = mesh.home
     red = {n: g.blocks for n, g in grads.items()}
     with torch.no_grad():
         sq = 0
@@ -335,8 +376,8 @@ def _placed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, params,
                 if rng not in seen:
                     seen.add(rng)
                     s = torch.sum(torch.square(red[n][i].float()))
-                    sq = sq + (s if i == 0 else move(mesh, "norm", s,
-                                                     home))
+                    sq = sq + (s if i == 0 else move(mesh, "norm", s, 0,
+                                                     i))
         gnorm = torch.sqrt(sq)
         step = gather(opt_state.step) + 1
         lr = lr_schedule(step, opt_cfg)
@@ -347,14 +388,12 @@ def _placed_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, params,
         consts = [(scale, lr, b1c, b2c)]
         for i in range(1, len(mesh.devices)):
             c = move(mesh, "scalars", torch.stack([scale, lr, b1c, b2c]),
-                     mesh.devices[i])
+                     i, 0)
             consts.append(tuple(c.unbind()))
         decay = decay_mask(cfg, params)
         for n, x in named.items():
-            for i, blk in enumerate(x.blocks):
-                adamw_leaf(blk, red[n][i], opt_state.m[n].blocks[i],
-                           opt_state.v[n].blocks[i], *consts[i], opt_cfg,
-                           decay[n])
+            _adamw_blocks(x.blocks, red[n], opt_state.m[n].blocks,
+                          opt_state.v[n].blocks, consts, opt_cfg, decay[n])
         scatter(opt_state.step, step, kind="scalars")
     metrics = {"grad_norm": gnorm, "lr": lr, "loss": ce, "aux_loss": aux,
                "total_loss": total}

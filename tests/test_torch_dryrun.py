@@ -1,7 +1,8 @@
 """The port's dry-run (``repro_torch.launch.dryrun``) and roofline
 (``repro_torch.roofline``): the trace's FLOPs to the FLOP on a reduced
 dense config, its byte and peak counters on a toy function, a
-full-width deepseek-v2 decode on the 16 x 16 mesh without allocating,
+full-width deepseek-v2 decode placed on the 16 x 16 meta mesh without
+allocating, with its collective bytes,
 records through ``report.build_rows``, the CLI writing only under
 ``results/dryrun_torch/``, and the roofline's formulas against the JAX
 package's, up to the ratio of the two hardware tables."""
@@ -46,8 +47,9 @@ def _small():
 @pytest.mark.parametrize("kind", ["prefill", "decode"])
 def test_flops_are_exact_on_a_reduced_dense_config(kind):
     """Every matmul of the step, written out: q, k, v and o projections,
-    the "ref" attention's scores and weighted sum over every (query,
-    key) pair (decode: the cache's S keys), the SwiGLU's three
+    the attention's scores and weighted sum (prefill: the flash kernel's
+    op over the S (S + 1) / 2 pairs its causal mask keeps; decode: the
+    plain decode attention over the cache's S keys), the SwiGLU's three
     projections, and the unembedding of the last position."""
     cfg = _small()
     D, H, K, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -57,12 +59,13 @@ def test_flops_are_exact_on_a_reduced_dense_config(kind):
     T = B * S if kind == "prefill" else B
     proj = 2 * T * D * H * hd + 2 * 2 * T * D * K * hd + 2 * T * H * hd * D
     mlp = 3 * 2 * T * D * F
-    att = 2 * 2 * B * H * (S if kind == "prefill" else 1) * S * hd
+    att = (B * H * S * (S + 1) // 2 * (2 * hd + 2 * hd) if kind == "prefill"
+           else 2 * 2 * B * H * 1 * S * hd)
     assert rec["cost_analysis"]["flops_global"] == L * (proj + mlp + att) \
         + 2 * B * D * V
     assert rec["cost_analysis"]["flops"] == rec["cost_analysis"][
         "flops_global"]                                   # one chip
-    assert rec["status"] == "ok" and rec["attn_backend"] == "ref"
+    assert rec["status"] == "ok" and rec["attn_backend"] == "cuda"
     assert rec["collectives"]["total"] == 0
     ma = rec["memory_analysis"]
     params = sum(p.numel() * 4 for p in dryrun.step_arguments(
@@ -91,15 +94,25 @@ def test_trace_counter_counts_bytes_and_the_peak():
 
 
 def test_meta_tensors_reach_no_kernel():
-    """The kernels' wrappers raise on a meta tensor: the dry-run's step
-    names the plain version ("ref") and a "cuda" prefill refuses."""
+    """On a meta tensor the flash wrapper launches no kernel: the
+    dry-run's step names the kernel's path ("cuda"), and a "cuda"
+    prefill runs one shape-only op a layer and launches nothing; the
+    kernel's launcher still refuses any device but a card."""
+    from repro_torch.kernels import flash_attention as tflash
+    from repro_torch.kernels import ops as kops
     cfg = _small()
     fn, args, *_ = dryrun.step_arguments(cfg, InputShape("t", S, B,
                                                         "prefill"),
                                          dryrun.MESHES["card"]())
+    kops.reset_launch_counts()
+    logits, cache = prefill_step(cfg, *args, attn_backend="cuda")
+    assert logits.is_meta and cache["k"].is_meta
+    assert kops.launch_counts()["flash_attention"] == 0
+    assert fn.keywords["attn_backend"] == "cuda"
+    q = args[0].embed.new_empty((B, S, 2, 8))
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        prefill_step(cfg, *args, attn_backend="cuda")
-    assert fn.keywords["attn_backend"] == "ref"
+        tflash._launch(q, q, q, q_offset=0, causal=True, window=None,
+                       scale=1.0)
 
 
 PROBE = r"""
@@ -122,9 +135,14 @@ def test_full_width_deepseek_decode_on_the_production_mesh_allocates_nothing():
     assert out["growth_kib"] < 2 * 1024 * 1024
     rec = out["rec"]
     assert rec["n_chips"] == 256 and rec["status"] == "ok"
-    assert rec["collectives"]["total"] is None
-    assert "not measured" in rec["collectives"]["reason"]
-    assert rec["roofline"]["collective_s"] is None
+    coll = rec["collectives"]
+    assert isinstance(coll["total"], int) and coll["total"] > 0
+    # decode gathers each layer's params and each latent cache whole to
+    # the home (shard 0), which receives every byte of the step
+    assert coll["home"] == coll["total"] == coll["all-gather"] + coll[
+        "collective-permute"]
+    assert rec["roofline"]["collective_s"] == coll["total"] / tanalysis.HW[
+        "link_bw"]
     # 471 GB of bf16 params (and 4 x 128 x 32k latents) over 256 chips
     assert 1.5e9 < rec["memory_analysis"]["argument_size_in_bytes"] < 4e9
     cfg = tconfigs.get_config("deepseek-v2-236b")
@@ -153,7 +171,8 @@ def test_a_record_round_trips_through_the_report(tmp_path):
     single = dryrun.dry_run(_small(), InputShape("u", S, B, "decode"),
                             "single")
     [srow] = report.build_rows("single", [single])
-    assert srow["collective_s"] is None and "n/a" in report.markdown([srow])
+    assert srow["collective_s"] == single["collectives"]["total"] / hw[
+        "link_bw"] > 0 and "n/a" not in report.markdown([srow])
     joined = report.markdown_joined({"card": [row], "single": [srow]})
     lines = joined.splitlines()
     assert len(lines) == 4 and lines[0].count("|") == 3 + 4 * 2 + 1

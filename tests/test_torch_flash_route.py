@@ -74,9 +74,16 @@ def test_cpu_calls_count_no_launch_and_reset_zeroes_the_tc_count():
 
 
 def test_no_kernel_for_a_device_that_is_neither_cpu_nor_cuda():
+    """The launcher refuses any device but a card; a meta tensor (the
+    dry-run's trace) reaches the shape-only op, which launches nothing."""
     q = torch.zeros((1, 4, 2, 64), dtype=BF16, device="meta")
-    with pytest.raises(ValueError, match="no kernel for device"):
-        kflash.flash_attention_gqa(q, q, q)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        kflash._launch(q, q, q, q_offset=0, causal=True, window=None,
+                       scale=1.0)
+    kops.reset_launch_counts()
+    out = kflash.flash_attention_gqa(q, q, q)
+    assert out.is_meta and tuple(out.shape) == (1, 4, 2, 64)
+    assert kops.launch_counts()["flash_attention"] == 0
 
 
 # the f32 kernel's tiles (csrc/flash_attention.cu Tile64 / Tile128 /
