@@ -107,6 +107,34 @@ def gemm_rows(h, w):
 # graph binding
 # ----------------------------------------------------------------------
 
+def _h2d(a, t: torch.Tensor) -> bool:
+    """True where making ``t`` from ``a`` copied host memory (a numpy
+    array, a CPU tensor) to a CUDA device."""
+    return t.is_cuda and (not isinstance(a, torch.Tensor)
+                          or a.device.type == "cpu")
+
+
+def _bind(a, device: torch.device, dtype=None):
+    """``torch.as_tensor(a, dtype=dtype, device=device)`` and the bytes
+    it copied from host memory to a CUDA device, added to the
+    ``io.h2d_bytes`` counter where the copy is issued (0 on the CPU, or
+    where ``a`` is on the device already)."""
+    t = torch.as_tensor(a, dtype=dtype, device=device)
+    if not _h2d(a, t):
+        return t, 0
+    n = t.numel() * t.element_size()
+    obs.add("io.h2d_bytes", n)
+    return t, n
+
+
+def _io_end(sp, device: torch.device, **attrs) -> None:
+    """A recording ``io.*`` span's end: on the host's clock, wait for the
+    device, so that the span holds its own copies; then its attrs."""
+    if device.type == "cuda" and not obs.profiling():
+        torch.cuda.synchronize(device)
+    sp.set(**attrs)
+
+
 class DenseIO:
     """Graph binding: a fixed-fanout neighbor matrix whose ids index the
     source rows directly, on one device (``"cuda"`` by default, which
@@ -121,15 +149,20 @@ class DenseIO:
     def __init__(self, nbr: np.ndarray, mask: np.ndarray, table=None,
                  device="cuda"):
         self.device = resolve_device(device)
-        self.nbr_np = np.asarray(nbr)
-        self.mask_np = np.asarray(mask)
-        self.nbr = torch.as_tensor(self.nbr_np, dtype=torch.int32,
-                                   device=self.device)
-        self.mask = torch.as_tensor(self.mask_np, dtype=torch.bool,
-                                    device=self.device)
-        # the loader's table is int64; the kernels read int32 ids
-        self.table = (None if table is None else torch.as_tensor(
-            np.asarray(table), device=self.device).to(torch.int32))
+        with obs.span("io.bind") as sp:
+            self.nbr_np = np.asarray(nbr)
+            self.mask_np = np.asarray(mask)
+            self.nbr, n_nbr = _bind(self.nbr_np, self.device, torch.int32)
+            self.mask, n_mask = _bind(self.mask_np, self.device, torch.bool)
+            self.table, n_table = None, 0
+            if table is not None:
+                # the loader's table is int64; the kernels read int32 ids
+                self.table, n_table = _bind(np.asarray(table), self.device)
+                self.table = self.table.to(torch.int32)
+            if sp:
+                _io_end(sp, self.device, rows=int(self.nbr_np.shape[0]),
+                        fanout=int(self.nbr_np.shape[1]),
+                        h2d_bytes=n_nbr + n_mask + n_table)
         self._nbr_resolved = None
         self._mean_w = None
 
@@ -150,8 +183,12 @@ class DenseIO:
     def mean_w(self):
         """Mean-aggregation edge weights (lazy: gat never reads them)."""
         if self._mean_w is None:
-            self._mean_w = torch.as_tensor(mean_weights(self.mask_np),
-                                           device=self.device)
+            with obs.span("io.mean_w") as sp:
+                self._mean_w, n = _bind(mean_weights(self.mask_np),
+                                        self.device)
+                if sp:
+                    _io_end(sp, self.device,
+                            rows=int(self.mask_np.shape[0]), h2d_bytes=n)
         return self._mean_w
 
 
@@ -220,11 +257,13 @@ def run_layer(ex, layer: LayerSpec, io, h_tgt, h_src, heads: int = 1):
             else:
                 raise ValueError(f"unknown layer op {kind!r}")
             if sp:
-                # make the span honest under async launches; value-neutral
-                if isinstance(out, Sharded):
-                    out.synchronize()
-                elif out.is_cuda:
-                    torch.cuda.synchronize(out.device)
+                # make the span honest under async launches, unless a
+                # profiler's trace holds the device's time; value-neutral
+                if not obs.profiling():
+                    if isinstance(out, Sharded):
+                        out.synchronize()
+                    elif out.is_cuda:
+                        torch.cuda.synchronize(out.device)
                 sp.set(executor=getattr(ex, "name", type(ex).__name__),
                        rows=int(out.shape[0]))
         env[out_slot] = out
@@ -258,7 +297,11 @@ class RefExecutor:
         self.device = resolve_device(device)
 
     def prepare(self, X):
-        return torch.as_tensor(X, device=self.device)
+        with obs.span("io.prepare") as sp:
+            H, n = _bind(X, self.device)
+            if sp:
+                _io_end(sp, self.device, rows=int(H.shape[0]), h2d_bytes=n)
+        return H
 
     def gemm(self, H, W):
         return gemm_rows(H, torch.as_tensor(W, device=self.device))

@@ -23,14 +23,30 @@ be threaded through every constructor:
 
 The process default is a disabled telemetry: every helper is a no-op
 whose cost is one attribute check (``tel.enabled``) and which allocates
-nothing.  ``api.Session`` builds a ``Telemetry`` from its config's
+nothing; ``span`` reads the profiler's enabled flag besides.
+``api.Session`` builds a ``Telemetry`` from its config's
 ``TelemetrySpec`` and ``install``s it for the session's lifetime; tests
 use the ``use(tel)`` context manager.
+
+While ``torch.profiler`` records, every span is also a
+``record_function`` range of its name, so that the port's stages sit in
+the profiler's trace beside the device work they launch, on its clock:
+
+    telemetry   profiler    ``span`` gives
+    enabled     recording   the tracer's span and the range (truthy)
+    disabled    recording   the range alone (falsy, as ``NOOP_SPAN``)
+    disabled    off         ``NOOP_SPAN``
+
+Call sites that synchronize the device to make a span hold its own work
+do so only where ``profiling()`` is false: the trace holds the device's
+time already, and a synchronize would put idle time into it.
 """
 from __future__ import annotations
 
 from contextlib import contextmanager
 from typing import Dict, Optional
+
+from torch.autograd import profiler as _profiler
 
 from repro_torch.obs.export import (chrome_trace, dump_chrome_trace,
                                     prometheus_text)
@@ -71,8 +87,13 @@ class Telemetry:
     # -- spans ----------------------------------------------------------
     def span(self, name: str, attrs: Optional[dict] = None):
         if not self.enabled:
+            if _profiler._is_profiler_enabled:
+                return _Range(None, name)
             return NOOP_SPAN
-        return self.tracer.span(name, attrs)
+        sp = self.tracer.span(name, attrs)
+        if _profiler._is_profiler_enabled:
+            return _Range(sp, name)
+        return sp
 
     # -- metrics --------------------------------------------------------
     def add(self, name: str, v: float = 1.0) -> None:
@@ -93,6 +114,44 @@ class Telemetry:
     def clear(self) -> None:
         self.tracer.clear()
         self.metrics.clear()
+
+
+class _Range:
+    """A span while ``torch.profiler`` records: a ``record_function``
+    range of the span's name around the tracer's span ``sp``, or around
+    nothing where telemetry is disabled (then falsy, as ``NOOP_SPAN``,
+    so that call sites skip their attrs)."""
+
+    __slots__ = ("_sp", "_rf")
+
+    def __init__(self, sp, name: str):
+        self._sp = sp
+        self._rf = _profiler.record_function(name)
+
+    def __enter__(self) -> "_Range":
+        self._rf.__enter__()
+        if self._sp is not None:
+            self._sp.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        if self._sp is not None:
+            self._sp.__exit__(*exc)
+        self._rf.__exit__(*exc)
+        return False
+
+    def __bool__(self) -> bool:
+        return self._sp is not None
+
+    def set(self, **attrs) -> None:
+        if self._sp is not None:
+            self._sp.set(**attrs)
+
+
+def profiling() -> bool:
+    """True while ``torch.profiler`` records: spans are then its ranges
+    too, and no span synchronizes the device."""
+    return _profiler._is_profiler_enabled
 
 
 DISABLED = Telemetry(enabled=False, capacity=1)
@@ -130,10 +189,7 @@ def use(tel: Optional[Telemetry]):
 #    when disabled) -------------------------------------------------------
 
 def span(name: str, attrs: Optional[dict] = None):
-    tel = _CURRENT
-    if not tel.enabled:
-        return NOOP_SPAN
-    return tel.tracer.span(name, attrs)
+    return _CURRENT.span(name, attrs)
 
 
 def add(name: str, v: float = 1.0) -> None:
@@ -158,4 +214,4 @@ __all__ = ["Telemetry", "Tracer", "FakeClock", "MetricsRegistry",
            "Counter", "Gauge", "Histogram", "NoopSpan", "NOOP_SPAN",
            "DISABLED", "chrome_trace", "dump_chrome_trace",
            "prometheus_text", "current", "enabled", "install", "use",
-           "span", "add", "gauge", "observe"]
+           "span", "add", "gauge", "observe", "profiling"]

@@ -153,7 +153,8 @@ def test_build_service_shim_bitwise_equal(executor, budget):
 
 def test_launcher_records_the_jax_launchers_span_names(capsys):
     """The same config through both launchers' own functions, with a
-    fake clock: the same span names (and the same queries served)."""
+    fake clock: the same span names (and the same queries served),
+    besides the binding's ``io.*`` spans, which the JAX package lacks."""
     d = {"graph": {"dataset": "ogbn-products", "scale": SCALE,
                    "fanout": 4, "n_construct_workers": 4},
          "model": {"name": "gcn", "n_layers": 2, "d_feature": 16},
@@ -174,5 +175,6 @@ def test_launcher_records_the_jax_launchers_span_names(capsys):
         se.drive(s.engine, **kw)
         got = {ev[0] for ev in s.telemetry.tracer.events_in_order()}
         assert s.engine.stats()["n_served"] == jserved
-    assert got == want
+    assert got - want == {"io.bind", "io.mean_w"}
+    assert got & want == want
     assert {"serve.tick", "serve.drain", "refresh.layer"} <= got

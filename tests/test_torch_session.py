@@ -166,7 +166,8 @@ def test_executor_spec_build_passes_options():
 
 def test_telemetry_records_the_same_span_names():
     """The port's spans carry repro's names: the same set for a gcn run
-    through "ref", and the fused attention span for gat on "cuda"."""
+    through "ref", besides the binding's ``io.*`` spans that the JAX
+    package lacks, and the fused attention span for gat on "cuda"."""
     from repro_torch import obs
     d = _cfg_dict("gcn")
     d["telemetry"] = {"enabled": True, "clock": "fake"}
@@ -176,7 +177,8 @@ def test_telemetry_records_the_same_span_names():
     with Session.build(DealConfig.from_dict(d), device="cpu") as s:
         s.infer_all()
         got = {ev[0] for ev in s.telemetry.tracer.events_in_order()}
-        assert got == want
+        assert got - want == {"io.bind", "io.mean_w", "io.prepare"}
+        assert got & want == want
     d = _cfg_dict("gat", "cuda")
     d["telemetry"] = {"enabled": True, "clock": "fake"}
     prev = obs.current()
