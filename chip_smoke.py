@@ -21,7 +21,9 @@ the run with a non-zero exit code:
    form (GAT's
    attend: w a strided (R, 8, 4) view) bitwise the four per-head
    launches; gat_attention and sddmm bitwise on row subsets, and sddmm
-   on strided per-head column slices against their contiguous copies.
+   on strided per-head column slices against their contiguous copies;
+   ``mean_weights`` on the same mask bitwise its plain version and
+   numpy's ``gnn_models.mean_weights``, timed beside its bound.
    [tune]: ``tuning.ensure_tuned`` for spmm and gather_spmm at those
    shapes over their grid of 15 tilings (rows x chunks a block) into a
    fresh table under ``build/``, each tiling timed with CUDA events
@@ -46,8 +48,10 @@ the run with a non-zero exit code:
    call.
 3. slice:  ``Session.build(cfg, device="cuda").infer_all()`` for gcn,
    sage and gat (4 heads; fused and unfused attention), each against
-   the "ref" executor on the card with the same params (atol 1e-4,
-   rtol 3e-3), with each kernel's launches counted over that run; then
+   the "ref" executor on the card with the same params and numpy's mean
+   weights (atol 1e-4, rtol 3e-3), with each kernel's launches counted
+   over that run (and ``mean_weights``': one a layer in gcn and sage,
+   none in gat); then
    the warm epoch split into the DenseIO build, ``prepare`` and
    ``run_model``, and ``run_model`` once more under spans (ms per op).
    [serve]: first (before the sessions) whether a row of
@@ -654,6 +658,7 @@ def kernel_phase(torch, kops, lg):
         f"pairs), bound {r['bound_ms']:.4f} ms ({r['bound_by']}); row "
         f"subsets and {HEADS} strided head slices bitwise equal, a strided "
         f"slice {ms_strided:.4f} ms")
+    mean_weights_check(torch, kops, lg, mask)
     for name, r in rows.items():        # recorded, not gated
         log(f"[kernels] {name}: {r['ms'] / r['bound_ms']:.2f}x its bound"
             + (f" ({r['ms_heads'] / r['bound_ms_heads']:.2f}x heads-"
@@ -663,6 +668,40 @@ def kernel_phase(torch, kops, lg):
                if r["library_ms"] else ""))
     torch.cuda.synchronize()
     return rows
+
+
+def mean_weights_check(torch, kops, lg, mask):
+    """``mean_weights_kernel`` on the layer graph's (N, FANOUT) mask
+    (``mask``, on the card): one launch, bitwise its plain version and
+    numpy's ``gnn_models.mean_weights`` of ``lg.mask``; its time beside
+    its bound (R * F bytes read, R * F * 4 written) and the plain
+    version's.  It replaces no TPU kernel, so it has no row of the
+    kernels JSON line."""
+    import numpy as np
+    from repro_torch.core.gnn_models import mean_weights
+    from repro_torch.kernels import ref as kref
+    R, F = mask.shape
+    before = kops.mean_weights.launches
+    got = kops.mean_weights(mask)
+    torch.cuda.synchronize()
+    check(kops.mean_weights.launches == before + 1,
+          f"mean_weights: {kops.mean_weights.launches - before} launches, "
+          "expected 1")
+    check(torch.equal(got.view(torch.int32),
+                      kref.mean_weights_ref(mask).view(torch.int32)),
+          "mean_weights: not bitwise its plain version")
+    check(np.array_equal(got.cpu().numpy().view(np.uint32),
+                         mean_weights(lg.mask).view(np.uint32)),
+          "mean_weights: not bitwise numpy's gnn_models.mean_weights")
+    ms = time_ms(torch, lambda: kops.mean_weights(mask))
+    plain_ms = time_ms(torch, lambda: kref.mean_weights_ref(mask), reps=5)
+    bms, by = bound(R * F * 5, 0)
+    log(f"[kernels] mean_weights R={R} F={F}: bitwise its plain version "
+        f"and numpy's; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}; {100 * bms / ms:.1f}% of it: at this size "
+        "the events time the wrapper's launch cadence on the host more "
+        "than the kernel; tools/mean_weights_time.py times it at 2^23 "
+        "rows)")
 
 
 def subset_equal(torch, fn, full, q, k, nbr, mask, **kw):
@@ -924,8 +963,17 @@ def slice_phase(torch, kops, launches, wide, winners):
     from repro_torch import obs
     from repro_torch.api import (DealConfig, ExecutorSpec, GraphSpec,
                                  ModelSpec, QoSSpec, Session, StoreSpec)
-    from repro_torch.core.gnn_models import model_spec
+    from repro_torch.core.gnn_models import mean_weights, model_spec
     from repro_torch.core.ops import DenseIO, RefExecutor, run_model
+
+    class HostMeanIO(DenseIO):
+        """The plain reference's binding: numpy's mean weights, copied
+        to the card, so that nothing of ``mean_weights_kernel`` is on
+        its side of the "cuda" vs "ref" check."""
+        @property
+        def mean_w(self):
+            return torch.as_tensor(mean_weights(self.mask.cpu().numpy()),
+                                   device=self.device)
 
     runs = [("gcn", "gcn", 1, True), ("sage", "sage", 1, True),
             ("gat", "gat", HEADS, True), ("gat_unfused", "gat", HEADS, False)]
@@ -946,12 +994,16 @@ def slice_phase(torch, kops, launches, wide, winners):
             kops.reset_launch_counts()
             H = s.infer_all()
             counts = kops.launch_counts()
+            n_mean_w = kops.mean_weights.launches
             wide["gat_attention"] += kops.gat_attention.launches_wide
             wide["sddmm"] += kops.sddmm.launches_wide
             cold = s.timings["infer_s"]
             want = {k: EXPECTED[label].get(k, 0) for k in counts}
             check(counts == want, f"{label}: launches {counts}, expected "
                   f"{want}")
+            want_mean_w = 0 if model == "gat" else LAYERS
+            check(n_mean_w == want_mean_w, f"{label}: {n_mean_w} "
+                  f"mean_weights launches, expected {want_mean_w}")
             for k, v in counts.items():
                 launches[k] += v
             check(tuple(H.shape) == (s.n_nodes, D)
@@ -960,7 +1012,8 @@ def slice_phase(torch, kops, launches, wide, winners):
             check(bool(torch.isfinite(H).all()), f"{label}: non-finite")
             # the epoch again, warm, over infer_all's own scope, in three
             # synchronized parts: the DenseIO build (host-to-device copies,
-            # and the host's mean weights where the model reads them),
+            # and the mean weights, built on the card, where the model
+            # reads them),
             # ex.prepare(X) and run_model
             spec = model_spec(model, s.params)
             parts = {}
@@ -993,7 +1046,9 @@ def slice_phase(torch, kops, launches, wide, winners):
             per_op = {}
             for span_name, _, dur, _, _ in tel.tracer.events_in_order():
                 per_op[span_name] = per_op.get(span_name, 0) + dur / 1e6
-            H_ref = run_model(RefExecutor(DEVICE), spec, ios, s.X)
+            ref_ios = [HostMeanIO.from_layer_graph(lg, s.device)
+                       for lg in s.layer_graphs]
+            H_ref = run_model(RefExecutor(DEVICE), spec, ref_ios, s.X)
             err = assert_close(torch, H, H_ref, 1e-4, 3e-3,
                                f"{label} cuda vs ref")
             log(f"[slice] {label}: N={s.n_nodes} E={s.graph.n_edges} "
@@ -1001,8 +1056,9 @@ def slice_phase(torch, kops, launches, wide, winners):
                 f"(again, warm: {warm:.4f} s = DenseIO build "
                 f"{parts['dense_io']:.4f} + prepare {parts['prepare']:.4f} + "
                 f"run_model {parts['run_model']:.4f}); launches "
-                f"{ {k: v for k, v in counts.items() if v} }; max err vs "
-                f"ref {err:.3e}")
+                f"{ {k: v for k, v in counts.items() if v} }, mean_weights "
+                f"{n_mean_w}; max err vs ref (numpy's mean weights) "
+                f"{err:.3e}")
             log(f"[slice] {label} run_model under spans, ms per op kind "
                 "(each op synchronized): " + ", ".join(
                     f"{k} {v:.3f}" for k, v in sorted(per_op.items())))
@@ -1011,7 +1067,7 @@ def slice_phase(torch, kops, launches, wide, winners):
             if label != "gat_unfused":
                 layerwise_check(torch, kops, s, label, H, launches)
             lg0 = s.layer_graphs[0]
-            del H, H_ref, ios, X
+            del H, H_ref, ios, ref_ios, X
             torch.cuda.empty_cache()
             if label in ("gcn", "gat"):
                 serve_session(torch, kops, s, label, launches, wide)
@@ -1027,7 +1083,9 @@ def layerwise_check(torch, kops, s, label, H, launches):
     """``local_<model>_infer`` over the open slice-phase session's layer
     graphs, X and params through "cuda": bitwise ``Session.infer_all``'s
     ``H``, within atol 1e-4, rtol 3e-3 of the same engine through
-    "ref"; its launches go to ``launches``."""
+    "ref" (both bind the mean weights ``mean_weights_kernel`` builds;
+    [slice] holds ``H`` to a reference on numpy's); its launches go to
+    ``launches``."""
     from repro_torch.core.layerwise import LOCAL_ENGINES
     engine = LOCAL_ENGINES[s.cfg.model.name]
 

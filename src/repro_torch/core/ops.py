@@ -151,9 +151,9 @@ class DenseIO:
         self.device = resolve_device(device)
         with obs.span("io.bind") as sp:
             self.nbr_np = np.asarray(nbr)
-            self.mask_np = np.asarray(mask)
             self.nbr, n_nbr = _bind(self.nbr_np, self.device, torch.int32)
-            self.mask, n_mask = _bind(self.mask_np, self.device, torch.bool)
+            self.mask, n_mask = _bind(np.asarray(mask), self.device,
+                                      torch.bool)
             self.table, n_table = None, 0
             if table is not None:
                 # the loader's table is int64; the kernels read int32 ids
@@ -181,14 +181,15 @@ class DenseIO:
 
     @property
     def mean_w(self):
-        """Mean-aggregation edge weights (lazy: gat never reads them)."""
+        """Mean-aggregation edge weights (lazy: gat never reads them),
+        built from the bound mask on its device (``kops.mean_weights``),
+        so nothing is copied from the host."""
         if self._mean_w is None:
             with obs.span("io.mean_w") as sp:
-                self._mean_w, n = _bind(mean_weights(self.mask_np),
-                                        self.device)
+                self._mean_w = kops.mean_weights(self.mask)
                 if sp:
-                    _io_end(sp, self.device,
-                            rows=int(self.mask_np.shape[0]), h2d_bytes=n)
+                    _io_end(sp, self.device, rows=int(self.mask.shape[0]),
+                            h2d_bytes=0)
         return self._mean_w
 
 

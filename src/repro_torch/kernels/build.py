@@ -36,7 +36,8 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # C signatures (restype int: the launch's cudaError_t)
 SIGNATURES = {
     "spmm": {"deal_spmm": [_P, _P, _P, _L, _L, _L, _P, _P, _P, _L, _I, _I,
-                           _I, _I, _I, _I, _P]},
+                           _I, _I, _I, _I, _P],
+             "deal_mean_weights": [_P, _P, _L, _I, _I, _P]},
     "gat_attention": {
         "deal_gat_attention": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                                _P],

@@ -1,5 +1,6 @@
 // Fanout-gather SPMM for Hopper (sm_90a), with an optional fused id table
-// and optional per-head weights.
+// and optional per-head weights; and, at the end, the mean-aggregation
+// weights it reads in GraphSAGE and GCN, built from the mask on the card.
 //
 //   out[i, c] = sum_f  coef(w[i,f,hd(c)] * mask[i,f]) * h[idx(i,f), c]
 //   idx(i,f)  = nbr[i,f]                 (spmm)
@@ -202,7 +203,110 @@ int launch(Args a, int block_rows, int block_cols, cudaStream_t s) {
               : go<T, 1>(a, block_rows, block_cols, s);
 }
 
+// ---------------------------------------------------------------------------
+// Mean-aggregation weights of a fanout mask, on the card where the mask is:
+//
+//   w[r, f] = mask[r, f] / max(sum_f' mask[r, f'], 1)       (R, F) float32
+//
+// Replaces no TPU kernel.  The JAX package builds these weights with numpy
+// on the host (core.gnn_models.mean_weights), and so did the port, which
+// then copied them, pageable, to the card that already held the mask: at
+// 2^23 rows and fanout 25, a float64 intermediate of 1.6 GB and a copy of
+// 0.84 GB for every layer graph of every epoch.  This kernel replaces that.
+//
+// Numerics, numpy's: 1 / deg divided in f64 (IEEE, round to nearest) and
+// rounded to f32, a masked slot +0.0, so the weights are bitwise numpy's.
+//
+// Bound: bytes.  A launch reads R * F mask bytes and writes R * F * 4 weight
+// bytes, with a few operations a slot: at 3.35 TB/s, 0.313 ms at 2^23 x 25
+// and 0.125 ms at 2^23 x 10.  Design: a block takes a tile of whole rows
+// (tile_rows, chosen by the wrapper to hold about 8 KiB of slots: a
+// multiple of 16, so that every tile's mask bytes start 16-byte aligned
+// where the mask does, at any fanout up to 512), whose mask bytes are
+// contiguous.  It copies them into shared memory with 16-byte coalesced
+// loads (byte loads at an unaligned base and at the ragged end), under a
+// streaming cache hint: each byte is read once.
+// A thread a row counts the row's live slots there and stores 1 / deg.  The
+// tile's weights are contiguous too: a thread writes four slots as one
+// 16-byte streaming store, their mask bytes one 32-bit shared load, so a
+// warp writes 512 contiguous bytes an instruction.  (A thread a row writing
+// its F floats would write 32 rows' scattered pieces an instruction, and
+// waste most of each sector.)  One integer division a store finds the
+// first slot's row.  The tile's output starts 16-byte aligned: the wrapper
+// allocates it, and a tile starts at a row that is a multiple of 4.
+
+constexpr int kMwThreads = 256;
+constexpr size_t kMwMaxShared = 48 * 1024;   // without an opt-in attribute
+
+__global__ void __launch_bounds__(kMwThreads)
+mean_weights_kernel(const uint8_t* __restrict__ mask, float* __restrict__ out,
+                    long long R, int F, int tile_rows) {
+  extern __shared__ __align__(16) uint8_t tile[];
+  float* inv = reinterpret_cast<float*>(
+      tile + (((size_t)tile_rows * F + 15) & ~(size_t)15));
+  const long long r0 = (long long)blockIdx.x * tile_rows;
+  const int rows = (int)min((long long)tile_rows, R - r0);
+  const int n = rows * F;                      // the tile's slots
+  const uint8_t* m = mask + r0 * F;
+  float* o = out + r0 * F;
+
+  int copied = 0;                              // the mask's bytes, shared
+  if ((reinterpret_cast<uintptr_t>(m) & 15) == 0) {
+    const uint4* src = reinterpret_cast<const uint4*>(m);
+    uint4* dst = reinterpret_cast<uint4*>(tile);
+    for (int i = threadIdx.x; i < n >> 4; i += blockDim.x)
+      dst[i] = __ldcs(src + i);
+    copied = n & ~15;
+  }
+  for (int i = copied + threadIdx.x; i < n; i += blockDim.x)
+    tile[i] = __ldcs(m + i);
+  __syncthreads();
+
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    const uint8_t* row = tile + r * F;
+    int deg = 0;
+    for (int f = 0; f < F; ++f) deg += row[f] != 0;
+    inv[r] = __double2float_rn(1.0 / (double)max(deg, 1));
+  }
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < n >> 2; i += blockDim.x) {
+    const int e = i << 2;
+    const uint32_t live = *reinterpret_cast<const uint32_t*>(tile + e);
+    int r = e / F, f = e - r * F;
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = (live >> (8 * j)) & 0xff ? inv[r] : 0.0f;
+      if (++f == F) { f = 0; ++r; }
+    }
+    __stcs(reinterpret_cast<float4*>(o) + i,
+           make_float4(v[0], v[1], v[2], v[3]));
+  }
+  for (int e = (n & ~3) + threadIdx.x; e < n; e += blockDim.x)
+    o[e] = tile[e] ? inv[e / F] : 0.0f;
+}
+
 }  // namespace
+
+// mask (R, F) bool, contiguous; out (R, F) float32, contiguous and 16-byte
+// aligned.  tile_rows rows a block, a positive multiple of 4 whose tile
+// (mask bytes and one float a row) fits 48 KiB of shared memory.  Returns
+// the launch's cudaError_t; launches on `stream`, does not sync.
+extern "C" int deal_mean_weights(const uint8_t* mask, float* out, long long R,
+                                 int F, int tile_rows, void* stream) {
+  if (R <= 0 || F <= 0) return 0;
+  const size_t shared = (((size_t)tile_rows * F + 15) & ~(size_t)15) +
+                        (size_t)tile_rows * sizeof(float);
+  if (tile_rows < 4 || tile_rows % 4 != 0 || shared > kMwMaxShared ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const long long grid = (R + tile_rows - 1) / tile_rows;
+  mean_weights_kernel<<<(unsigned)grid, kMwThreads, shared,
+                        static_cast<cudaStream_t>(stream)>>>(mask, out, R, F,
+                                                             tile_rows);
+  return cudaGetLastError();
+}
 
 // h_dtype: 0 = float32, 1 = bfloat16; w is float32, (R, F) with heads = 1
 // or (R, F, heads), strides (swr, swf, swh) in elements.  `table` may be

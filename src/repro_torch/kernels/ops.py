@@ -13,7 +13,9 @@ and the TPU kernels they replace; ``launch_counts`` and
 also zeroes the counts of a kernel's second path:
 ``flash_attention.launches_tc``, the bf16 tensor-core kernel's share of
 ``flash_attention``'s, and ``gat_attention.launches_wide`` /
-``sddmm.launches_wide``, the wide scoring kernel's).
+``sddmm.launches_wide``, the wide scoring kernel's; and
+``mean_weights.launches``, whose kernel replaces no TPU kernel but the
+host's numpy mean weights, so ``KERNELS`` does not list it).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Dict
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gat_attention as _gat
 from repro_torch.kernels import gather_spmm as _gather
+from repro_torch.kernels import mean_weights as _mean_weights
 from repro_torch.kernels import ref
 from repro_torch.kernels import sddmm as _sddmm
 from repro_torch.kernels import spmm as _spmm
@@ -31,6 +34,7 @@ gather_spmm = _gather.gather_spmm
 gat_attention = _gat.gat_attention
 sddmm = _sddmm.sddmm
 flash_attention = _flash.flash_attention
+mean_weights = _mean_weights.mean_weights
 
 # name -> (wrapper, plain version, module with SOURCE / REPLACES)
 KERNELS = {
@@ -53,3 +57,4 @@ def reset_launch_counts() -> None:
     flash_attention.launches_by_device.clear()
     gat_attention.launches_wide = 0
     sddmm.launches_wide = 0
+    mean_weights.launches = 0

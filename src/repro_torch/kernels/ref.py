@@ -26,6 +26,14 @@ def spmm_ref(h, w, nbr, mask):
     return (vals * coef).sum(dim=1).to(h.dtype)
 
 
+def mean_weights_ref(mask):
+    """w[r, f] = mask[r, f] / max(live slots of row r, 1), (R, F) f32:
+    numpy's ``core.gnn_models.mean_weights``, dividing in f64 and
+    rounding to f32, so the bits are numpy's."""
+    deg = mask.sum(dim=1, keepdim=True).clamp_(min=1)
+    return (mask / deg.double()).float()
+
+
 def sddmm_ref(q, k, nbr, mask):
     """e[i,f] = <q[i], k[nbr[i,f]]> * mask[i,f].  q:(R,D) k:(U,D)."""
     vals = k[nbr.reshape(-1).long()].reshape(

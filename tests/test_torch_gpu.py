@@ -898,6 +898,59 @@ def test_local_engines_cuda_match_ref_on_the_card(cuda, model):
         assert counts["gat_attention"] == 3, counts
 
 
+@pytest.mark.parametrize("F", [1, 7, 10, 25, 64])
+def test_mean_weights_kernel_is_numpys_bitwise(cuda, F):
+    """At 2^16 + 3 rows (ragged against every tile), with empty and
+    all-live rows; and on a mask view one byte off a 16-byte boundary
+    (the kernel's byte loads)."""
+    from repro_torch.core.gnn_models import mean_weights
+    rng = np.random.default_rng(F)
+    mask = rng.random((2 ** 16 + 3, F)) < rng.random((2 ** 16 + 3, 1))
+    mask[:5] = False
+    mask[5:9] = True
+    want = mean_weights(mask).view(np.uint32)
+    before = kops.mean_weights.launches
+    m = torch.as_tensor(mask, device=cuda)
+    for view in (m, _misaligned(m)):
+        got = kops.mean_weights(view)
+        torch.cuda.synchronize()
+        assert got.shape == mask.shape and got.dtype == torch.float32
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                      want)
+    assert kops.mean_weights.launches == before + 2
+    assert torch.equal(kops.mean_weights(m[:0]),
+                       torch.empty((0, F), device=cuda))
+
+
+@pytest.mark.parametrize("model", ["sage", "gat"])
+def test_epoch_builds_mean_weights_on_the_card(cuda, model):
+    """One ``mean_weights`` launch a GraphSAGE layer and none in GAT; the
+    ``io.h2d_bytes`` counter of an epoch is its ids', masks' and X's
+    bytes, in GraphSAGE the host-built weights' R * F * 4 bytes a layer
+    fewer than before, as its ``io.mean_w`` spans copy nothing."""
+    from repro_torch import obs
+    from repro_torch.core import gnn_models
+    from repro_torch.core.layerwise import LOCAL_ENGINES
+    lgs, X = _small_world()
+    gen = torch.Generator().manual_seed(0)
+    dims = [32, 32, 32, 16]
+    params = gnn_models.params_to(
+        gnn_models.init_gat(gen, dims, heads=4) if model == "gat"
+        else gnn_models.init_sage(gen, dims), cuda)
+    before = kops.mean_weights.launches
+    tel = obs.Telemetry(enabled=True)
+    with obs.use(tel):
+        LOCAL_ENGINES[model](lgs, X, params)
+    torch.cuda.synchronize()
+    L = len(lgs) if model == "sage" else 0
+    assert kops.mean_weights.launches == before + L
+    assert tel.counters["io.h2d_bytes"] == sum(
+        lg.nbr.size * (4 + 1) for lg in lgs) + X.nbytes
+    spans = [ev for ev in tel.tracer.events_in_order()
+             if ev[0] == "io.mean_w"]
+    assert [a["h2d_bytes"] for *_, a in spans] == [0] * L
+
+
 @pytest.mark.parametrize("batch_size", [100, 2048])
 def test_ego_baseline_on_the_card_is_bitwise_layerwise(cuda, batch_size):
     from repro_torch.core import gnn_models

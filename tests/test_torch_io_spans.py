@@ -3,7 +3,8 @@ port's spans on the profiler's clock (``obs``): one ``io.bind`` a layer
 graph, one ``io.mean_w`` a layer that reads mean weights, one
 ``io.prepare`` an epoch, their ``h2d_bytes`` the bound arrays' bytes and
 the ``io.h2d_bytes`` counter their sum where the arrays go to a card,
-nothing on the CPU; a span while ``torch.profiler`` records is its
+nothing on the CPU (the mean weights are built on the mask's device, so
+their span copies nothing); a span while ``torch.profiler`` records is its
 range, falsy without telemetry, and ``NOOP_SPAN`` again once it
 stops."""
 import json
@@ -15,8 +16,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import obs  # noqa: E402
 from repro_torch.core import ops  # noqa: E402
-from repro_torch.core.gnn_models import (init_gat, init_sage,  # noqa: E402
-                                         mean_weights)
+from repro_torch.core.gnn_models import init_gat, init_sage  # noqa: E402
 from repro_torch.core.graph import csr_from_edges, rmat_edges  # noqa: E402
 from repro_torch.core.layerwise import LOCAL_ENGINES  # noqa: E402
 from repro_torch.core.sampler import sample_layer_graphs  # noqa: E402
@@ -59,8 +59,10 @@ def _by_name(spans):
 def test_sage_epoch_records_a_bind_a_layer_graph_and_a_mean_w_a_layer(
         executor, monkeypatch):
     """Counted as copies to a card (the CPU copies nothing), each span's
-    ``h2d_bytes`` is its arrays' bytes as bound: int32 ids, a bool mask,
-    f32 mean weights and features; the counter is their sum."""
+    ``h2d_bytes`` is its arrays' bytes as bound: int32 ids, a bool mask
+    and f32 features; the mean weights are built from the bound mask on
+    its device, so ``io.mean_w`` copies 0 bytes; the counter is their
+    sum."""
     monkeypatch.setattr(ops, "_h2d", lambda a, t: True)
     lgs, X, spans, counters = _epoch("sage", executor)
     got = _by_name(spans)
@@ -69,8 +71,7 @@ def test_sage_epoch_records_a_bind_a_layer_graph_and_a_mean_w_a_layer(
         {"rows": N, "fanout": F, "h2d_bytes": N * F * (4 + 1)}
         for _ in lgs]
     assert [a for _, a in got["io.mean_w"]] == [
-        {"rows": N, "h2d_bytes": mean_weights(lg.mask).nbytes}
-        for lg in lgs]
+        {"rows": N, "h2d_bytes": 0} for _ in lgs]
     assert [a for _, a in got["io.prepare"]] == [
         {"rows": N, "h2d_bytes": X.nbytes}]
     # no span of its own encloses the builds or prepare: the harness's
