@@ -15,6 +15,12 @@ import math
 import torch
 
 PARAMS = ("wq", "wk", "wv")
+# what ``yardstick.epoch_flops`` counts a layer: a GEMM a param; the
+# passes over the live slots (its scores and its attend, over its
+# GEMMs' outputs)
+GEMMS_PER_LAYER = 3
+SLOT_PASSES_PER_LAYER = 2
+SLOT_WIDTH = "out"
 BLOCK_ROWS = 1 << 16
 
 

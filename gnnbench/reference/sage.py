@@ -10,6 +10,12 @@ from __future__ import annotations
 import torch
 
 PARAMS = ("w_self", "w_nbr")
+# what ``yardstick.epoch_flops`` counts a layer: a GEMM a param; the
+# passes over the live slots (its aggregation, at the width of its
+# input, before its GEMMs)
+GEMMS_PER_LAYER = 2
+SLOT_PASSES_PER_LAYER = 1
+SLOT_WIDTH = "in"
 
 
 def activation(h):

@@ -154,8 +154,8 @@ def test_rehearsal_reports_the_binding_metrics(bench, workload, tmp_path,
 def test_counter_is_the_traces_host_to_card_bytes(bench, card, workload,
                                                   tmp_path, monkeypatch):
     """On the card an epoch's ``io.h2d_bytes`` is the bytes of its
-    arrays as bound (features f32; each layer graph's ids int32, mask
-    bool, and for sage its mean weights f32), and the trace's
+    arrays as bound (features f32; each layer graph's ids int32 and mask
+    bool: sage's mean weights are built on the card), and the trace's
     ``Memcpy HtoD`` bytes per traced epoch (each copy placed by the
     time it was issued), all of them from inside ``io.*`` ranges, within
     0.1%."""
@@ -167,7 +167,7 @@ def test_counter_is_the_traces_host_to_card_bytes(bench, card, workload,
     prog = harness.set_up(cell, 2 ** 31 + 7, card)
     prog.epoch()
     counter = iotrace.span_epochs(prog, 2)[-1]["h2d_bytes"]
-    per_slot = 4 + 1 + (4 if cell.cfg["model"] == "sage" else 0)
+    per_slot = 4 + 1
     assert counter == prog.X.nbytes + sum(lg.nbr.size * per_slot
                                           for lg in prog.lgs)
     harness.profile_epochs(prog.epoch, [1.0], card, workload)

@@ -88,3 +88,45 @@ def test_round_tf32_to_nearest_even():
     want = torch.tensor([1 + ulp, 1.0, 1 + 2 * ulp, -(1 + 2 * ulp), 3.0,
                          0.0])
     assert torch.equal(reference.round_tf32(x), want)
+
+
+# taken before the counts moved into the models' modules
+@pytest.mark.parametrize("name,fanouts,n,want", [
+    ("sage-papers100m", (25, 10), 4096, 1611904256),
+    ("gat-products", (10, 10, 10), 4096, 14155542528),
+    ("sage-papers100m", (25, 10), None, 3339694986240),
+    ("gat-products", (10, 10, 10), None, 8510656595968)])
+def test_epoch_flops_of_each_configuration_are_pinned(name, fanouts, n,
+                                                      want):
+    import json
+    from pathlib import Path
+    cfg = json.loads((Path(__file__).parent / "configs"
+                      / f"{name}.json").read_text())
+    if n is None:
+        n = cfg["n_nodes"]
+        stats = [{"nnz": n * f // (i + 2)} for i, f in enumerate(fanouts)]
+    else:
+        stats = [{"nnz": 1000 * (i + 1) + f} for i, f in enumerate(fanouts)]
+    assert yardstick.epoch_flops(cfg["model"], n, yardstick.layer_widths(
+        cfg), stats, cfg) == want
+
+
+def test_slot_width_is_the_models():
+    assert yardstick.slot_width("sage", 4, 8) == 4
+    assert yardstick.slot_width("gat", 4, 8) == 8
+
+
+def test_a_model_declares_its_widths_and_flops(monkeypatch):
+    import sys
+    import types
+    mod = types.ModuleType("gnnbench.reference.declared")
+    mod.layer_widths = lambda cfg: [(cfg["d_feature"], 6), (6, 6), (6, 3)]
+    mod.epoch_flops = lambda cfg, n, widths, stats: (
+        n * sum(a * b for a, b in widths) + cfg["extra"]
+        + sum(s["nnz"] for s in stats))
+    monkeypatch.setitem(sys.modules, "gnnbench.reference.declared", mod)
+    cfg = {"model": "declared", "d_feature": 5, "extra": 7}
+    widths = yardstick.layer_widths(cfg)
+    assert widths == [(5, 6), (6, 6), (6, 3)]
+    assert yardstick.epoch_flops("declared", 2, widths, [{"nnz": 1}] * 3,
+                                 cfg) == 2 * (30 + 36 + 18) + 7 + 3

@@ -6,6 +6,10 @@ Peaks are NVIDIA's data sheet for one H100 SXM at its 700 W limit
 (dense): 67 TFLOP/s f32 outside the tensor cores, the precision the
 port's f32 GEMMs run in with TF32 off, and 3.35 TB/s of HBM3.
 
+What differs between models (each layer's widths, the GEMMs and passes
+over the live slots a layer, or a model's own epoch FLOPs) is declared
+by its reference module, ``reference/<model>.py``.
+
 A kernel's bytes count each input byte it needs once and each output
 byte once, what the layer graph's data needs: every mask byte, ``nbr``
 and weight of the live slots, each distinct gathered row once and the
@@ -13,12 +17,12 @@ output (the arithmetic of the port's kernel table in ``PERF.md``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from gnnbench import inputs
+from gnnbench import inputs, reference
 
 PEAK_FLOPS_F32 = 67e12       # FLOP/s, f32 without the tensor cores
 HBM_BYTES_PER_S = 3.35e12    # B/s
@@ -67,31 +71,39 @@ def bound_s(bytes_: int, flops: int) -> float:
     return max(bytes_ / HBM_BYTES_PER_S, flops / PEAK_FLOPS_F32)
 
 
-GEMMS_PER_LAYER = {"sage": 2, "gat": 3}
-# contractions over the live slots a layer: sage's aggregation; gat's
-# scores and its attend
-SLOT_PASSES_PER_LAYER = {"sage": 1, "gat": 2}
-
-
 def layer_widths(cfg: Dict) -> List[Tuple[int, int]]:
-    """Each layer's (width in, width out) for configuration ``cfg``."""
+    """Each layer's (width in, width out) for configuration ``cfg``: its
+    model's own (``reference/<model>.py`` ``layer_widths(cfg)``) where
+    it declares them, else ``d_feature`` into the first and
+    ``hidden_size`` out of each."""
+    mod = reference.model(cfg["model"]) if "model" in cfg else None
+    if hasattr(mod, "layer_widths"):
+        return [(int(a), int(b)) for a, b in mod.layer_widths(cfg)]
     dims = inputs.layer_dims(cfg)
     return list(zip(dims[:-1], dims[1:]))
 
 
 def slot_width(model: str, d_in: int, d_out: int) -> int:
-    """The width of a layer's passes over its live slots: sage
-    aggregates its input before its GEMMs; gat scores and attends over
-    its GEMMs' outputs."""
-    return d_in if model == "sage" else d_out
+    """The width of a layer's passes over its live slots, as the model's
+    reference declares it (``SLOT_WIDTH``): ``"in"`` where it aggregates
+    its input before its GEMMs (sage), ``"out"`` where it scores and
+    attends over their outputs (gat)."""
+    return {"in": d_in, "out": d_out}[reference.model(model).SLOT_WIDTH]
 
 
-def epoch_flops(model: str, n_nodes: int, widths, stats) -> int:
-    """The model FLOPs of one all-node epoch: per layer of ``widths``
-    (d_in, d_out), each (N, d_in) x (d_in, d_out) GEMM 2 N d_in d_out,
-    and each pass over the live slots 2 nnz d at its ``slot_width``."""
-    return sum(GEMMS_PER_LAYER[model] * 2 * n_nodes * di * do
-               + SLOT_PASSES_PER_LAYER[model] * 2 * st["nnz"]
+def epoch_flops(model: str, n_nodes: int, widths, stats,
+                cfg: Optional[Dict] = None) -> int:
+    """The model FLOPs of one all-node epoch.  A model's reference that
+    defines ``epoch_flops(cfg, n_nodes, widths, stats)`` gives its own;
+    for the others, per layer of ``widths`` (d_in, d_out), each of its
+    ``GEMMS_PER_LAYER`` (N, d_in) x (d_in, d_out) GEMMs 2 N d_in d_out,
+    and each of its ``SLOT_PASSES_PER_LAYER`` passes over the live slots
+    2 nnz d at its ``slot_width``."""
+    mod = reference.model(model)
+    if hasattr(mod, "epoch_flops"):
+        return int(mod.epoch_flops(cfg, n_nodes, widths, stats))
+    return sum(mod.GEMMS_PER_LAYER * 2 * n_nodes * di * do
+               + mod.SLOT_PASSES_PER_LAYER * 2 * st["nnz"]
                * slot_width(model, di, do)
                for (di, do), st in zip(widths, stats))
 
