@@ -8,6 +8,8 @@ and run against a backend —
   * ``local_*`` — single-card engines; ``executor`` is "cuda" (the
     hand-written kernels, the default) or "ref" (plain PyTorch), on
     ``device`` ("cuda" by default; "cpu" runs the plain versions);
+    ``local_rgat_infer`` binds each layer graph's slot relations
+    (``DenseIO.bind_typing``) before the layers;
   * ``DistributedLayerwise`` — ``DistExecutor`` on a P x M mesh
     (``launch.mesh``) using the §3.4 primitives and the static CommPlan.
 
@@ -44,6 +46,9 @@ def _local_infer(model: str, layer_graphs: List[LayerGraph], X, params,
     spec = model_spec(model, params)
     ios = [DenseIO.from_layer_graph(lg, ex.device)
            for lg in layer_graphs[:len(spec.layers)]]
+    if spec.typing is not None:
+        for io in ios:
+            io.bind_typing(spec.typing)
     return run_model(ex, spec, ios, X, activation=activation)
 
 
@@ -65,8 +70,16 @@ def local_sage_infer(layer_graphs, X, params, activation=F.relu,
                         executor, device)
 
 
+def local_rgat_infer(layer_graphs, X, params, activation=None,
+                     executor="cuda", device="cuda"):
+    """R-GAT on a typed graph (``params_from_numpy("rgat", ...)``): each
+    layer's BatchNorm and ELU, and the head, are the spec's own."""
+    return _local_infer("rgat", layer_graphs, X, params, activation,
+                        executor, device)
+
+
 LOCAL_ENGINES = {"gcn": local_gcn_infer, "gat": local_gat_infer,
-                 "sage": local_sage_infer}
+                 "sage": local_sage_infer, "rgat": local_rgat_infer}
 
 
 # ----------------------------------------------------------------------
@@ -133,6 +146,11 @@ class DistributedLayerwise:
                  params, *, spmm_variant: str = "deal",
                  gemm_variant: str = "deal", sddmm_variant: str = "deal",
                  grouped: bool = True):
+        self.spec = model_spec(model, params)
+        if self.spec.typing is not None or self.spec.head is not None:
+            raise ValueError(f"DistributedLayerwise runs gcn, sage and gat; "
+                             f"{model} (a typed graph, a head) runs on one "
+                             f"card only: LOCAL_ENGINES[{model!r}]")
         self.mesh = mesh
         self.model = model
         self.params = params
@@ -142,7 +160,6 @@ class DistributedLayerwise:
                                sddmm_variant=sddmm_variant, grouped=grouped)
         self.P = self.ex.P
         self.M = self.ex.M
-        self.spec = model_spec(model, params)
         self.ios = self.ex.bind(layer_graphs[:len(self.spec.layers)],
                                 need_sddmm=(model == "gat"))
         self.plan = self.ex.plan

@@ -41,7 +41,9 @@ import torch
 from repro_torch import obs, tuning
 from repro_torch.api.registry import EXECUTORS, register_executor
 from repro_torch.core import primitives as prim
-from repro_torch.core.gnn_models import (LayerSpec, ModelSpec,
+from repro_torch.core.gnn_models import (RGAT_NEGATIVE_SLOPE, LayerSpec,
+                                         ModelSpec, NodeTyping, RelAttention,
+                                         RelProjection, affine_,
                                          gat_head_scores, masked_softmax,
                                          mean_weights)
 from repro_torch.core.partition import build_plan, build_subset_plan_cached
@@ -81,17 +83,23 @@ def resolve_device(device="cuda") -> torch.device:
 # which M it does on the card); a fixed row count a call removes M from
 # the bits, and a large one keeps the launches few
 GEMM_ROWS = 16384
+# rows of each call of R-GAT's attend (``rel_attend``): a call's (rows,
+# 1024) f32 output is 1 GiB, not the 16 GiB of a whole 2^22-node layer
+ATTEND_ROWS = 1 << 18
 
 
-def gemm_rows(h, w):
+def gemm_rows(h, w, out=None):
     """``ref.gemm_ref(h, w)`` computed as ``torch.matmul`` calls of
     exactly ``GEMM_ROWS`` rows each (the last block zero-padded), so
     every row goes through the same library kernel whatever the number
-    of rows: bitwise invariant to M by construction."""
+    of rows: bitwise invariant to M by construction.  ``out``: an f32
+    (M, width) tensor with contiguous rows to write into (a block of
+    R-GAT's projected table) in place of a new one."""
     hf, wf = h.float(), w.float()
     M = hf.shape[0]
-    out = torch.empty((M, wf.shape[1]), dtype=torch.float32,
-                      device=hf.device)
+    if out is None:
+        out = torch.empty((M, wf.shape[1]), dtype=torch.float32,
+                          device=hf.device)
     whole = M - M % GEMM_ROWS
     for i in range(0, whole, GEMM_ROWS):
         torch.matmul(hf[i:i + GEMM_ROWS], wf, out=out[i:i + GEMM_ROWS])
@@ -165,6 +173,20 @@ class DenseIO:
                         h2d_bytes=n_nbr + n_mask + n_table)
         self._nbr_resolved = None
         self._mean_w = None
+        self.rel = self.tid = None
+
+    def bind_typing(self, typing: NodeTyping) -> None:
+        """A typed graph's slots: each one's relation ``rel`` (R, F) int8
+        and its row of the projected table ``tid`` (R, F) int32
+        (``slot_relations``), worked out on the device from the bound
+        ``nbr`` and ``mask``, in an ``io.rel`` span that copies
+        nothing."""
+        with obs.span("io.rel") as sp:
+            self.rel, self.tid = slot_relations(self.nbr_resolved,
+                                                self.mask, typing)
+            if sp:
+                _io_end(sp, self.device, rows=int(self.mask.shape[0]),
+                        h2d_bytes=0)
 
     @classmethod
     def from_layer_graph(cls, lg: LayerGraph, device="cuda") -> "DenseIO":
@@ -191,6 +213,31 @@ class DenseIO:
                     _io_end(sp, self.device, rows=int(self.mask.shape[0]),
                             h2d_bytes=0)
         return self._mean_w
+
+
+def slot_relations(nbr, mask, typing: NodeTyping):
+    """Each slot's relation and its row in R-GAT's projected table, on
+    ``nbr``'s device, from the type blocks of its two ends: row i (the
+    target, node i) of type dt and source j = nbr[i, f] of type st give
+    relation r = ``typing.table[dt][st]`` and row ``base + j -
+    offsets[st]`` of r's block for st (``NodeTyping.blocks``).  Returns
+    (rel (R, F) int8, -1 on a masked slot or one of no relation; tid (R,
+    F) int32, 0 there).  Elementwise ops with the offsets as Python
+    scalars: nothing is copied from the host."""
+    R = nbr.shape[0]
+    rel = torch.full(nbr.shape, -1, dtype=torch.int8, device=nbr.device)
+    tid = torch.zeros(nbr.shape, dtype=torch.int32, device=nbr.device)
+    off = typing.offsets
+    for dt in range(len(off) - 1):
+        a, b = min(off[dt], R), min(off[dt + 1], R)
+        if a >= b:
+            continue
+        nb, live = nbr[a:b], mask[a:b]
+        for st, r, base in typing.sources(dt):
+            sel = live & (nb >= off[st]) & (nb < off[st + 1])
+            rel[a:b].masked_fill_(sel, r)
+            tid[a:b] = torch.where(sel, nb + (base - off[st]), tid[a:b])
+    return rel, tid
 
 
 # ----------------------------------------------------------------------
@@ -255,6 +302,20 @@ def run_layer(ex, layer: LayerSpec, io, h_tgt, h_src, heads: int = 1):
                 out = ex.edge_softmax(get(op.src[0]), io)
             elif kind == "attend":
                 out = ex.attend(get(op.src[0]), get(op.src[1]), io, heads)
+            elif kind == "rel_project":
+                out = ex.rel_project(get(op.src[0]), op.param)
+            elif kind == "rel_softmax":
+                out = ex.rel_softmax(get(op.src[0]), get(op.src[1]),
+                                     op.param, io, heads)
+            elif kind == "rel_attend":
+                out = ex.rel_attend(get(op.src[0]), get(op.src[1]),
+                                    get(op.src[2]), io)
+            elif kind == "affine":
+                out = affine_(get(op.src[0]), op.param)
+            elif kind == "elu":
+                out = torch.nn.functional.elu(get(op.src[0]), inplace=True)
+            elif kind == "relu":
+                out = torch.relu_(get(op.src[0]))
             else:
                 raise ValueError(f"unknown layer op {kind!r}")
             if sp:
@@ -274,14 +335,17 @@ def run_layer(ex, layer: LayerSpec, io, h_tgt, h_src, heads: int = 1):
 def run_model(ex, spec: ModelSpec, ios: Sequence, X,
               activation: Optional[Callable] = None):
     """Full forward pass: layer l reads/writes the same row set
-    (h_src == h_tgt == H), activation between layers."""
+    (h_src == h_tgt == H), activation between layers (none where the
+    spec's layers carry their own), then the spec's ``head``."""
     act = activation or spec.activation
     H = ex.prepare(X)
     L = len(spec.layers)
     for l, layer in enumerate(spec.layers):
         H = run_layer(ex, layer, ios[l], H, H, spec.heads)
-        if l < L - 1:
+        if l < L - 1 and act is not None:
             H = act(H)
+    if spec.head is not None:
+        H = run_layer(ex, spec.head, None, H, H, spec.heads)
     return H
 
 
@@ -325,6 +389,65 @@ class RefExecutor:
         vn = vn.reshape(io.nbr.shape + (heads, dh))
         return torch.einsum("nfh,nfhd->nhd", alpha, vn).reshape(
             alpha.shape[0], D)
+
+    # -- R-GAT: the relations' projections, scores and attend ----------
+    def rel_project(self, h, proj: RelProjection):
+        """The projected table: for each block of ``typing.blocks``,
+        relation r's weight over its source type's rows of ``h``, through
+        ``gemm_rows`` into the table's rows; the rows projected are
+        added to the ``ops.rel_rows`` counter."""
+        typ, w = proj.typing, proj.w
+        z = torch.empty((typ.rows, w.shape[2]), dtype=torch.float32,
+                        device=h.device)
+        for r, st, base, rows in typ.blocks:
+            a = typ.offsets[st]
+            gemm_rows(h[a:a + rows], w[r], out=z[base:base + rows])
+        obs.add("ops.rel_rows", typ.rows)
+        return z
+
+    def rel_softmax(self, z, h, att: RelAttention, io: DenseIO,
+                    heads: int):
+        """alpha (R, F, heads): each table row's source score per head,
+        <z_h, a_src[r, h]> (``gemm_rows`` by a block-diagonal (d_out,
+        heads) matrix), each row's target score of each relation,
+        <(h W_r)_h, a_dst[r, h]> = h (W_r a_dst[r, h]) (``gemm_rows`` by
+        the folded (d_in, R x heads) matrix), then the relation-wise
+        softmax of their LeakyReLU (``rel_alpha``)."""
+        if io.rel is None:
+            raise ValueError("rel_softmax: the layer graph has no relations"
+                             " bound (DenseIO.bind_typing)")
+        typ = att.typing
+        R, d_in, d_out = att.w.shape
+        dh = d_out // heads
+        eye = torch.eye(heads, dtype=torch.float32, device=z.device)
+        s_src = torch.empty((typ.rows, heads), dtype=torch.float32,
+                            device=z.device)
+        for r, _, base, rows in typ.blocks:
+            a = (att.a_src[r][:, :, None] * eye[:, None, :]).reshape(
+                d_out, heads)
+            gemm_rows(z[base:base + rows], a, out=s_src[base:base + rows])
+        v = torch.einsum("rdhk,rhk->drh", att.w.reshape(R, d_in, heads, dh),
+                         att.a_dst).reshape(d_in, R * heads)
+        s_dst = gemm_rows(h, v).reshape(-1, R, heads)
+        return self.rel_alpha(s_src, s_dst, io)
+
+    def rel_alpha(self, s_src, s_dst, io: DenseIO):
+        return ref.rgat_attention_ref(s_src, s_dst, io.tid, io.rel, io.mask,
+                                      RGAT_NEGATIVE_SLOPE)
+
+    def rel_attend(self, z, alpha, out, io: DenseIO):
+        """``out`` += each row's heads-weighted sum of its slots' table
+        rows, in place, ``ATTEND_ROWS`` rows a call, so that one call's
+        output, not the whole attend, sits beside ``out``."""
+        R = io.tid.shape[0]
+        for r0 in range(0, R, ATTEND_ROWS):
+            r1 = min(r0 + ATTEND_ROWS, R)
+            out[r0:r1] += self.attend_rows(z, alpha[r0:r1], io.tid[r0:r1],
+                                           io.mask[r0:r1])
+        return out
+
+    def attend_rows(self, z, alpha, tid, mask):
+        return ref.spmm_heads_ref(z, alpha, tid, mask)
 
 
 class CudaExecutor(RefExecutor):
@@ -418,6 +541,16 @@ class CudaExecutor(RefExecutor):
         strides, weighs each head's block of v's columns (bitwise the
         per-head launches)."""
         return self.spmm(v, alpha, io)
+
+    def rel_alpha(self, s_src, s_dst, io: DenseIO):
+        return kops.rgat_attention(s_src, s_dst, io.tid, io.rel, io.mask,
+                                   RGAT_NEGATIVE_SLOPE)
+
+    def attend_rows(self, z, alpha, tid, mask):
+        """The heads-weighted spmm over the projected table."""
+        return kops.spmm(z, alpha, tid, mask,
+                         **self._pick_blocks("spmm", tid.shape[0],
+                                             z.shape[1], z.dtype))
 
 
 # ----------------------------------------------------------------------

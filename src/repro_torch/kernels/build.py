@@ -42,7 +42,9 @@ SIGNATURES = {
         "deal_gat_attention": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
                                _P],
         "deal_sddmm": [_P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I, _I,
-                       _P]},
+                       _P],
+        "deal_rgat_attention": [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _F,
+                                _I, _P]},
     "flash_attention": {
         "deal_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, *[_L] * 9, _I, _I, _L, _L, _F, _I, _P]},

@@ -91,6 +91,24 @@
 //      the kernel with one head, no scale and no softmax.
 // The wrapper raises only where the chosen kernel's warp would pass 227 KB
 // of shared memory.
+//
+//   rgat_attention: R-GAT's relation-wise GATConv attention (OGB-LSC
+//                  MAG240M's rgnn.py, arXiv:2103.09430), for slot f of row i
+//                  of relation g = rel[i,f] and head h,
+//                    e = LeakyReLU(s_src[tid[i,f], h] + s_dst[i, g, h])
+//                    alpha[i,f,h] = softmax of e over i's live slots of g
+//                  (0 where the slot is masked or of no relation); out
+//                  (N, F, heads) f32.  s_src holds each projected table
+//                  row's source scores <W_g x_j, a_src>, s_dst each row's
+//                  target score of each relation <W_g x_i, a_dst>.
+// Replaces no TPU kernel (the JAX package has no relational GNN): it is
+// added for R-GAT.  Bound: bytes.  A slot reads its mask, relation, table
+// row and 2 x heads scores and writes heads floats, a few operations
+// each; the alpha written, (N, F, heads) f32, is most of the bytes.
+// Design: scores_kernel's narrow layout (a lane a slot, 32 / F2 rows a
+// warp), the scores in registers, a softmax a relation that a slot of the
+// warp holds (warp-uniform loop, xor shuffles within a row's lanes), and
+// float4 loads and stores of 4 heads.  No shared memory.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -423,6 +441,115 @@ void go(int IT, long long groups, int warps, size_t smem, cudaStream_t s,
     default: DEAL_SCORES(8); break;
   }
 #undef DEAL_SCORES
+}
+
+// R-GAT's attention: a lane a slot, as scores_kernel lays it out (lane
+// row * F2 + f, 32 / F2 rows a warp), H heads a lane in registers.  A live
+// slot of a known relation g loads its source score (H floats of its
+// table row t) and its row's target score of g (H floats), and scores
+// them LeakyReLU(src + dst); the softmax runs once for each relation that
+// a slot of the warp holds, over the lanes of one row (xor shuffles below
+// F2), the other relations' slots at -1e30: max, expf of the difference,
+// sum, divide.  Masked slots, pads and slots of no relation (g < 0) write
+// 0.  `vec`: the three float arrays are 16-byte aligned, so H % 4 == 0
+// heads move as float4.
+template <int H>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+rgat_attention_kernel(const float* __restrict__ s_src,
+                      const float* __restrict__ s_dst,
+                      const int32_t* __restrict__ tid,
+                      const int8_t* __restrict__ rel,
+                      const uint8_t* __restrict__ mask,
+                      float* __restrict__ out, long long N, int F, int nrel,
+                      float slope, bool vec) {
+  const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int F2 = slot_lanes(F), RW = 32 / F2;
+  const int f2_shift = log2_floor(F2);
+  const long long r0 =
+      ((long long)blockIdx.x * (blockDim.x / 32) + wid) * RW;
+  if (r0 >= N) return;                   // whole warp
+  const int f = lane & (F2 - 1);
+  const long long r = r0 + (lane >> f2_shift);
+  const bool in = f < F && r < N;
+  int g = -1;
+  if (in && mask[r * F + f]) g = rel[r * F + f];
+  const bool live = g >= 0 && g < nrel;
+  float e[H], a[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) e[h] = a[h] = 0.0f;
+  if (live) {
+    const float* ps = s_src + (long long)tid[r * F + f] * H;
+    const float* pd = s_dst + (r * nrel + g) * H;
+    float x[H], y[H];
+    if constexpr (H % 4 == 0) {
+      if (vec) {
+#pragma unroll
+        for (int h = 0; h < H; h += 4) {
+          const float4 u = __ldg(reinterpret_cast<const float4*>(ps + h));
+          const float4 v = __ldg(reinterpret_cast<const float4*>(pd + h));
+          x[h] = u.x, x[h + 1] = u.y, x[h + 2] = u.z, x[h + 3] = u.w;
+          y[h] = v.x, y[h + 1] = v.y, y[h + 2] = v.z, y[h + 3] = v.w;
+        }
+      }
+    }
+    if (!(H % 4 == 0 && vec)) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) x[h] = __ldg(ps + h), y[h] = __ldg(pd + h);
+    }
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const float s = __fadd_rn(x[h], y[h]);
+      e[h] = s > 0.0f ? s : __fmul_rn(s, slope);
+    }
+  }
+  for (int k = 0; k < nrel; ++k) {
+    const bool mine = live && g == k;
+    if (!__any_sync(kFull, mine)) continue;    // warp-uniform
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      float mx = mine ? e[h] : -1e30f;
+      for (int o = F2 / 2; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      const float x = mine ? expf(__fsub_rn(e[h], mx)) : 0.0f;
+      float sum = x;
+      for (int o = F2 / 2; o > 0; o >>= 1)
+        sum = __fadd_rn(sum, __shfl_xor_sync(kFull, sum, o));
+      if (mine) a[h] = __fdiv_rn(x, sum);
+    }
+  }
+  if (!in) return;
+  float* po = out + (r * F + f) * H;
+  if constexpr (H % 4 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int h = 0; h < H; h += 4)
+        *reinterpret_cast<float4*>(po + h) =
+            make_float4(a[h], a[h + 1], a[h + 2], a[h + 3]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) po[h] = a[h];
+}
+
+int launch_rgat(const float* s_src, const float* s_dst, const int32_t* tid,
+                const int8_t* rel, const uint8_t* mask, float* out,
+                long long N, int F, int heads, int nrel, float slope,
+                int warps, void* stream) {
+  if (N <= 0) return 0;
+  if (F < 1 || F > 32 || heads != 4 || nrel < 1 || nrel > 127 ||
+      warps < 1 || warps > kMaxWarps)     // R-GAT's 4 heads
+    return cudaErrorInvalidValue;
+  const bool vec = reinterpret_cast<uintptr_t>(s_src) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(s_dst) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int rows = 32 / slot_lanes(F);   // rows a warp
+  const long long groups = (N + rows - 1) / rows;
+  const unsigned grid = (unsigned)((groups + warps - 1) / warps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  rgat_attention_kernel<4><<<grid, warps * 32, 0, s>>>(
+      s_src, s_dst, tid, rel, mask, out, N, F, nrel, slope, vec);
+  return cudaGetLastError();
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -828,3 +955,16 @@ extern "C" int deal_sddmm(const void* q, const void* k, const int32_t* nbr,
                                         F, D, 1, warps, stream);
   return cudaErrorInvalidValue;
 }
+
+// R-GAT's attention (rgat_attention_kernel): s_src (rows, heads) and s_dst
+// (N, nrel, heads) f32; tid (N, F) int32 rows of s_src; rel (N, F) int8
+// relations, -1 for none; out (N, F, heads) f32.  heads 4, F <= 32.
+extern "C" int deal_rgat_attention(const float* s_src, const float* s_dst,
+                                   const int32_t* tid, const int8_t* rel,
+                                   const uint8_t* mask, float* out,
+                                   long long N, int F, int heads, int nrel,
+                                   float slope, int warps, void* stream) {
+  return launch_rgat(s_src, s_dst, tid, rel, mask, out, N, F, heads, nrel,
+                     slope, warps, stream);
+}
+

@@ -16,6 +16,10 @@ pair summing its dot in column order), chosen by shape alone
 the wrapper returns the plain version, ``ref.gat_attention_ref``.
 ``gat_attention.launches`` counts kernel launches, and
 ``gat_attention.launches_wide`` those of them on the wide kernel.
+
+``rgat_attention`` is R-GAT's relation-wise attention (additive scores,
+a softmax a relation) on the narrow kernel's layout: it replaces no TPU
+kernel.
 """
 from __future__ import annotations
 
@@ -180,3 +184,67 @@ def gat_attention(q, k, nbr, mask, heads: int = 1):
 
 gat_attention.launches = 0
 gat_attention.launches_wide = 0
+
+
+RGAT_HEADS = (4,)                  # the heads rgat_attention_kernel holds
+_RGAT_DTYPES = {"s_src": (torch.float32,), "s_dst": (torch.float32,),
+                "tid": (torch.int32,), "rel": (torch.int8,),
+                "mask": (torch.bool,)}
+
+
+def rgat_attention(s_src, s_dst, tid, rel, mask,
+                   negative_slope: float = 0.2):
+    """R-GAT's relation-wise attention (``rgat_attention_kernel`` of
+    ``csrc/gat_attention.cu``; it replaces no TPU kernel): for slot f of
+    row i, of relation g = rel[i, f] and head h,
+
+        alpha[i, f, h] = softmax over i's live slots of relation g of
+                         LeakyReLU(s_src[tid[i, f], h] + s_dst[i, g, h])
+
+    and 0 on a masked slot or one of no relation (g = -1).  s_src (U,
+    heads) f32, a score per projected table row; s_dst (R, n_rel, heads)
+    f32, each row's target score of each relation; tid (int32, ids in [0,
+    U)), rel (int8) and mask (bool): (R, F).  Returns (R, F, heads) f32.
+    On a CPU tensor, the plain version ``ref.rgat_attention_ref``; the
+    kernel takes F <= 32 and heads in ``RGAT_HEADS`` (a lane a slot, the
+    heads in its registers).  ``rgat_attention.launches`` counts
+    launches."""
+    R, F = tid.shape if tid.dim() == 2 else (None, None)
+    if (R is None or rel.shape != tid.shape or mask.shape != tid.shape
+            or s_src.dim() != 2 or s_dst.dim() != 3 or s_dst.shape[0] != R
+            or s_dst.shape[2] != s_src.shape[1]):
+        raise ValueError(
+            "rgat_attention: tid, rel and mask must be (R, F), s_src (U, "
+            "heads) and s_dst (R, n_rel, heads); got "
+            f"{tuple(tid.shape)}, {tuple(rel.shape)}, {tuple(mask.shape)}, "
+            f"{tuple(s_src.shape)}, {tuple(s_dst.shape)}")
+    if tid.device.type == "cpu":
+        return ref.rgat_attention_ref(s_src, s_dst, tid, rel, mask,
+                                      negative_slope)
+    if tid.device.type != "cuda":
+        raise ValueError(f"rgat_attention: no kernel for device "
+                         f"{tid.device}")
+    heads, n_rel = s_src.shape[1], s_dst.shape[1]
+    if F > 32 or heads not in RGAT_HEADS or not 1 <= n_rel <= 127:
+        raise ValueError(f"rgat_attention: the kernel takes F <= 32, heads "
+                         f"in {RGAT_HEADS} and 1 to 127 relations; got "
+                         f"F={F}, heads={heads}, {n_rel} relations")
+    build.check_args("rgat_attention",
+                     {"s_src": s_src, "s_dst": s_dst, "tid": tid,
+                      "rel": rel, "mask": mask}, _RGAT_DTYPES)
+    out = torch.empty((R, F, heads), dtype=torch.float32, device=tid.device)
+    if R == 0 or F == 0:
+        return out
+    lib = build.library("gat_attention")
+    with torch.cuda.device(tid.device):
+        err = lib.deal_rgat_attention(
+            s_src.data_ptr(), s_dst.data_ptr(), tid.data_ptr(),
+            rel.data_ptr(), mask.data_ptr(), out.data_ptr(), R, F, heads,
+            n_rel, float(negative_slope), WARPS,
+            torch.cuda.current_stream(tid.device).cuda_stream)
+    build.check(err, "rgat_attention")
+    rgat_attention.launches += 1
+    return out
+
+
+rgat_attention.launches = 0

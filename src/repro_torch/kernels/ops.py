@@ -10,7 +10,8 @@ version in ``kernels.ref``.  There is no backend probe and no fallback.
 ``KERNELS`` lists the five kernels with their plain versions, sources
 and the TPU kernels they replace; ``launch_counts`` and
 ``reset_launch_counts`` read and zero their launch counters (the reset
-also zeroes the counts of a kernel's second path:
+also zeroes ``rgat_attention.launches``, R-GAT's attention, which
+replaces no TPU kernel, and the counts of a kernel's second path:
 ``flash_attention.launches_tc``, the bf16 tensor-core kernel's share of
 ``flash_attention``'s, and ``gat_attention.launches_wide`` /
 ``sddmm.launches_wide``, the wide scoring kernel's; and
@@ -32,6 +33,7 @@ from repro_torch.kernels import spmm as _spmm
 spmm = _spmm.spmm
 gather_spmm = _gather.gather_spmm
 gat_attention = _gat.gat_attention
+rgat_attention = _gat.rgat_attention
 sddmm = _sddmm.sddmm
 flash_attention = _flash.flash_attention
 mean_weights = _mean_weights.mean_weights
@@ -58,3 +60,4 @@ def reset_launch_counts() -> None:
     gat_attention.launches_wide = 0
     sddmm.launches_wide = 0
     mean_weights.launches = 0
+    rgat_attention.launches = 0

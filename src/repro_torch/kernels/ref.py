@@ -84,6 +84,32 @@ def gat_attention_ref(q, k, nbr, mask, heads: int):
     return p * m
 
 
+def rgat_attention_ref(s_src, s_dst, tid, rel, mask,
+                       negative_slope: float = 0.2):
+    """R-GAT's relation-wise attention: for slot f of row i, of relation
+    g = rel[i, f] (-1: none) and head h,
+    e = LeakyReLU(s_src[tid[i, f], h] + s_dst[i, g, h]) and alpha[i, f, h]
+    the softmax of e over i's live slots of relation g, 0 on a masked slot
+    or one of no relation: (R, F, heads) f32.  s_src (U, heads), s_dst
+    (R, n_rel, heads)."""
+    R, F = tid.shape
+    n_rel, heads = s_dst.shape[1], s_dst.shape[2]
+    g = rel.long()
+    live = mask & (g >= 0) & (g < n_rel)
+    gi = torch.where(live, g, 0)
+    ti = torch.where(live, tid.long(), 0)
+    e = s_src.float()[ti.reshape(-1)].reshape(R, F, heads) + torch.gather(
+        s_dst.float(), 1, gi[..., None].expand(R, F, heads))
+    e = torch.nn.functional.leaky_relu(e, negative_slope)
+    alpha = torch.zeros((R, F, heads), dtype=torch.float32,
+                        device=e.device)
+    for k in range(n_rel):
+        m = (live & (gi == k))[..., None]
+        p = torch.softmax(torch.where(m, e, -1e30), dim=1)
+        alpha = torch.where(m, p, alpha)
+    return alpha
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True):
     """q: (BH, Sq, hd); k, v: (BH, Skv, hd).  Plain softmax attention in
     f32 (scores scaled by 1/sqrt(hd), -1e30 above the diagonal when

@@ -141,7 +141,7 @@ def _span_names(root):
     return names
 
 
-IO_SPANS = {"io.bind", "io.mean_w", "io.prepare"}
+IO_SPANS = {"io.bind", "io.mean_w", "io.prepare", "io.rel"}
 
 
 def test_span_names_missing_from_the_port_are_items_5_and_8():
@@ -151,8 +151,8 @@ def test_span_names_missing_from_the_port_are_items_5_and_8():
     ``refresh.route``) included.  (``refresh.subset_plan`` appears in
     the JAX package's docstrings only: no call records it.)  The port's
     one addition is the binding's ``io.*`` spans (``core.ops``: the
-    ``DenseIO`` build, its mean weights, ``prepare``), which the JAX
-    package lacks."""
+    ``DenseIO`` build, its mean weights, ``prepare``, R-GAT's slot
+    relations), which the JAX package lacks."""
     ours = _span_names(ROOT / "src" / "repro_torch")
     theirs = _span_names(ROOT / "src" / "repro")
     assert theirs - ours == set()
