@@ -79,6 +79,16 @@ the run with a non-zero exit code:
    the nodes, within atol 1e-4, rtol 1e-4 of ``local_gcn_infer`` (and
    whether it is bitwise), its GEMM rows beside DEAL's 3 N and both
    times.
+   [rgat]: R-GAT's attention (``rgat_attention``) right after the
+   kernels phase, at the rgat-mag240m cell's shapes (its 3 node types
+   and 5 relations at 2^20 rows, fanouts 25 and 15, 4 heads): one launch
+   a call from a reset, within atol 1e-6, rtol 1e-5 of its plain
+   version, slots masked or of no relation exactly 0, row subsets
+   bitwise, its time beside its bound; after the ego baseline,
+   ``LOCAL_ENGINES["rgat"]`` at 2^17 nodes at the cell's widths through
+   "cuda": one rgat_attention and one spmm launch a layer, within atol
+   1e-4, rtol 3e-3 of "ref" and within rel_l2 3e-5, max_err 1e-3 of
+   gnnbench/reference/rgat.py.
 4. fused feature prep: ``fused_load_spmm`` through the cuda executor
    against "ref", counting the gather_spmm launches.
    [launcher]: ``repro_torch.launch.serve_embeddings``' own functions
@@ -270,7 +280,8 @@ the run with a non-zero exit code:
 
 ``python3 chip_smoke.py --phase mesh`` builds the kernels and runs the
 mesh phase alone (the four-card call); ``--phase dryrun`` runs the
-dryrun phase, then the mesh phase.
+dryrun phase, then the mesh phase; ``--phase rgat`` runs the two
+[rgat] checks alone, and its kernels line holds rgat_attention's row.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Needs the repo's
@@ -343,6 +354,13 @@ CLUSTER_SHARDS = 2
 # refresh, the WAL append and the compressed checkpoint of a 1,048,576-
 # node world, which pass the defaults' 60 s (PERF.md, section 5)
 CLUSTER_TIMEOUT_S = 900.0
+# [rgat]: the rgat-mag240m cell's typing (3 node types, 5 relations) and
+# fanouts; its kernel check at 2^20 rows, its engine at 2^17 nodes at the
+# cell's widths (768 in, 4 x 256, 153 out)
+RGAT_CONFIG = ROOT / "gnnbench" / "configs" / "rgat-mag240m.json"
+RGAT_FANOUTS = (25, 15)
+RGAT_KERNEL_NODES, RGAT_ENGINE_NODES = 1 << 20, 1 << 17
+RGAT_ALPHA_TOL = (1e-6, 1e-5)    # atol, rtol: alpha lies in [0, 1]
 DEVICE = "cuda"
 
 
@@ -702,6 +720,167 @@ def mean_weights_check(torch, kops, lg, mask):
         "the events time the wrapper's launch cadence on the host more "
         "than the kernel; tools/mean_weights_time.py times it at 2^23 "
         "rows)")
+
+
+def rgat_cfg(n):
+    """The rgat-mag240m cell's configuration at ``n`` nodes: every type
+    block and relation keeps its share (``gnnbench.inputs.typed_blocks``)."""
+    cfg = json.loads(RGAT_CONFIG.read_text())
+    cfg.update(n_nodes=n, n_edges=cfg["n_edges"] * n // cfg["n_nodes"])
+    return cfg
+
+
+def rgat_attention_check(torch, kops):
+    """``rgat_attention_kernel`` at the rgat-mag240m cell's shapes: its
+    three node types and five relations at ``RGAT_KERNEL_NODES`` rows, a
+    layer graph at each of its fanouts (25, 15), each slot's relation and
+    table row from ``slot_relations`` (every type with live rows, every
+    relation with live slots), random source and target scores of 4
+    heads.  Each call one launch, counted from a reset; within
+    ``RGAT_ALPHA_TOL`` of ``ref.rgat_attention_ref``; every slot masked or
+    of no relation exactly 0; row subsets bitwise the full launch; its
+    time beside its bound (the bytes and operations of
+    gnnbench/metrics/rgat_attention_roofline.py) and the plain
+    version's.  Returns the kernel's row of the kernels JSON line, at
+    fanout 25, with fanout 15's time and bound beside it."""
+    from gnnbench import inputs
+    from repro_torch.core import gnn_models
+    from repro_torch.core.graph import csr_from_edges_distributed
+    from repro_torch.core.ops import slot_relations
+    from repro_torch.core.sampler import sample_layer_graphs
+    fn, plain, mod = kops.KERNELS["rgat_attention"]
+    dev = torch.device(DEVICE)
+    cfg = rgat_cfg(RGAT_KERNEL_NODES)
+    n = cfg["n_nodes"]
+    t0 = time.perf_counter()
+    src, dst = inputs.edges(cfg, 0, "cpu")
+    g, _ = csr_from_edges_distributed(src, dst, n)
+    del src, dst
+    blocks = inputs.typed_blocks(cfg)
+    typing = gnn_models.node_typing(blocks["node_offsets"],
+                                    blocks["relation_table"],
+                                    len(cfg["relations"]))
+    off, n_rel = typing.offsets, typing.n_relations
+    log(f"[rgat] typed graph of {n} nodes ({len(off) - 1} types at "
+        f"{list(off)}), {g.n_edges} in-edges in {n_rel} relations, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    row = None
+    for fanout in RGAT_FANOUTS:
+        lg = sample_layer_graphs(g, fanout, 1, seed=0)[0]
+        nbr = torch.as_tensor(lg.nbr, device=dev)
+        mask = torch.as_tensor(lg.mask, device=dev)
+        rel, tid = slot_relations(nbr, mask, typing)
+        for dt in range(len(off) - 1):
+            check(bool((rel[off[dt]:off[dt + 1]] >= 0).any()),
+                  f"rgat_attention F={fanout}: type {dt} has no live slot")
+        check(sorted(torch.unique(rel[rel >= 0]).tolist())
+              == list(range(n_rel)),
+              f"rgat_attention F={fanout}: a relation has no live slot")
+        s_src = torch.randn((typing.rows, 4), generator=gen, device=dev) * 2
+        s_dst = torch.randn((n, n_rel, 4), generator=gen, device=dev) * 2
+        case = (s_src, s_dst, tid, rel, mask)
+        kops.reset_launch_counts()
+        got = fn(*case)
+        torch.cuda.synchronize()
+        counts = kops.launch_counts()
+        check(counts["rgat_attention"] == 1
+              and sum(counts.values()) == 1,
+              f"rgat_attention F={fanout}: launches {counts} from a reset, "
+              "expected one of rgat_attention")
+        err = assert_close(torch, got, plain(*case), *RGAT_ALPHA_TOL,
+                           f"rgat_attention F={fanout}")
+        check(bool((got[rel < 0] == 0).all()),
+              f"rgat_attention F={fanout}: a slot masked or of no relation "
+              "is not 0")
+        for sub in (torch.arange(0, n, 3, device=dev),
+                    torch.arange(1000, 2000, device=dev)):
+            check(torch.equal(fn(s_src, s_dst[sub], tid[sub], rel[sub],
+                                 mask[sub]), got[sub]),
+                  f"rgat_attention F={fanout}: a row subset differs from "
+                  "the full launch")
+        ms = time_ms(torch, lambda: fn(*case))
+        plain_ms = time_ms(torch, lambda: plain(*case), reps=5)
+        live = mask.reshape(-1)
+        st = {"R": n, "F": fanout, "nnz": int(live.sum()),
+              "uniq": int(torch.unique(nbr.reshape(-1)[live]).numel()),
+              "live_rows": int(mask.any(dim=1).sum())}
+        need = (st["R"] * st["F"] + st["nnz"] * 5 + st["uniq"] * 16
+                + st["live_rows"] * 16 + st["R"] * st["F"] * 16)
+        flops = 6 * st["nnz"] * 4
+        if row is None:
+            row = kernel_row("rgat_attention", mod, err, ms, plain_ms,
+                             need, flops)
+            bms, by = row["bound_ms"], row["bound_by"]
+        else:
+            bms, by = bound(need, flops)
+            row.update({f"ms_f{fanout}": ms, f"bound_ms_f{fanout}": bms,
+                        f"max_abs_err_f{fanout}": err})
+        log(f"[rgat] rgat_attention F={fanout} heads=4 relations={n_rel}: "
+            f"{st['nnz']} live slots of {n * fanout}, {st['live_rows']} "
+            f"live rows; one launch; max err {err:.3e} (atol "
+            f"{RGAT_ALPHA_TOL[0]}, rtol {RGAT_ALPHA_TOL[1]}); slots masked "
+            f"or of no relation 0; row subsets bitwise equal; {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}; "
+            f"{100 * bms / ms:.1f}% of it)")
+        del nbr, mask, rel, tid, s_src, s_dst, case, got
+    torch.cuda.synchronize()
+    return row
+
+
+def rgat_phase(torch, kops, launches):
+    """R-GAT through ``LOCAL_ENGINES["rgat"]`` on "cuda" at
+    ``RGAT_ENGINE_NODES`` nodes of the rgat-mag240m cell's typing and
+    widths, fanouts 25 then 15, inputs from ``gnnbench.inputs.make`` at
+    seed 0: its launches from a reset (per layer one rgat_attention and
+    one spmm, the attend of at most ``ops.ATTEND_ROWS`` rows), within atol
+    1e-4, rtol 3e-3 of the same engine through "ref", and within rel_l2
+    3e-5 and max_err 1e-3 (tests/test_torch_rgat.py's card test) of the
+    benchmark's plain reference (gnnbench/reference/rgat.py); its
+    launches go to ``launches``."""
+    from gnnbench import inputs, reference, yardstick
+    from repro_torch.core import gnn_models
+    from repro_torch.core.graph import csr_from_edges_distributed
+    from repro_torch.core.layerwise import LOCAL_ENGINES
+    from repro_torch.core.sampler import sample_layer_graphs
+    cfg = rgat_cfg(RGAT_ENGINE_NODES)
+    src, dst, X, tree, draws = inputs.make(cfg, RGAT_FANOUTS, 0, "cpu")
+    g, _ = csr_from_edges_distributed(src, dst, X.shape[0])
+    lgs = [lg for fanout, n, s in draws
+           for lg in sample_layer_graphs(g, fanout, n, s)]
+    params = gnn_models.params_from_numpy("rgat", tree, DEVICE)
+    engine = LOCAL_ENGINES["rgat"]
+
+    def run(executor):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = engine(lgs, X, params, executor=executor, device=DEVICE)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    run("cuda")                          # warm-up: cuBLAS handles
+    kops.reset_launch_counts()
+    got, ms = run("cuda")
+    counts = kops.launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(rgat_attention=len(lgs), spmm=len(lgs))
+    check(counts == want, f"[rgat] launches {counts}, expected {want}")
+    for k, v in counts.items():
+        launches[k] += v
+    ref_out, ref_ms = run("ref")
+    err = assert_close(torch, got, ref_out, 1e-4, 3e-3,
+                       "[rgat] local_rgat_infer cuda vs ref")
+    del ref_out
+    plain = reference.embed_all("rgat", src, dst, X, tree, draws, DEVICE)
+    perr = yardstick.errors(got, plain)
+    check(perr["rel_l2"] < 3e-5 and perr["max_err"] < 1e-3,
+          f"[rgat] local_rgat_infer vs gnnbench/reference/rgat.py: {perr}")
+    log(f"[rgat] local_rgat_infer N={X.shape[0]} (768 -> 4 x 256 -> "
+        f"{got.shape[1]}), fanouts {RGAT_FANOUTS}: {ms:.1f} ms (\"ref\" "
+        f"{ref_ms:.1f} ms), launches { {k: v for k, v in counts.items() if v} }"
+        f"; max err vs ref {err:.3e} (atol 1e-4, rtol 3e-3); vs the plain "
+        f"reference rel_l2 {perr['rel_l2']:.3e}, max_err "
+        f"{perr['max_err']:.3e}")
 
 
 def subset_equal(torch, fn, full, q, k, nbr, mask, **kw):
@@ -4434,10 +4613,11 @@ def mesh_phase(torch, kops, launches, card):
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "mesh", "dryrun"),
+    ap.add_argument("--phase", choices=("all", "mesh", "dryrun", "rgat"),
                     default="all",
                     help="mesh: build the kernels and run [mesh] alone; "
-                         "dryrun: [dryrun], then [mesh]")
+                         "dryrun: [dryrun], then [mesh]; rgat: [rgat] "
+                         "alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4502,6 +4682,21 @@ def main() -> int:
     check(n_hgmma > 0, "flash_attention_sm90: no HGMMA in its SASS")
     log(f"[build] flash_attention_sm90: {n_hgmma} HGMMA instructions in "
         "its SASS (cuobjdump -sass)")
+    if args.phase == "rgat":
+        launches = {name: 0 for name in kops.KERNELS}
+        t0 = time.perf_counter()
+        row = rgat_attention_check(torch, kops)
+        torch.cuda.empty_cache()
+        rgat_phase(torch, kops, launches)
+        row["launches"] = launches["rgat_attention"]
+        log(f"[rgat] phase took {time.perf_counter() - t0:.1f} s; "
+            f"launches {launches}; {time.perf_counter() - t_start:.1f} s "
+            "in all")
+        log(json.dumps({"kernels": [row]}))
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.phase != "all":
         launches = {name: 0 for name in kops.KERNELS}
         if args.phase == "dryrun":
@@ -4529,6 +4724,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     rows = kernel_phase(torch, kops, lg)
     torch.cuda.empty_cache()
+    rows["rgat_attention"] = rgat_attention_check(torch, kops)
+    torch.cuda.empty_cache()
     winners = tune_phase(torch, kops, lg)
     torch.cuda.empty_cache()
     gat_wide_phase(torch, kops, lg, lg64, rows)
@@ -4547,6 +4744,10 @@ def main() -> int:
     del lg0
     torch.cuda.empty_cache()
     ego_phase(torch, kops, launches)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rgat_phase(torch, kops, launches)
+    log(f"[rgat] phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     launcher_phase(torch, kops, launches)
     torch.cuda.empty_cache()

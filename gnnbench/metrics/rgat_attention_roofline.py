@@ -14,7 +14,7 @@ import re
 
 from gnnbench import yardstick
 
-KERNEL = re.compile(r"rgat_attention_kernel<")
+KERNEL = re.compile(r"\brgat_attention_kernel\b")
 OPS_PER_SLOT_HEAD = 6
 
 

@@ -73,7 +73,12 @@ def local_sage_infer(layer_graphs, X, params, activation=F.relu,
 def local_rgat_infer(layer_graphs, X, params, activation=None,
                      executor="cuda", device="cuda"):
     """R-GAT on a typed graph (``params_from_numpy("rgat", ...)``): each
-    layer's BatchNorm and ELU, and the head, are the spec's own."""
+    layer's BatchNorm and ELU, and the head, are the spec's own, so
+    ``activation`` must stay None (a second nonlinearity between layers
+    would compute another model)."""
+    if activation is not None:
+        raise ValueError("local_rgat_infer: R-GAT's ELU is the spec's own; "
+                         f"activation must be None, got {activation!r}")
     return _local_infer("rgat", layer_graphs, X, params, activation,
                         executor, device)
 

@@ -444,24 +444,24 @@ void go(int IT, long long groups, int warps, size_t smem, cudaStream_t s,
 }
 
 // R-GAT's attention: a lane a slot, as scores_kernel lays it out (lane
-// row * F2 + f, 32 / F2 rows a warp), H heads a lane in registers.  A live
-// slot of a known relation g loads its source score (H floats of its
-// table row t) and its row's target score of g (H floats), and scores
-// them LeakyReLU(src + dst); the softmax runs once for each relation that
-// a slot of the warp holds, over the lanes of one row (xor shuffles below
-// F2), the other relations' slots at -1e30: max, expf of the difference,
-// sum, divide.  Masked slots, pads and slots of no relation (g < 0) write
-// 0.  `vec`: the three float arrays are 16-byte aligned, so H % 4 == 0
-// heads move as float4.
-template <int H>
+// row * F2 + f, 32 / F2 rows a warp), R-GAT's 4 heads a lane in registers.
+// A live slot of a known relation g loads its source score (one float4 of
+// its table row t) and its row's target score of g (one float4), and
+// scores them LeakyReLU(src + dst); the softmax runs once for each
+// relation that a slot of the warp holds, over the lanes of one row (xor
+// shuffles below F2), the other relations' slots at -1e30: max, expf of
+// the difference, sum, divide.  Masked slots, pads and slots of no
+// relation (g < 0) write 0.  The three float arrays are 16-byte aligned
+// (the wrapper checks), so a slot's heads move as one float4.
+constexpr int kRgatHeads = 4;
 __global__ void __launch_bounds__(kMaxWarps * 32)
-rgat_attention_kernel(const float* __restrict__ s_src,
-                      const float* __restrict__ s_dst,
+rgat_attention_kernel(const float4* __restrict__ s_src,
+                      const float4* __restrict__ s_dst,
                       const int32_t* __restrict__ tid,
                       const int8_t* __restrict__ rel,
                       const uint8_t* __restrict__ mask,
-                      float* __restrict__ out, long long N, int F, int nrel,
-                      float slope, bool vec) {
+                      float4* __restrict__ out, long long N, int F, int nrel,
+                      float slope) {
   const int wid = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int F2 = slot_lanes(F), RW = 32 / F2;
   const int f2_shift = log2_floor(F2);
@@ -474,30 +474,16 @@ rgat_attention_kernel(const float* __restrict__ s_src,
   int g = -1;
   if (in && mask[r * F + f]) g = rel[r * F + f];
   const bool live = g >= 0 && g < nrel;
-  float e[H], a[H];
+  float e[kRgatHeads], a[kRgatHeads];
 #pragma unroll
-  for (int h = 0; h < H; ++h) e[h] = a[h] = 0.0f;
+  for (int h = 0; h < kRgatHeads; ++h) e[h] = a[h] = 0.0f;
   if (live) {
-    const float* ps = s_src + (long long)tid[r * F + f] * H;
-    const float* pd = s_dst + (r * nrel + g) * H;
-    float x[H], y[H];
-    if constexpr (H % 4 == 0) {
-      if (vec) {
+    const float4 u = __ldg(s_src + tid[r * F + f]);
+    const float4 v = __ldg(s_dst + r * nrel + g);
+    const float x[kRgatHeads] = {u.x, u.y, u.z, u.w};
+    const float y[kRgatHeads] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int h = 0; h < H; h += 4) {
-          const float4 u = __ldg(reinterpret_cast<const float4*>(ps + h));
-          const float4 v = __ldg(reinterpret_cast<const float4*>(pd + h));
-          x[h] = u.x, x[h + 1] = u.y, x[h + 2] = u.z, x[h + 3] = u.w;
-          y[h] = v.x, y[h + 1] = v.y, y[h + 2] = v.z, y[h + 3] = v.w;
-        }
-      }
-    }
-    if (!(H % 4 == 0 && vec)) {
-#pragma unroll
-      for (int h = 0; h < H; ++h) x[h] = __ldg(ps + h), y[h] = __ldg(pd + h);
-    }
-#pragma unroll
-    for (int h = 0; h < H; ++h) {
+    for (int h = 0; h < kRgatHeads; ++h) {
       const float s = __fadd_rn(x[h], y[h]);
       e[h] = s > 0.0f ? s : __fmul_rn(s, slope);
     }
@@ -506,7 +492,7 @@ rgat_attention_kernel(const float* __restrict__ s_src,
     const bool mine = live && g == k;
     if (!__any_sync(kFull, mine)) continue;    // warp-uniform
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
+    for (int h = 0; h < kRgatHeads; ++h) {
       float mx = mine ? e[h] : -1e30f;
       for (int o = F2 / 2; o > 0; o >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
@@ -517,19 +503,7 @@ rgat_attention_kernel(const float* __restrict__ s_src,
       if (mine) a[h] = __fdiv_rn(x, sum);
     }
   }
-  if (!in) return;
-  float* po = out + (r * F + f) * H;
-  if constexpr (H % 4 == 0) {
-    if (vec) {
-#pragma unroll
-      for (int h = 0; h < H; h += 4)
-        *reinterpret_cast<float4*>(po + h) =
-            make_float4(a[h], a[h + 1], a[h + 2], a[h + 3]);
-      return;
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < H; ++h) po[h] = a[h];
+  if (in) out[r * F + f] = make_float4(a[0], a[1], a[2], a[3]);
 }
 
 int launch_rgat(const float* s_src, const float* s_dst, const int32_t* tid,
@@ -537,18 +511,20 @@ int launch_rgat(const float* s_src, const float* s_dst, const int32_t* tid,
                 long long N, int F, int heads, int nrel, float slope,
                 int warps, void* stream) {
   if (N <= 0) return 0;
-  if (F < 1 || F > 32 || heads != 4 || nrel < 1 || nrel > 127 ||
-      warps < 1 || warps > kMaxWarps)     // R-GAT's 4 heads
+  if (F < 1 || F > 32 || heads != kRgatHeads || nrel < 1 || nrel > 127 ||
+      warps < 1 || warps > kMaxWarps ||
+      reinterpret_cast<uintptr_t>(s_src) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(s_dst) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return cudaErrorInvalidValue;
-  const bool vec = reinterpret_cast<uintptr_t>(s_src) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(s_dst) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int rows = 32 / slot_lanes(F);   // rows a warp
   const long long groups = (N + rows - 1) / rows;
   const unsigned grid = (unsigned)((groups + warps - 1) / warps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rgat_attention_kernel<4><<<grid, warps * 32, 0, s>>>(
-      s_src, s_dst, tid, rel, mask, out, N, F, nrel, slope, vec);
+  rgat_attention_kernel<<<grid, warps * 32, 0, s>>>(
+      reinterpret_cast<const float4*>(s_src),
+      reinterpret_cast<const float4*>(s_dst), tid, rel, mask,
+      reinterpret_cast<float4*>(out), N, F, nrel, slope);
   return cudaGetLastError();
 }
 
@@ -958,7 +934,8 @@ extern "C" int deal_sddmm(const void* q, const void* k, const int32_t* nbr,
 
 // R-GAT's attention (rgat_attention_kernel): s_src (rows, heads) and s_dst
 // (N, nrel, heads) f32; tid (N, F) int32 rows of s_src; rel (N, F) int8
-// relations, -1 for none; out (N, F, heads) f32.  heads 4, F <= 32.
+// relations, -1 for none; out (N, F, heads) f32.  heads 4, F <= 32, the
+// float arrays 16-byte aligned.
 extern "C" int deal_rgat_attention(const float* s_src, const float* s_dst,
                                    const int32_t* tid, const int8_t* rel,
                                    const uint8_t* mask, float* out,

@@ -206,9 +206,10 @@ def rgat_attention(s_src, s_dst, tid, rel, mask,
     f32, each row's target score of each relation; tid (int32, ids in [0,
     U)), rel (int8) and mask (bool): (R, F).  Returns (R, F, heads) f32.
     On a CPU tensor, the plain version ``ref.rgat_attention_ref``; the
-    kernel takes F <= 32 and heads in ``RGAT_HEADS`` (a lane a slot, the
-    heads in its registers).  ``rgat_attention.launches`` counts
-    launches."""
+    kernel takes F <= 32, heads in ``RGAT_HEADS`` (a lane a slot, the
+    heads in its registers) and s_src and s_dst starting on a 16-byte
+    boundary (a slot's heads move as one float4), and raises otherwise.
+    ``rgat_attention.launches`` counts launches."""
     R, F = tid.shape if tid.dim() == 2 else (None, None)
     if (R is None or rel.shape != tid.shape or mask.shape != tid.shape
             or s_src.dim() != 2 or s_dst.dim() != 3 or s_dst.shape[0] != R
@@ -233,6 +234,11 @@ def rgat_attention(s_src, s_dst, tid, rel, mask,
                      {"s_src": s_src, "s_dst": s_dst, "tid": tid,
                       "rel": rel, "mask": mask}, _RGAT_DTYPES)
     out = torch.empty((R, F, heads), dtype=torch.float32, device=tid.device)
+    for name, t in (("s_src", s_src), ("s_dst", s_dst), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"rgat_attention: {name} must start on a "
+                             "16-byte boundary (the kernel moves a slot's "
+                             "4 heads as one float4); pass a fresh tensor")
     if R == 0 or F == 0:
         return out
     lib = build.library("gat_attention")

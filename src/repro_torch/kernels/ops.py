@@ -7,11 +7,11 @@ version in ``kernels.ref``.  There is no backend probe and no fallback.
 (GEMM has no kernel: the executors call ``ref.gemm_ref``, that is
 ``torch.matmul``, as the JAX package leaves GEMM to XLA.)
 
-``KERNELS`` lists the five kernels with their plain versions, sources
-and the TPU kernels they replace; ``launch_counts`` and
-``reset_launch_counts`` read and zero their launch counters (the reset
-also zeroes ``rgat_attention.launches``, R-GAT's attention, which
-replaces no TPU kernel, and the counts of a kernel's second path:
+``KERNELS`` lists the six kernels with their plain versions, sources
+and the TPU kernels they replace (``rgat_attention``, R-GAT's attention,
+replaces none: the JAX package has no relational GNN);
+``launch_counts`` and ``reset_launch_counts`` read and zero their launch
+counters (the reset also zeroes the counts of a kernel's second path:
 ``flash_attention.launches_tc``, the bf16 tensor-core kernel's share of
 ``flash_attention``'s, and ``gat_attention.launches_wide`` /
 ``sddmm.launches_wide``, the wide scoring kernel's; and
@@ -20,6 +20,7 @@ host's numpy mean weights, so ``KERNELS`` does not list it).
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict
 
 from repro_torch.kernels import flash_attention as _flash
@@ -38,6 +39,9 @@ sddmm = _sddmm.sddmm
 flash_attention = _flash.flash_attention
 mean_weights = _mean_weights.mean_weights
 
+# R-GAT's attention: gat_attention.cu's source, no TPU kernel replaced
+_RGAT = SimpleNamespace(SOURCE=_gat.SOURCE, REPLACES=None)
+
 # name -> (wrapper, plain version, module with SOURCE / REPLACES)
 KERNELS = {
     "spmm": (spmm, ref.spmm_ref, _spmm),
@@ -45,6 +49,7 @@ KERNELS = {
     "gat_attention": (gat_attention, ref.gat_attention_ref, _gat),
     "sddmm": (sddmm, ref.sddmm_ref, _sddmm),
     "flash_attention": (flash_attention, ref.flash_attention_ref, _flash),
+    "rgat_attention": (rgat_attention, ref.rgat_attention_ref, _RGAT),
 }
 
 
@@ -60,4 +65,3 @@ def reset_launch_counts() -> None:
     gat_attention.launches_wide = 0
     sddmm.launches_wide = 0
     mean_weights.launches = 0
-    rgat_attention.launches = 0

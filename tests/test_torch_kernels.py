@@ -284,9 +284,12 @@ def test_launch_counters_reset_and_cpu_calls_do_not_count():
     ops.gat_attention(h, h, nbr, mask)
     q = torch.zeros(2, 5, 4)
     ops.flash_attention(q, q, q)
+    ops.rgat_attention(torch.zeros(8, 4), torch.zeros(8, 2, 4), nbr,
+                       torch.zeros(8, 3, dtype=torch.int8), mask)
     assert ops.launch_counts() == {"spmm": 0, "gather_spmm": 0,
                                    "gat_attention": 0, "sddmm": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "rgat_attention": 0}
 
 
 def test_build_names_libraries_by_source_hash_and_needs_nvcc(

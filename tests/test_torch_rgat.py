@@ -261,6 +261,37 @@ def test_params_keep_the_typing_as_ints():
     assert p["heads"] == 4 and p["layers"][0]["w_rel"].shape == (5, 24, 32)
 
 
+@pytest.mark.parametrize("name", ["rgat_attention_kernel",
+                                  "void rgat_attention_kernel(float4 const*)"])
+def test_rgat_attention_roofline_reads_the_kernels_launches(name):
+    """The metric finds the kernel under the name the profiler gives it,
+    launch i at layer i mod L, and nothing in a trace without it."""
+    from types import SimpleNamespace
+    from gnnbench.metrics import rgat_attention_roofline as metric
+    stats = [{"R": 4096, "F": 25, "nnz": 15000, "uniq": 1200,
+              "live_rows": 2000},
+             {"R": 4096, "F": 15, "nnz": 12000, "uniq": 1100,
+              "live_rows": 2000}]
+    need = [yardstick.bound_s(metric.attention_bytes(st, 4),
+                              metric.attention_ops(st, 4)) for st in stats]
+    others = [("scores_kernel<float, float4, 4, true>", 1.0),
+              ("spmm_kernel<float, 4>", 1.0)]
+    ctx = SimpleNamespace(
+        trace={"kernels": others + [(name, 2e-3), (name, 1e-3)] * 2},
+        layer_stats=stats, cell=SimpleNamespace(cfg={"heads": 4}))
+    assert metric.read(ctx) == pytest.approx(100 * 2 * sum(need) / 6e-3)
+    ctx.trace = {"kernels": others}
+    assert metric.read(ctx) is None
+
+
+def test_rgat_engine_refuses_a_second_activation():
+    _, _, X, tree, _, lgs = _world(MAG, (6, 4), 2)
+    params = gnn_models.params_from_numpy("rgat", tree, "cpu")
+    with pytest.raises(ValueError, match="activation must be None"):
+        LOCAL_ENGINES["rgat"](lgs, X, params, torch.relu, executor="ref",
+                              device="cpu")
+
+
 def test_rgat_runs_on_one_card_only():
     from repro_torch.core.layerwise import DistributedLayerwise
     _, _, _, tree, _, lgs = _world(MAG, (6, 4), 2)
@@ -318,13 +349,14 @@ def test_rgat_attention_kernel_matches_plain_at_the_cells_shapes(card,
                                rtol=1e-5, atol=1e-6)
     live = (case[3] >= 0).cpu().numpy()
     assert not got.cpu().numpy()[~live].any()
-    # a misaligned source table: the kernel's narrow loads, the same bits
+    # a source table off the 16-byte boundary: refused, not read narrow
     s_src = case[0]
     flat = torch.empty(s_src.numel() + 1, device=card)
     view = flat[1:].view(s_src.shape)
     view.copy_(s_src)
-    again = kops.rgat_attention(view, *case[1:])
-    assert torch.equal(again, got)
+    with pytest.raises(ValueError, match="16-byte"):
+        kops.rgat_attention(view, *case[1:])
+    assert kops.rgat_attention.launches == before + 1
 
 
 @pytest.mark.gpu
