@@ -89,6 +89,13 @@ the run with a non-zero exit code:
    "cuda": one rgat_attention and one spmm launch a layer, within atol
    1e-4, rtol 3e-3 of "ref" and within rel_l2 3e-5, max_err 1e-3 of
    gnnbench/reference/rgat.py.
+   [h2d]: the binding's staged host-to-card copies (``core.ops._bind``
+   through its staging ring) after the kernels phase: a 4-GiB f32 X
+   through ``RefExecutor.prepare`` and the kernels phase's layer graph
+   through ``DenseIO``, each bitwise ``torch.as_tensor``'s, every byte
+   through the ring (``io.h2d_staged_bytes`` over ``io.h2d_bytes`` 1.0),
+   and X's time and GB/s beside a pinned 1-GiB DMA's and the pageable
+   copy's.
 4. fused feature prep: ``fused_load_spmm`` through the cuda executor
    against "ref", counting the gather_spmm launches.
    [launcher]: ``repro_torch.launch.serve_embeddings``' own functions
@@ -281,7 +288,8 @@ the run with a non-zero exit code:
 ``python3 chip_smoke.py --phase mesh`` builds the kernels and runs the
 mesh phase alone (the four-card call); ``--phase dryrun`` runs the
 dryrun phase, then the mesh phase; ``--phase rgat`` runs the two
-[rgat] checks alone, and its kernels line holds rgat_attention's row.
+[rgat] checks alone, and its kernels line holds rgat_attention's row;
+``--phase h2d`` runs [h2d] alone, on the same layer graph.
 
 The line before the last is a JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.  Needs the repo's
@@ -361,6 +369,7 @@ RGAT_CONFIG = ROOT / "gnnbench" / "configs" / "rgat-mag240m.json"
 RGAT_FANOUTS = (25, 15)
 RGAT_KERNEL_NODES, RGAT_ENGINE_NODES = 1 << 20, 1 << 17
 RGAT_ALPHA_TOL = (1e-6, 1e-5)    # atol, rtol: alpha lies in [0, 1]
+H2D_X = (1 << 23, 128)           # [h2d]: a 4-GiB f32 X
 DEVICE = "cuda"
 
 
@@ -881,6 +890,68 @@ def rgat_phase(torch, kops, launches):
         f"; max err vs ref {err:.3e} (atol 1e-4, rtol 3e-3); vs the plain "
         f"reference rel_l2 {perr['rel_l2']:.3e}, max_err "
         f"{perr['max_err']:.3e}")
+
+
+def h2d_phase(torch, lg):
+    """[h2d]: a 4-GiB f32 X and ``lg``'s ``nbr``/``mask`` bound through
+    ``core.ops._bind`` (the staging ring): bitwise ``torch.as_tensor``'s,
+    all of their bytes staged, X's rate beside a pinned DMA's and the
+    pageable copy's (host clock to a synchronize, median of 3)."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.core import ops
+    dev = torch.device(DEVICE)
+
+    def seconds(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts)
+
+    def bitwise(got, want):
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        return got.shape == want.shape and bool(torch.equal(got, want))
+
+    g = torch.Generator(device=dev).manual_seed(33)
+    X = torch.empty(H2D_X, dtype=torch.int32, device=dev).random_(
+        generator=g).cpu().numpy().view(np.float32)
+    ex = ops.RefExecutor(device=dev)
+    tel = obs.Telemetry(enabled=True)
+    with obs.use(tel):
+        H = ex.prepare(X)
+        io = ops.DenseIO.from_layer_graph(lg, dev)
+    check(bitwise(H, torch.as_tensor(X, device=dev)),
+          "[h2d] prepare: X differs from torch.as_tensor's")
+    check(bitwise(io.nbr, torch.as_tensor(lg.nbr, dtype=torch.int32,
+                                          device=dev))
+          and bitwise(io.mask, torch.as_tensor(lg.mask, dtype=torch.bool,
+                                               device=dev)),
+          "[h2d] DenseIO: nbr or mask differs from torch.as_tensor's")
+    h2d = tel.counters["io.h2d_bytes"]
+    share = tel.counters.get("io.h2d_staged_bytes", 0) / h2d
+    check(h2d == X.nbytes + lg.nbr.size * 4 + lg.mask.size and share == 1.0,
+          f"[h2d] {h2d} bytes bound, staged share {share}, expected 1.0")
+    del H, io
+    staged_s = seconds(lambda: ex.prepare(X))
+    pageable_s = seconds(lambda: torch.as_tensor(X, device=dev))
+    pin = torch.empty(1 << 30, dtype=torch.uint8, pin_memory=True)
+    pin.copy_(torch.as_tensor(X).view(-1).view(torch.uint8)[:1 << 30])
+    d = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    pinned_s = seconds(lambda: d.copy_(pin, non_blocking=True))
+    del pin, d
+    gb = X.nbytes / 1e9
+    log(f"[h2d] {h2d / 2 ** 30:.4f} GiB bound (X {X.nbytes / 2 ** 30:.0f} "
+        f"GiB, nbr and mask of {lg.nbr.shape[0]} x {lg.nbr.shape[1]}), "
+        f"bitwise torch.as_tensor's, staged share {share:.4f}; X through "
+        f"the ring {staged_s * 1e3:.1f} ms, {gb / staged_s:.2f} GB/s "
+        f"({ops.STAGE_BUFFERS} x {ops.STAGE_CHUNK >> 20} MiB); pinned DMA "
+        f"{(1 << 30) / 1e9 / pinned_s:.2f} GB/s; pageable "
+        f"{gb / pageable_s:.2f} GB/s")
 
 
 def subset_equal(torch, fn, full, q, k, nbr, mask, **kw):
@@ -4613,11 +4684,12 @@ def mesh_phase(torch, kops, launches, card):
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("all", "mesh", "dryrun", "rgat"),
+    ap.add_argument("--phase",
+                    choices=("all", "mesh", "dryrun", "rgat", "h2d"),
                     default="all",
                     help="mesh: build the kernels and run [mesh] alone; "
                          "dryrun: [dryrun], then [mesh]; rgat: [rgat] "
-                         "alone")
+                         "alone; h2d: [h2d] alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4697,7 +4769,7 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    if args.phase != "all":
+    if args.phase != "all" and args.phase != "h2d":
         launches = {name: 0 for name in kops.KERNELS}
         if args.phase == "dryrun":
             t0 = time.perf_counter()
@@ -4722,7 +4794,20 @@ def main() -> int:
     lg64 = sample_layer_graphs(g, WIDE_FANOUT, 1, seed=0)[0]
     log(f"[kernels] layer graph of {n} nodes, {g.n_edges} edges in "
         f"{time.perf_counter() - t0:.1f} s")
+    if args.phase == "h2d":
+        t0 = time.perf_counter()
+        h2d_phase(torch, lg)
+        log(f"[h2d] phase took {time.perf_counter() - t0:.1f} s; "
+            f"{time.perf_counter() - t_start:.1f} s in all")
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     rows = kernel_phase(torch, kops, lg)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    h2d_phase(torch, lg)
+    log(f"[h2d] phase took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     rows["rgat_attention"] = rgat_attention_check(torch, kops)
     torch.cuda.empty_cache()

@@ -33,6 +33,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
+import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -112,6 +113,111 @@ def gemm_rows(h, w, out=None):
 
 
 # ----------------------------------------------------------------------
+# the staging ring: host arrays to a card through page-locked buffers
+# ----------------------------------------------------------------------
+
+# STAGE_BUFFERS page-locked host buffers of STAGE_CHUNK bytes each, chosen
+# by tools/h2d_copy.py on the card (PERF.md §5): their product is pinned,
+# once a process and device, and nothing on the device
+STAGE_BUFFERS = 2
+STAGE_CHUNK = 16 << 20
+# torch's CPU threads for the host's copy into the buffers, at the least:
+# one thread copies at a fifth of what eight do on an H100's host, and the
+# benchmark (gnnbench/run.py) holds torch's pool to one
+STAGE_THREADS = 8
+# host arrays of fewer bytes (as bound) keep the plain pageable copy
+STAGE_MIN_BYTES = 8 << 20
+
+
+def chunk_plan(n: int, itemsize: int, chunk_bytes: int):
+    """The ring's chunks of an n-element array of ``itemsize``-byte
+    elements: (start, stop) element ranges of at most ``chunk_bytes``
+    bytes each, in order, covering [0, n) once."""
+    step = max(chunk_bytes // itemsize, 1)
+    return [(i, min(i + step, n)) for i in range(0, n, step)]
+
+
+class StageRing:
+    """``buffers`` page-locked host buffers of ``chunk`` bytes on one CUDA
+    device, an event a buffer and a copy stream of its own.  ``copy``
+    deals a host array's chunks to the buffers in turn: torch's
+    multi-threaded copy of a chunk into a buffer whose last DMA is done
+    overlaps the DMAs of the chunks before it."""
+
+    def __init__(self, device: torch.device, buffers: int = STAGE_BUFFERS,
+                 chunk: int = STAGE_CHUNK):
+        self.device = device
+        self.chunk = chunk
+        self.bufs = [torch.empty(chunk, dtype=torch.uint8, pin_memory=True)
+                     for _ in range(buffers)]
+        self.events = [torch.cuda.Event() for _ in range(buffers)]
+        self.stream = torch.cuda.Stream(device)
+        self.lock = threading.Lock()
+
+    def copy(self, src: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """A C-contiguous CPU tensor as a new ``dtype`` tensor on the
+        device, bitwise ``torch.as_tensor``'s: a conversion runs in the
+        host's copy, a chunk at a time, so the bytes that cross the link
+        are the result's own.  The host's copies run on at least
+        ``STAGE_THREADS`` of torch's threads (the caller's count is put
+        back after).  The result is allocated on the current stream,
+        which waits for the copies; the host does not."""
+        out = torch.empty(src.shape, dtype=dtype, device=self.device)
+        flat, dst = src.reshape(-1), out.view(-1)
+        size = out.element_size()
+        cur = torch.cuda.current_stream(self.device)
+        threads = torch.get_num_threads()
+        with self.lock, torch.cuda.stream(self.stream):
+            torch.set_num_threads(max(threads, STAGE_THREADS))
+            try:
+                self.stream.wait_stream(cur)   # out's block may be reused
+                for i, (a, b) in enumerate(chunk_plan(flat.numel(), size,
+                                                      self.chunk)):
+                    k = i % len(self.bufs)
+                    self.events[k].synchronize()   # its last DMA is done
+                    buf = self.bufs[k][:(b - a) * size].view(dtype)
+                    buf.copy_(flat[a:b])
+                    dst[a:b].copy_(buf, non_blocking=True)
+                    self.events[k].record(self.stream)
+                cur.wait_stream(self.stream)
+            finally:
+                torch.set_num_threads(threads)
+        return out
+
+
+_RINGS: Dict[int, StageRing] = {}
+
+
+def _ring(device: torch.device) -> StageRing:
+    """The process's ring for a CUDA device, made at its first use."""
+    idx = torch.cuda.current_device() if device.index is None \
+        else device.index
+    if idx not in _RINGS:
+        _RINGS[idx] = StageRing(torch.device("cuda", idx))
+    return _RINGS[idx]
+
+
+def _stage_source(a, device: torch.device, dtype) -> Optional[torch.Tensor]:
+    """``a`` as a CPU tensor (sharing its memory) where the ring takes
+    its copy: a C-contiguous numpy array or CPU tensor bound to a CUDA
+    device at ``STAGE_MIN_BYTES`` bytes or more; None where the plain
+    copy does."""
+    if device.type != "cuda":
+        return None
+    if isinstance(a, np.ndarray):
+        if not a.flags.c_contiguous:
+            return None
+        src = torch.as_tensor(a)
+    elif (isinstance(a, torch.Tensor) and a.device.type == "cpu"
+          and a.is_contiguous()):
+        src = a
+    else:
+        return None
+    itemsize = (dtype or src.dtype).itemsize
+    return src if src.numel() * itemsize >= STAGE_MIN_BYTES else None
+
+
+# ----------------------------------------------------------------------
 # graph binding
 # ----------------------------------------------------------------------
 
@@ -126,7 +232,16 @@ def _bind(a, device: torch.device, dtype=None):
     """``torch.as_tensor(a, dtype=dtype, device=device)`` and the bytes
     it copied from host memory to a CUDA device, added to the
     ``io.h2d_bytes`` counter where the copy is issued (0 on the CPU, or
-    where ``a`` is on the device already)."""
+    where ``a`` is on the device already).  A host array the ring takes
+    (``_stage_source``) crosses through it, bitwise the same, and its
+    bytes are added to ``io.h2d_staged_bytes`` too."""
+    src = _stage_source(a, device, dtype)
+    if src is not None:
+        t = _ring(device).copy(src, dtype or src.dtype)
+        n = t.numel() * t.element_size()
+        obs.add("io.h2d_bytes", n)
+        obs.add("io.h2d_staged_bytes", n)
+        return t, n
     t = torch.as_tensor(a, dtype=dtype, device=device)
     if not _h2d(a, t):
         return t, 0
